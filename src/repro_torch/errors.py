@@ -1,15 +1,40 @@
 """Errors a drain can raise (DESIGN.md §10).
 
-The port raises one error of its own so far: ``ScheduleVerificationError``,
-from the static verifier.  The rest of the JAX package's taxonomy (the
-``ServeError`` tree of drain, in-flight, stall and serving failures) comes
-with the asynchronous drains and serving that raise it (ROADMAP queue A9).
+Every failure the port surfaces to a caller is an instance of
+``ServeError``, so application code can catch one base class and branch on
+the concrete type, as in the JAX package:
+
+    ServeError
+    ├── NumericalError    a drain completed but produced non-finite values
+    │                     (singular pivot, overflow) — deterministic, so
+    │                     never retried
+    └── ScheduleVerificationError
+                          the static verifier proved a schedule invariant
+                          violated; the message names the site and the
+                          offending task pair
+
+The rest of the JAX package's tree (drain, in-flight, stall and serving
+failures) comes with the asynchronous drains and serving that raise it
+(ROADMAP queue A9).
 """
 
 from __future__ import annotations
 
 
-class ScheduleVerificationError(Exception):
+class ServeError(Exception):
+    """Base class for every runtime-surfaced drain/serving failure."""
+
+
+class NumericalError(ServeError):
+    """A drain completed but the result contains non-finite values.
+
+    Deterministic (re-running the same request reproduces it), so a caller
+    fails the request instead of retrying it.  Raised by the LU entry
+    points' ``check_finite=True``.
+    """
+
+
+class ScheduleVerificationError(ServeError):
     """A schedule invariant failed static verification (DESIGN.md §11).
 
     Raised by the hazard analysis (a dependence the versioning DAG does not
@@ -29,4 +54,4 @@ class ScheduleVerificationError(Exception):
         super().__init__(msg)
 
 
-__all__ = ["ScheduleVerificationError"]
+__all__ = ["NumericalError", "ScheduleVerificationError", "ServeError"]

@@ -1,16 +1,22 @@
-// Hand-written Hopper (sm_90a) kernels for the four Cholesky tile bodies.
+// Hand-written Hopper (sm_90a) kernels for the nine tile bodies of blocked
+// Cholesky and pivot-free LU.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tile_linalg.py:
-//   potrf_kernel  <- _potrf_tile / batched_potrf / grid_potrf
-//   trsm_kernel   <- _trsm_tile  / batched_trsm  / grid_trsm
-//   syrk_kernel   <- _syrk_tile  / batched_syrk  / grid_syrk
-//   gemm_kernel   <- _gemm_tile  / batched_gemm  / grid_gemm
+//   potrf_kernel   <- _potrf_tile  / batched_potrf  / grid_potrf
+//   trsm_kernel    <- _trsm_tile   / batched_trsm   / grid_trsm
+//   syrk_kernel    <- _syrk_tile   / batched_syrk   / grid_syrk
+//   gemm_kernel    <- _gemm_tile   / batched_gemm   / grid_gemm
+//   getrf_kernel   <- _getrf_tile  / batched_getrf  / grid_getrf
+//   trsml_kernel   <- _trsml_tile  / batched_trsml  / grid_trsml
+//   trsmu_kernel   <- _trsmu_tile  / batched_trsmu  / grid_trsmu
+//   trsmul_kernel  <- _trsmul_tile / batched_trsmul / grid_trsmul
+//   gemmnn_kernel  <- _gemmnn_tile / batched_gemmnn / grid_gemmnn
 // and the fused gather/compute/scatter entry make_grid_fused (unstacked
 // form): every kernel reads its task's blocks straight from the resident
-// (nr, nc, b, b) grids through (n, 2) int32 block indices and writes the
-// result in place into the written argument's grid.  The batched form is
-// the same kernel on a stack viewed as an (n, 1, b, b) grid with identity
-// indices.
+// (nr, nc, br, bc) grids through (n, 2) int32 block indices and writes the
+// result in place into the written argument's grid.  Each argument has its
+// own tile shape.  The batched form is the same kernel on a stack viewed as
+// an (n, 1, br, bc) grid with identity indices.
 //
 // One CTA per task.  Tasks of one launch are independent (the planner's
 // V3/V4 invariants: no task writes a block another task of the launch
@@ -26,17 +32,26 @@
 //   and runs the recurrence over shared memory.  At b = 128 this needs
 //   66 KB (POTRF) and 132 KB (TRSM) of dynamic shared memory, above the
 //   48 KB default, so the launcher raises the limit first.
-// - GEMM and SYRK (C -= A B^T, fp32) are the bulk of the FLOPs.  At b = 128
-//   one task alone moves 4 tiles (256 KB) for 4.2 MFLOP, 16 FLOP/byte, just
-//   below the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte);
-//   but the tasks of a Cholesky group share their A and B blocks, so a
-//   large group, each distinct block counted once, is bound by operations.
-//   The kernel stages 32-deep K chunks of A and B in shared memory
-//   (transposed, padded) and each of 256 threads keeps an R x R register
-//   tile of C (R = ceil(b / 16)), so every shared load feeds R FMAs and a
-//   CTA reads each of its input tiles from device memory once.
-//   FMAs run on the CUDA cores in full fp32: no TF32, so the results hold
-//   the float32 reference's tolerance.
+// - GETRF, TRSML, TRSMU and TRSMUL are the LU family's recurrences, latency
+//   bound for the same reason (one GETRF per panel; at most nr TRSMs of
+//   each kind per group).  GETRF keeps the tile in shared memory and spreads
+//   each step's rank-1 update of the trailing block over all 256 threads.
+//   TRSMU is TRSM with U read by column: one thread per row of B.  TRSML and
+//   TRSMUL are row recurrences whose columns are independent; a right-hand
+//   side may be a single column (a blocked vector), so each column gets a
+//   team of g lanes (g = 32 for one column, 2 for 128) that split each
+//   row's inner product and reduce it with warp shuffles.
+// - GEMM, SYRK and GEMMNN (C -= A B^T, C -= A A^T, C -= A B; fp32) are the
+//   bulk of the FLOPs.  At b = 128 one task alone moves 4 tiles (256 KB)
+//   for 4.2 MFLOP, 16 FLOP/byte, just below the card's fp32 ridge
+//   (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte); but the tasks of a group
+//   share their A and B blocks, so a large group, each distinct block
+//   counted once, is bound by operations.  The kernel stages 32-deep K
+//   chunks of A and B in shared memory (A transposed, padded) and each of
+//   256 threads keeps an R x R register tile of C (R = ceil(max(m, q) / 16)),
+//   so every shared load feeds R FMAs and a CTA reads each of its input
+//   tiles from device memory once.  FMAs run on the CUDA cores in full
+//   fp32: no TF32, so the results hold the float32 reference's tolerance.
 //
 // Every entry point returns cudaGetLastError() (0 = launched); the Python
 // wrapper raises on anything else, since a refused launch never runs and
@@ -46,12 +61,13 @@
 
 namespace {
 
-constexpr int kMaxB = 128;  // largest tile edge the kernels accept
-constexpr int kKC = 32;     // K chunk of the GEMM/SYRK shared-memory stage
+constexpr int kMaxB = 128;     // largest tile edge the kernels accept
+constexpr int kKC = 32;        // K chunk of the GEMM/SYRK/GEMMNN shared-memory stage
+constexpr int kThreads = 256;  // threads of the GETRF, TRSML/TRSMUL and GEMM-family CTAs
 
-__device__ __forceinline__ long long block_offset(const int* idx, int task, int nc, int b) {
+__device__ __forceinline__ long long block_offset(const int* idx, int task, int nc, int br, int bc) {
   const long long r = idx[2 * task], c = idx[2 * task + 1];
-  return (r * nc + c) * (long long)b * b;
+  return (r * nc + c) * (long long)br * bc;
 }
 
 // ---------------------------------------------------------------------------
@@ -65,7 +81,7 @@ __device__ __forceinline__ long long block_offset(const int* idx, int task, int 
 __global__ void potrf_kernel(float* grid, int nc, const int* idx, int b) {
   extern __shared__ float T[];
   const int ld = b + 1;
-  float* tile = grid + block_offset(idx, blockIdx.x, nc, b);
+  float* tile = grid + block_offset(idx, blockIdx.x, nc, b, b);
   for (int e = threadIdx.x; e < b * b; e += blockDim.x) T[(e / b) * ld + e % b] = tile[e];
   __syncthreads();
   const int i = threadIdx.x;  // the row this thread owns (blockDim.x >= b)
@@ -86,42 +102,156 @@ __global__ void potrf_kernel(float* grid, int nc, const int* idx, int b) {
 }
 
 // ---------------------------------------------------------------------------
-// TRSM: X = B inv(L)^T.  Row p of X depends only on row p of B and on L:
-// x_j = (b_j - sum_{k<j} x_k L[j,k]) / L[j,j], so one thread per row runs
-// forward substitution over its row, overwriting B with X in shared
-// memory.  L's upper triangle is never read.
+// TRSM / TRSMU: X = B inv(L)^T with L lower (_trsm_tile; B is b x b), or
+// X = B inv(U) with U non-unit upper (_trsmu_tile; B is br x b).  Row p of
+// X depends only on row p of B and on the triangle:
+//   TRSM:  x_j = (b_j - sum_{k<j} x_k L[j][k]) / L[j][j]
+//   TRSMU: x_j = (b_j - sum_{k<j} x_k U[k][j]) / U[j][j]
+// so one thread per row runs forward substitution over its row, overwriting
+// B with X in shared memory: TRSMU is TRSM with the triangle read by column.
+// Neither reads the other triangle.
 // ---------------------------------------------------------------------------
-__global__ void trsm_kernel(const float* lgrid, int lnc, const int* lidx,
-                            float* bgrid, int bnc, const int* bidx, int b) {
+template <bool kByColumn>
+__device__ __forceinline__ void trsm_right_rows(const float* tgrid, int tnc, const int* tidx,
+                                                float* bgrid, int bnc, const int* bidx, int br,
+                                                int b) {
   extern __shared__ float smem[];
   const int ld = b + 1;
-  float* L = smem;
-  float* X = smem + b * ld;
-  const float* lt = lgrid + block_offset(lidx, blockIdx.x, lnc, b);
-  float* bt = bgrid + block_offset(bidx, blockIdx.x, bnc, b);
-  for (int e = threadIdx.x; e < b * b; e += blockDim.x) {
-    L[(e / b) * ld + e % b] = lt[e];
-    X[(e / b) * ld + e % b] = bt[e];
-  }
-  __syncthreads();
-  const int p = threadIdx.x;
-  if (p < b) {
-    for (int j = 0; j < b; ++j) {
-      float s = 0.f;
-      for (int k = 0; k < j; ++k) s += X[p * ld + k] * L[j * ld + k];
-      X[p * ld + j] = (X[p * ld + j] - s) / L[j * ld + j];
+  float* T = smem;           // the triangle, row-major, padded
+  float* X = smem + b * ld;  // B, then X, row-major, padded
+  const float* tt = tgrid + block_offset(tidx, blockIdx.x, tnc, b, b);
+  float* bt = bgrid + block_offset(bidx, blockIdx.x, bnc, br, b);
+  if (kByColumn) {  // B may have br != b rows
+    for (int e = threadIdx.x; e < b * b; e += blockDim.x) T[(e / b) * ld + e % b] = tt[e];
+    for (int e = threadIdx.x; e < br * b; e += blockDim.x) X[(e / b) * ld + e % b] = bt[e];
+  } else {  // square: both staged in one pass, two loads in flight per step
+    for (int e = threadIdx.x; e < b * b; e += blockDim.x) {
+      T[(e / b) * ld + e % b] = tt[e];
+      X[(e / b) * ld + e % b] = bt[e];
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < b * b; e += blockDim.x) bt[e] = X[(e / b) * ld + e % b];
+  const int p = threadIdx.x;
+  if (p < br) {
+    for (int j = 0; j < b; ++j) {
+      float s = 0.f;
+      for (int k = 0; k < j; ++k) s += X[p * ld + k] * (kByColumn ? T[k * ld + j] : T[j * ld + k]);
+      X[p * ld + j] = (X[p * ld + j] - s) / T[j * ld + j];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < br * b; e += blockDim.x) bt[e] = X[(e / b) * ld + e % b];
+}
+
+__global__ void trsm_kernel(const float* lgrid, int lnc, const int* lidx,
+                            float* bgrid, int bnc, const int* bidx, int b) {
+  trsm_right_rows<false>(lgrid, lnc, lidx, bgrid, bnc, bidx, b, b);
+}
+
+__global__ void trsmu_kernel(const float* ugrid, int unc, const int* uidx, float* bgrid,
+                             int bnc, const int* bidx, int br, int b) {
+  trsm_right_rows<true>(ugrid, unc, uidx, bgrid, bnc, bidx, br, b);
 }
 
 // ---------------------------------------------------------------------------
-// GEMM / SYRK: C -= A B^T (SYRK: B = A).  256 threads as a 16 x 16 grid;
-// thread (tx, ty) owns C[ty + 16 i][tx + 16 j] for i, j < R.
+// GETRF: pivot-free right-looking LU of one tile, L\U packed (_getrf_tile).
+// Step k scales column k below the pivot, then applies the rank-1 update
+// T[i][j] -= T[i][k] T[k][j] to the trailing (b-k-1)^2 block, a warp per
+// row and its lanes along the row (conflict-free; T[i][k] is a broadcast).
+// Two barriers per step; the tile never leaves shared memory.
 // ---------------------------------------------------------------------------
-template <int R>
-__device__ __forceinline__ void update_tile(const float* A, const float* Bm, float* C, int b) {
+__global__ void __launch_bounds__(kThreads) getrf_kernel(float* grid, int nc, const int* idx, int b) {
+  extern __shared__ float T[];
+  const int ld = b + 1;
+  float* tile = grid + block_offset(idx, blockIdx.x, nc, b, b);
+  for (int e = threadIdx.x; e < b * b; e += kThreads) T[(e / b) * ld + e % b] = tile[e];
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int k = 0; k < b; ++k) {
+    const float piv = T[k * ld + k];
+    for (int i = k + 1 + threadIdx.x; i < b; i += kThreads) T[i * ld + k] /= piv;
+    __syncthreads();
+    for (int i = k + 1 + warp; i < b; i += kThreads / 32) {
+      const float l = T[i * ld + k];
+      for (int j = k + 1 + lane; j < b; j += 32) T[i * ld + j] -= l * T[k * ld + j];
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < b * b; e += kThreads) tile[e] = T[(e / b) * ld + e % b];
+}
+
+// ---------------------------------------------------------------------------
+// TRSML / TRSMUL: X = inv(L) B with L unit-lower (_trsml_tile), or
+// X = inv(U) B with U non-unit upper, bottom-up (_trsmul_tile); B is
+// (b, bc).  Row recurrence, columns independent:
+//   TRSML:  X[i] = B[i] - sum_{k<i} L[i][k] X[k]
+//   TRSMUL: X[i] = (B[i] - sum_{k>i} U[i][k] X[k]) / U[i][i]
+// so TRSML never reads L's diagonal or upper part and TRSMUL never reads
+// U's strictly-lower part (packed L\U blocks pass unmasked).  Column c
+// belongs to a team of g lanes of one warp (g a power of two, g * bc <=
+// 256): the team splits each row's inner product, reduces it with xor
+// shuffles inside the team, and its first lane writes X[i][c].  Each
+// column is written and read by its own warp only, so a row needs
+// __syncwarp(), not a CTA barrier.  X is held transposed (ld b + 1), so
+// a team's lanes read consecutive addresses.
+// ---------------------------------------------------------------------------
+template <bool kUpper>
+__device__ __forceinline__ void trsm_rows(const float* tgrid, int tnc, const int* tidx,
+                                          float* bgrid, int bnc, const int* bidx, int b,
+                                          int bc, int g) {
+  extern __shared__ float smem[];
+  const int ld = b + 1;
+  float* T = smem;           // the triangle, row-major, padded
+  float* XT = smem + b * ld;  // X transposed: XT[c * ld + i] = X[i][c]
+  const float* tt = tgrid + block_offset(tidx, blockIdx.x, tnc, b, b);
+  float* bt = bgrid + block_offset(bidx, blockIdx.x, bnc, b, bc);
+  for (int e = threadIdx.x; e < b * b; e += kThreads) T[(e / b) * ld + e % b] = tt[e];
+  for (int e = threadIdx.x; e < b * bc; e += kThreads) XT[(e % bc) * ld + e / bc] = bt[e];
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sub = lane % g;
+  const int c = warp * (32 / g) + lane / g;
+  const bool own = c < bc;
+  float* x = XT + (own ? c : 0) * ld;
+  for (int step = 0; step < b; ++step) {
+    const int i = kUpper ? b - 1 - step : step;
+    float s = 0.f;
+    if (own) {
+      if (kUpper) {
+        for (int k = i + 1 + sub; k < b; k += g) s += T[i * ld + k] * x[k];
+      } else {
+        for (int k = sub; k < i; k += g) s += T[i * ld + k] * x[k];
+      }
+    }
+    for (int off = g / 2; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (own && sub == 0) x[i] = kUpper ? (x[i] - s) / T[i * ld + i] : x[i] - s;
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < b * bc; e += kThreads) bt[e] = XT[(e % bc) * ld + e / bc];
+}
+
+__global__ void __launch_bounds__(kThreads)
+trsml_kernel(const float* lgrid, int lnc, const int* lidx, float* bgrid, int bnc,
+             const int* bidx, int b, int bc, int g) {
+  trsm_rows<false>(lgrid, lnc, lidx, bgrid, bnc, bidx, b, bc, g);
+}
+
+__global__ void __launch_bounds__(kThreads)
+trsmul_kernel(const float* ugrid, int unc, const int* uidx, float* bgrid, int bnc,
+              const int* bidx, int b, int bc, int g) {
+  trsm_rows<true>(ugrid, unc, uidx, bgrid, bnc, bidx, b, bc, g);
+}
+
+// ---------------------------------------------------------------------------
+// GEMM / SYRK / GEMMNN: C (m x q) -= A (m x kd) op(B), op(B) = B^T with B
+// (q x kd) row-major (GEMM, SYRK with B = A; square tiles, m == kd == q) or
+// B (kd x q) row-major (GEMMNN).  256 threads as a 16 x 16 grid; thread
+// (tx, ty) owns C[ty + 16 i][tx + 16 j] for i, j < R.
+// ---------------------------------------------------------------------------
+template <int R, bool kTransB>
+__device__ __forceinline__ void update_tile(const float* A, const float* Bm, float* C, int m,
+                                            int kd, int q) {
   __shared__ float As[kKC][kMaxB + 1];
   __shared__ float Bs[kKC][kMaxB + 1];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -130,12 +260,23 @@ __device__ __forceinline__ void update_tile(const float* A, const float* Bm, flo
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < b; k0 += kKC) {
-    const int kc = min(kKC, b - k0);
-    for (int e = threadIdx.x; e < b * kc; e += blockDim.x) {
-      const int r = e / kc, kk = e % kc;
-      As[kk][r] = A[r * b + k0 + kk];
-      Bs[kk][r] = Bm[r * b + k0 + kk];
+  for (int k0 = 0; k0 < kd; k0 += kKC) {
+    const int kc = min(kKC, kd - k0);
+    if (kTransB) {  // square: A and B staged in one pass
+      for (int e = threadIdx.x; e < m * kc; e += blockDim.x) {
+        const int r = e / kc, kk = e % kc;
+        As[kk][r] = A[r * kd + k0 + kk];
+        Bs[kk][r] = Bm[r * kd + k0 + kk];
+      }
+    } else {  // B's row is contiguous along q
+      for (int e = threadIdx.x; e < m * kc; e += blockDim.x) {
+        const int r = e / kc, kk = e % kc;
+        As[kk][r] = A[r * kd + k0 + kk];
+      }
+      for (int e = threadIdx.x; e < kc * q; e += blockDim.x) {
+        const int kk = e / q, c = e % q;
+        Bs[kk][c] = Bm[(k0 + kk) * q + c];
+      }
     }
     __syncthreads();
     for (int kk = 0; kk < kc; ++kk) {
@@ -156,30 +297,62 @@ __device__ __forceinline__ void update_tile(const float* A, const float* Bm, flo
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int r = ty + 16 * i, c = tx + 16 * j;
-      if (r < b && c < b) C[r * b + c] -= acc[i][j];
+      if (r < m && c < q) C[r * q + c] -= acc[i][j];
     }
 }
 
 template <int R>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 gemm_kernel(const float* ag, int anc, const int* aidx, const float* bg, int bnc,
             const int* bidx, float* cg, int cnc, const int* cidx, int b) {
-  update_tile<R>(ag + block_offset(aidx, blockIdx.x, anc, b),
-                 bg + block_offset(bidx, blockIdx.x, bnc, b),
-                 cg + block_offset(cidx, blockIdx.x, cnc, b), b);
+  update_tile<R, true>(ag + block_offset(aidx, blockIdx.x, anc, b, b),
+                       bg + block_offset(bidx, blockIdx.x, bnc, b, b),
+                       cg + block_offset(cidx, blockIdx.x, cnc, b, b), b, b, b);
 }
 
 template <int R>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 syrk_kernel(const float* ag, int anc, const int* aidx, float* cg, int cnc,
             const int* cidx, int b) {
-  const float* a = ag + block_offset(aidx, blockIdx.x, anc, b);
-  update_tile<R>(a, a, cg + block_offset(cidx, blockIdx.x, cnc, b), b);
+  const float* a = ag + block_offset(aidx, blockIdx.x, anc, b, b);
+  update_tile<R, true>(a, a, cg + block_offset(cidx, blockIdx.x, cnc, b, b), b, b, b);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+gemmnn_kernel(const float* ag, int anc, const int* aidx, const float* bg, int bnc,
+              const int* bidx, float* cg, int cnc, const int* cidx, int m, int k, int q) {
+  update_tile<R, false>(ag + block_offset(aidx, blockIdx.x, anc, m, k),
+                        bg + block_offset(bidx, blockIdx.x, bnc, k, q),
+                        cg + block_offset(cidx, blockIdx.x, cnc, m, q), m, k, q);
 }
 
 int row_threads(int b) { return ((b + 31) / 32) * 32; }
 
-bool bad_args(int n, int b) { return n < 1 || b < 1 || b > kMaxB; }
+bool bad_edge(int e) { return e < 1 || e > kMaxB; }
+
+bool bad_args(int n, int b) { return n < 1 || bad_edge(b); }
+
+// bytes of `rows` shared-memory rows of b floats at the padded stride b + 1
+int padded_bytes(int rows, int b) { return rows * (b + 1) * (int)sizeof(float); }
+
+// the largest power of two g <= 32 with g * bc <= kThreads: lanes per column
+int team_lanes(int bc) {
+  int g = 32;
+  while (g > 1 && g * bc > kThreads) g /= 2;
+  return g;
+}
+
+// Launch `kernel` on n CTAs with `smem` bytes of dynamic shared memory,
+// raising the kernel's limit first (above 48 KB it must be asked for).
+template <typename K, typename... Args>
+int launch_smem(K kernel, int n, int threads, int smem, void* stream, Args... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n, threads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -187,40 +360,33 @@ extern "C" {
 
 int tile_potrf(float* grid, int nc, const int* idx, int n, int b, void* stream) {
   if (bad_args(n, b)) return (int)cudaErrorInvalidValue;
-  const int smem = b * (b + 1) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(potrf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  potrf_kernel<<<n, row_threads(b), smem, (cudaStream_t)stream>>>(grid, nc, idx, b);
-  return (int)cudaGetLastError();
+  return launch_smem(potrf_kernel, n, row_threads(b), padded_bytes(b, b), stream, grid, nc, idx, b);
 }
 
 int tile_trsm(const float* lgrid, int lnc, const int* lidx, float* bgrid, int bnc,
               const int* bidx, int n, int b, void* stream) {
   if (bad_args(n, b)) return (int)cudaErrorInvalidValue;
-  const int smem = 2 * b * (b + 1) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(trsm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  trsm_kernel<<<n, row_threads(b), smem, (cudaStream_t)stream>>>(lgrid, lnc, lidx, bgrid, bnc, bidx, b);
-  return (int)cudaGetLastError();
+  return launch_smem(trsm_kernel, n, row_threads(b), padded_bytes(2 * b, b), stream, lgrid, lnc,
+                     lidx, bgrid, bnc, bidx, b);
 }
 
-#define TILE_DISPATCH(KERNEL, ...)                                      \
-  switch ((b + 15) / 16) {                                              \
-    case 1: KERNEL<1><<<n, 256, 0, s>>>(__VA_ARGS__); break;            \
-    case 2: KERNEL<2><<<n, 256, 0, s>>>(__VA_ARGS__); break;            \
-    case 3: KERNEL<3><<<n, 256, 0, s>>>(__VA_ARGS__); break;            \
-    case 4: KERNEL<4><<<n, 256, 0, s>>>(__VA_ARGS__); break;            \
-    case 5: KERNEL<5><<<n, 256, 0, s>>>(__VA_ARGS__); break;            \
-    case 6: KERNEL<6><<<n, 256, 0, s>>>(__VA_ARGS__); break;            \
-    case 7: KERNEL<7><<<n, 256, 0, s>>>(__VA_ARGS__); break;            \
-    default: KERNEL<8><<<n, 256, 0, s>>>(__VA_ARGS__); break;           \
+#define TILE_DISPATCH(KERNEL, EDGE, ...)                                          \
+  switch (((EDGE) + 15) / 16) {                                                   \
+    case 1: KERNEL<1><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
+    case 2: KERNEL<2><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
+    case 3: KERNEL<3><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
+    case 4: KERNEL<4><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
+    case 5: KERNEL<5><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
+    case 6: KERNEL<6><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
+    case 7: KERNEL<7><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
+    default: KERNEL<8><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                \
   }
 
 int tile_syrk(const float* ag, int anc, const int* aidx, float* cg, int cnc,
               const int* cidx, int n, int b, void* stream) {
   if (bad_args(n, b)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  TILE_DISPATCH(syrk_kernel, ag, anc, aidx, cg, cnc, cidx, b)
+  TILE_DISPATCH(syrk_kernel, b, ag, anc, aidx, cg, cnc, cidx, b)
   return (int)cudaGetLastError();
 }
 
@@ -229,7 +395,42 @@ int tile_gemm(const float* ag, int anc, const int* aidx, const float* bg, int bn
               void* stream) {
   if (bad_args(n, b)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  TILE_DISPATCH(gemm_kernel, ag, anc, aidx, bg, bnc, bidx, cg, cnc, cidx, b)
+  TILE_DISPATCH(gemm_kernel, b, ag, anc, aidx, bg, bnc, bidx, cg, cnc, cidx, b)
+  return (int)cudaGetLastError();
+}
+
+int tile_getrf(float* grid, int nc, const int* idx, int n, int b, void* stream) {
+  if (bad_args(n, b)) return (int)cudaErrorInvalidValue;
+  return launch_smem(getrf_kernel, n, kThreads, padded_bytes(b, b), stream, grid, nc, idx, b);
+}
+
+int tile_trsml(const float* lgrid, int lnc, const int* lidx, float* bgrid, int bnc,
+               const int* bidx, int n, int b, int bc, void* stream) {
+  if (bad_args(n, b) || bad_edge(bc)) return (int)cudaErrorInvalidValue;
+  return launch_smem(trsml_kernel, n, kThreads, padded_bytes(b + bc, b), stream, lgrid, lnc, lidx,
+                     bgrid, bnc, bidx, b, bc, team_lanes(bc));
+}
+
+int tile_trsmul(const float* ugrid, int unc, const int* uidx, float* bgrid, int bnc,
+                const int* bidx, int n, int b, int bc, void* stream) {
+  if (bad_args(n, b) || bad_edge(bc)) return (int)cudaErrorInvalidValue;
+  return launch_smem(trsmul_kernel, n, kThreads, padded_bytes(b + bc, b), stream, ugrid, unc, uidx,
+                     bgrid, bnc, bidx, b, bc, team_lanes(bc));
+}
+
+int tile_trsmu(const float* ugrid, int unc, const int* uidx, float* bgrid, int bnc,
+               const int* bidx, int n, int br, int b, void* stream) {
+  if (bad_args(n, b) || bad_edge(br)) return (int)cudaErrorInvalidValue;
+  return launch_smem(trsmu_kernel, n, row_threads(br), padded_bytes(b + br, b), stream, ugrid, unc,
+                     uidx, bgrid, bnc, bidx, br, b);
+}
+
+int tile_gemmnn(const float* ag, int anc, const int* aidx, const float* bg, int bnc,
+                const int* bidx, float* cg, int cnc, const int* cidx, int n, int m, int k,
+                int q, void* stream) {
+  if (bad_args(n, m) || bad_edge(k) || bad_edge(q)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  TILE_DISPATCH(gemmnn_kernel, m > q ? m : q, ag, anc, aidx, bg, bnc, bidx, cg, cnc, cidx, m, k, q)
   return (int)cudaGetLastError();
 }
 

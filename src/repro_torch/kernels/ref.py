@@ -1,4 +1,4 @@
-"""Torch library oracles for the Cholesky tile kernels.
+"""Torch library oracles for the tile kernels.
 
 These are the leaves of the ``"torch"`` backend (graphs g1/g2), as the
 JAX package's ``kernels/ref.py`` is for its ``"jnp"`` backend, and the
@@ -10,12 +10,29 @@ Cholesky (paper Fig. 2b):
     syrk(a, c)    -> c - a @ a^T
     gemm(a, b, c) -> c - a @ b^T
 
-All oracles compute in float32 and cast back to the input dtype.  On the
-card, float32 matmuls must not drop to TF32 (about three decimal digits),
-or they would miss the reference tolerances: the matmul oracles, and the
-kernels' plain versions, run under ``fp32_matmul``, which sets
-``torch.backends.cuda.matmul.allow_tf32 = False`` for the call whatever the
-caller has set.
+and the blocked right-looking pivot-free LU:
+
+    getrf(a)        -> packed L\\U factors (L unit-lower implicit, U upper)
+    trsml(l, b)     -> inv(tril(l, unit)) @ b   (left, lower, unit-diagonal)
+    trsmu(u, b)     -> b @ inv(triu(u))         (right, upper, non-unit)
+    trsmul(u, b)    -> inv(triu(u)) @ b         (left, upper, non-unit)
+    gemmnn(a, b, c) -> c - a @ b
+    lu_solve(a, b)  -> (packed L\\U of a, x with a @ x == b)
+
+The triangular-solve oracles read only their own triangle (plus U's
+diagonal), so packed L\\U blocks pass without masking.  PyTorch has no
+pivot-free LU on the CPU (``lu_factor_ex(pivot=False)`` is CUDA-only), so
+``getrf`` runs the plain recurrence ``tile_linalg.getrf_plain`` on CPU
+tensors (as the JAX oracle delegates to its tile body: pivot-free LU has
+one defined recurrence) and ``lu_factor_ex(pivot=False)``, whose packed
+``LU`` is exactly L\\U, on CUDA tensors.
+
+All oracles compute in float32 and cast back to the input dtype, and take
+any leading batch dimensions.  On the card, float32 matmuls must not drop
+to TF32 (about three decimal digits), or they would miss the reference
+tolerances: the matmul oracles, and the kernels' plain versions, run under
+``fp32_matmul``, which sets ``torch.backends.cuda.matmul.allow_tf32 =
+False`` for the call whatever the caller has set.
 """
 
 from __future__ import annotations
@@ -57,3 +74,40 @@ def syrk(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 @fp32_matmul()
 def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (c.float() - a.float() @ b.float().mT).to(c.dtype)
+
+
+def getrf(a: torch.Tensor) -> torch.Tensor:
+    if a.device.type == "cuda":
+        return torch.linalg.lu_factor_ex(a.float(), pivot=False).LU.to(a.dtype)
+    from .tile_linalg import getrf_plain
+
+    return getrf_plain(a).to(a.dtype)
+
+
+def trsml(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    x = torch.linalg.solve_triangular(
+        l.float(), b.float(), upper=False, left=True, unitriangular=True
+    )
+    return x.to(b.dtype)
+
+
+def trsmu(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    x = torch.linalg.solve_triangular(u.float(), b.float(), upper=True, left=False)
+    return x.to(b.dtype)
+
+
+def trsmul(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    x = torch.linalg.solve_triangular(u.float(), b.float(), upper=True, left=True)
+    return x.to(b.dtype)
+
+
+@fp32_matmul()
+def gemmnn(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    return (c.float() - a.float() @ b.float()).to(c.dtype)
+
+
+def lu_solve(a: torch.Tensor, b: torch.Tensor):
+    """Factor then both substitutions on one block; returns ``(packed, x)``,
+    one updated array per READWRITE argument of the composed LUSOLVE."""
+    packed = getrf(a)
+    return packed, trsmul(packed, trsml(packed, b))

@@ -1,21 +1,29 @@
-"""Hand-written CUDA tile kernels for blocked Cholesky, with plain versions.
+"""Hand-written CUDA tile kernels for blocked Cholesky and LU, with plain
+versions.
 
 The leaves of the ``"cuda"`` backend (the paper's cuBLAS wrapper analog).
-Four kernels in ``csrc/tile_linalg.cu`` — POTRF, TRSM, SYRK and GEMM —
-each serve two forms:
+Nine kernels in ``csrc/tile_linalg.cu`` — POTRF, TRSM, SYRK and GEMM for
+Cholesky; GETRF, TRSML, TRSMU, TRSMUL and GEMMNN for pivot-free LU — each
+serve two forms:
 
 - the fused grid form (``grid_*``), the counterpart of the JAX package's
-  ``make_grid_fused``: every argument is a resident ``(nr, nc, b, b)`` grid
-  plus an ``(n, 2)`` int32 tensor of block indices; the kernel reads each
-  task's blocks through them and updates the written argument's grid IN
-  PLACE (one CTA per task; tasks of one call must write distinct blocks
+  ``make_grid_fused``: every argument is a resident ``(nr, nc, br, bc)``
+  grid plus an ``(n, 2)`` int32 tensor of block indices; the kernel reads
+  each task's blocks through them and updates the written argument's grid
+  IN PLACE (one CTA per task; tasks of one call must write distinct blocks
   that no other task of the call reads, which the planner guarantees);
-- the batched form (``batched_*``) on ``(n, b, b)`` stacks, which returns a
-  new stack: the wrapper copies the written stack and runs the same kernel
-  on it viewed as an ``(n, 1, b, b)`` grid with identity indices.
+- the batched form (``batched_*``) on ``(n, br, bc)`` stacks, which returns
+  a new stack: the wrapper copies the written stack and runs the same
+  kernel on it viewed as an ``(n, 1, br, bc)`` grid with identity indices.
+
+Each argument has its own tile shape; ``_dims`` holds every kernel's shape
+contract (the Cholesky four and GETRF take square tiles of one edge,
+TRSML/TRSMUL an edge-b triangle and a ``(b, bc)`` right-hand side, TRSMU a
+``(br, b)`` one, GEMMNN ``(m, k)``, ``(k, q)`` and ``(m, q)``), every edge
+within 1..MAX_TILE, on both devices.
 
 Beside each kernel is its plain PyTorch version (``*_plain``): the same
-column recurrence as the JAX tile body, batched over the stack.  The
+recurrence as the JAX tile body, over any leading batch dimensions.  The
 wrappers run the plain version for tensors on the CPU and launch the kernel
 for tensors on a CUDA device — there is no fallback between the two.
 ``LAUNCHES`` counts kernel launches per kernel.
@@ -24,7 +32,7 @@ for tensors on a CUDA device — there is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -33,8 +41,14 @@ from .ref import fp32_matmul
 
 MAX_TILE = 128  # largest tile edge the kernels accept (csrc kMaxB)
 
+# kernel name -> (arity, number of tile dimensions its C entry takes)
+_SIGNATURES = {
+    "potrf": (1, 1), "trsm": (2, 1), "syrk": (2, 1), "gemm": (3, 1),
+    "getrf": (1, 1), "trsml": (2, 2), "trsmu": (2, 2), "trsmul": (2, 2), "gemmnn": (3, 3),
+}
+
 # kernel name -> number of launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"potrf": 0, "trsm": 0, "syrk": 0, "gemm": 0}
+LAUNCHES: Dict[str, int] = {k: 0 for k in _SIGNATURES}
 
 
 def reset_launches() -> None:
@@ -43,8 +57,9 @@ def reset_launches() -> None:
 
 
 # --------------------------------------------------------------------------
-# Plain versions: the JAX tile bodies' recurrences, batched over (n, b, b),
-# with float32 matmuls in full float32 on the card (see ref.fp32_matmul)
+# Plain versions: the JAX tile bodies' recurrences, over leading batch
+# dimensions, with float32 matmuls in full float32 on the card (see
+# ref.fp32_matmul)
 # --------------------------------------------------------------------------
 @fp32_matmul()
 def potrf_plain(a: torch.Tensor) -> torch.Tensor:
@@ -55,12 +70,12 @@ def potrf_plain(a: torch.Tensor) -> torch.Tensor:
     L = torch.zeros_like(a)
     for j in range(b):
         # s[i] = sum_{k<j} L[i,k] * L[j,k]  (columns >= j of L are still zero)
-        s = (L @ L[:, j, :, None])[..., 0]
-        djj = torch.sqrt(a[:, j, j] - s[:, j])
-        col = (a[:, :, j] - s) / djj[:, None]
+        s = (L @ L[..., j, :, None])[..., 0]
+        djj = torch.sqrt(a[..., j, j] - s[..., j])
+        col = (a[..., :, j] - s) / djj[..., None]
         col = torch.where(idx > j, col, 0.0)
-        col[:, j] = djj
-        L[:, :, j] = col
+        col[..., j] = djj
+        L[..., :, j] = col
     return L
 
 
@@ -72,8 +87,8 @@ def trsm_plain(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     X = torch.zeros_like(b)
     for j in range(l.shape[-1]):
         # (X L^T)[:, j] = sum_{k<=j} X[:,k] L[j,k]; cols >= j of X still zero
-        s = (X @ l[:, j, :, None])[..., 0]
-        X[:, :, j] = (b[:, :, j] - s) / l[:, j, j, None]
+        s = (X @ l[..., j, :, None])[..., 0]
+        X[..., :, j] = (b[..., :, j] - s) / l[..., j, j, None]
     return X
 
 
@@ -88,6 +103,68 @@ def syrk_plain(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """C - A B^T for each triple of tiles, float32 accumulate."""
     return c.float() - a.float() @ b.float().mT
+
+
+def getrf_plain(a: torch.Tensor) -> torch.Tensor:
+    """Pivot-free right-looking LU of each tile, L\\U packed (unit L
+    implicit): scale column k below the pivot, then a masked rank-1 update
+    of the trailing block.  Written without in-place writes, so it also
+    runs under ``torch.func.vmap`` (the ``"torch"`` oracle on the CPU)."""
+    m = a.float()
+    b = m.shape[-1]
+    idx = torch.arange(b, device=m.device)
+    for k in range(b):
+        col = torch.where(idx > k, m[..., :, k] / m[..., k, k, None], m[..., :, k])
+        l = torch.where(idx > k, col, 0.0)
+        u = torch.where(idx > k, m[..., k, :], 0.0)
+        m = torch.where(idx == k, col[..., :, None], m) - l[..., :, None] * u[..., None, :]
+    return m
+
+
+@fp32_matmul()
+def trsml_plain(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """X = inv(L) B, L unit-lower: X[i] = B[i] - L[i] X.  Rows >= i of X are
+    still zero, so L's diagonal and upper junk multiply zeros."""
+    l = l.float()
+    b = b.float()
+    X = torch.zeros_like(b)
+    for i in range(l.shape[-1]):
+        X[..., i, :] = b[..., i, :] - (l[..., i, None, :] @ X)[..., 0, :]
+    return X
+
+
+@fp32_matmul()
+def trsmu_plain(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """X = B inv(U), U non-unit upper: X[:, j] = (B[:, j] - X U[:, j]) /
+    U[j, j].  Columns >= j of X are still zero, masking U's lower junk."""
+    u = u.float()
+    b = b.float()
+    X = torch.zeros_like(b)
+    for j in range(u.shape[-1]):
+        s = (X @ u[..., :, j, None])[..., 0]
+        X[..., :, j] = (b[..., :, j] - s) / u[..., j, j, None]
+    return X
+
+
+@fp32_matmul()
+def trsmul_plain(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """X = inv(U) B, U non-unit upper, bottom-up: X[i] = (B[i] - U[i] X) /
+    U[i, i].  Rows <= i of X are still zero, masking U's lower junk."""
+    u = u.float()
+    b = b.float()
+    X = torch.zeros_like(b)
+    nb = u.shape[-1]
+    for j in range(nb):
+        i = nb - 1 - j
+        s = (u[..., i, None, :] @ X)[..., 0, :]
+        X[..., i, :] = (b[..., i, :] - s) / u[..., i, i, None]
+    return X
+
+
+@fp32_matmul()
+def gemmnn_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """C - A B for each triple of (possibly non-square) tiles."""
+    return c.float() - a.float() @ b.float()
 
 
 def _grid_plain(body, write_arg: int):
@@ -107,17 +184,63 @@ grid_potrf_plain = _grid_plain(potrf_plain, 0)
 grid_trsm_plain = _grid_plain(trsm_plain, 1)
 grid_syrk_plain = _grid_plain(syrk_plain, 1)
 grid_gemm_plain = _grid_plain(gemm_plain, 2)
+grid_getrf_plain = _grid_plain(getrf_plain, 0)
+grid_trsml_plain = _grid_plain(trsml_plain, 1)
+grid_trsmu_plain = _grid_plain(trsmu_plain, 1)
+grid_trsmul_plain = _grid_plain(trsmul_plain, 1)
+grid_gemmnn_plain = _grid_plain(gemmnn_plain, 2)
+
+
+# --------------------------------------------------------------------------
+# Shape contracts
+# --------------------------------------------------------------------------
+def tile_shapes(name: str, b: int, bc: int) -> List[Tuple[int, int]]:
+    """Per-argument tile shapes that fit ``name``'s contract at edge ``b``
+    and right-hand-side width ``bc`` (the square kernels ignore ``bc``)."""
+    wide = {
+        "trsml": [(b, b), (b, bc)],
+        "trsmul": [(b, b), (b, bc)],
+        "trsmu": [(b, b), (bc, b)],
+        "gemmnn": [(b, b), (b, bc), (b, bc)],
+    }
+    return wide.get(name, [(b, b)] * _SIGNATURES[name][0])
+
+
+def _dims(name: str, shapes: Sequence[Tuple[int, int]]) -> Tuple[int, ...]:
+    """The integer dimensions the C entry of ``name`` takes after the task
+    count, from each argument's ``(rows, cols)`` tile shape; raises
+    ``ValueError`` on a shape the kernel does not take.  Every edge must be
+    in 1..MAX_TILE, and the plain versions keep the same limit so both
+    devices agree."""
+    for r, c in shapes:
+        for e in (r, c):
+            if not 1 <= e <= MAX_TILE:
+                raise ValueError(f"tile edge {e} outside the kernels' limit 1..{MAX_TILE}")
+    if name in ("trsml", "trsmul"):
+        (b, b2), (rb, bc) = shapes
+        ok, dims = b == b2 == rb, (b, bc)
+    elif name == "trsmu":
+        (b, b2), (br, cb) = shapes
+        ok, dims = b == b2 == cb, (br, b)
+    elif name == "gemmnn":
+        (m, k), (k2, q), (m2, q2) = shapes
+        ok, dims = (k, m, q) == (k2, m2, q2), (m, k, q)
+    else:
+        b = shapes[0][0]
+        ok, dims = all(s == (b, b) for s in shapes), (b,)
+    if not ok:
+        raise ValueError(f"{name}: tile shapes {list(shapes)} do not fit its contract")
+    return dims
 
 
 # --------------------------------------------------------------------------
 # Kernel launch
 # --------------------------------------------------------------------------
 _VP, _I = ctypes.c_void_p, ctypes.c_int
+# C entry tile_<name>(per arg: grid, nc, idx; n; dims...; stream)
 _ARGTYPES = {
-    "potrf": [_VP, _I, _VP, _I, _I, _VP],
-    "trsm": [_VP, _I, _VP] * 2 + [_I, _I, _VP],
-    "syrk": [_VP, _I, _VP] * 2 + [_I, _I, _VP],
-    "gemm": [_VP, _I, _VP] * 3 + [_I, _I, _VP],
+    name: [_VP, _I, _VP] * arity + [_I] * (1 + n_dims) + [_VP]
+    for name, (arity, n_dims) in _SIGNATURES.items()
 }
 
 
@@ -139,30 +262,20 @@ def _kernel_fn(name: str):
     return fn
 
 
-def _tile_edge(t: torch.Tensor) -> int:
-    """The tile edge of a grid or stack; the kernels take 1..MAX_TILE, and
-    the plain versions keep the same limit so both devices agree."""
-    b = t.shape[-1]
-    if not 1 <= b <= MAX_TILE:
-        raise ValueError(f"tile edge {b} outside the kernels' limit 1..{MAX_TILE}")
-    return b
-
-
-def _check(idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> int:
-    """Validate one fused call's arguments; returns the tile edge."""
+def _check(name: str, idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> Tuple[int, ...]:
+    """Validate one fused call's arguments; returns the kernel's dims."""
     dev = grids[0].device
     if dev.type != "cuda":
         raise ValueError(f"the tile kernels run on CUDA tensors, got {dev}")
-    b = _tile_edge(grids[0])
     n = idxs[0].shape[0]
     for g in grids:
         if g.device != dev or g.dtype != torch.float32 or g.dim() != 4:
             raise ValueError(
-                f"grids must be float32 (nr, nc, b, b) tensors on {dev}, "
+                f"grids must be float32 (nr, nc, br, bc) tensors on {dev}, "
                 f"got {g.dtype} {tuple(g.shape)} on {g.device}"
             )
-        if tuple(g.shape[-2:]) != (b, b) or not g.is_contiguous():
-            raise ValueError(f"grid {tuple(g.shape)} is not a contiguous grid of {b}x{b} tiles")
+        if not g.is_contiguous():
+            raise ValueError(f"grid {tuple(g.shape)} is not contiguous")
     for ix in idxs:
         if ix.device != dev or ix.dtype != torch.int32 or tuple(ix.shape) != (n, 2):
             raise ValueError(
@@ -171,11 +284,11 @@ def _check(idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> int:
             )
         if not ix.is_contiguous():
             raise ValueError("block indices must be contiguous")
-    return b
+    return _dims(name, [tuple(g.shape[-2:]) for g in grids])
 
 
 def _launch(name: str, idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> None:
-    b = _check(idxs, grids)
+    dims = _check(name, idxs, grids)
     n = idxs[0].shape[0]
     if n == 0:
         return
@@ -184,7 +297,7 @@ def _launch(name: str, idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tenso
         args += [g.data_ptr(), g.shape[1], ix.data_ptr()]
     stream = torch.cuda.current_stream(grids[0].device).cuda_stream
     with torch.cuda.device(grids[0].device):
-        err = _kernel_fn(name)(*args, n, b, stream)
+        err = _kernel_fn(name)(*args, n, *dims, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -192,8 +305,8 @@ def _launch(name: str, idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tenso
 
 def _fused(name: str, write_arg: int, plain):
     def call(idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> torch.Tensor:
-        _tile_edge(grids[write_arg])
         if grids[write_arg].device.type == "cpu":
+            _dims(name, [tuple(g.shape[-2:]) for g in grids])
             return plain(idxs, grids)
         _launch(name, idxs, grids)
         return grids[write_arg]
@@ -210,12 +323,17 @@ grid_potrf = _fused("potrf", 0, grid_potrf_plain)
 grid_trsm = _fused("trsm", 1, grid_trsm_plain)
 grid_syrk = _fused("syrk", 1, grid_syrk_plain)
 grid_gemm = _fused("gemm", 2, grid_gemm_plain)
+grid_getrf = _fused("getrf", 0, grid_getrf_plain)
+grid_trsml = _fused("trsml", 1, grid_trsml_plain)
+grid_trsmu = _fused("trsmu", 1, grid_trsmu_plain)
+grid_trsmul = _fused("trsmul", 1, grid_trsmul_plain)
+grid_gemmnn = _fused("gemmnn", 2, grid_gemmnn_plain)
 
 
-def _batched(grid_call, write_arg: int, plain):
+def _batched(name: str, grid_call, write_arg: int, plain):
     def call(*stacks: torch.Tensor) -> torch.Tensor:
-        _tile_edge(stacks[write_arg])
         if stacks[write_arg].device.type == "cpu":
+            _dims(name, [tuple(s.shape[-2:]) for s in stacks])
             return plain(*stacks)
         n = stacks[0].shape[0]
         ident = torch.zeros((n, 2), dtype=torch.int32, device=stacks[0].device)
@@ -225,13 +343,19 @@ def _batched(grid_call, write_arg: int, plain):
         grid_call([ident] * len(stacks), grids)
         return grids[write_arg][:, 0]
 
+    call.__name__ = f"batched_{name}"
     return call
 
 
-batched_potrf = _batched(grid_potrf, 0, potrf_plain)
-batched_trsm = _batched(grid_trsm, 1, trsm_plain)
-batched_syrk = _batched(grid_syrk, 1, syrk_plain)
-batched_gemm = _batched(grid_gemm, 2, gemm_plain)
+batched_potrf = _batched("potrf", grid_potrf, 0, potrf_plain)
+batched_trsm = _batched("trsm", grid_trsm, 1, trsm_plain)
+batched_syrk = _batched("syrk", grid_syrk, 1, syrk_plain)
+batched_gemm = _batched("gemm", grid_gemm, 2, gemm_plain)
+batched_getrf = _batched("getrf", grid_getrf, 0, getrf_plain)
+batched_trsml = _batched("trsml", grid_trsml, 1, trsml_plain)
+batched_trsmu = _batched("trsmu", grid_trsmu, 1, trsmu_plain)
+batched_trsmul = _batched("trsmul", grid_trsmul, 1, trsmul_plain)
+batched_gemmnn = _batched("gemmnn", grid_gemmnn, 2, gemmnn_plain)
 
 # op name -> (fused call, write_arg); consumed by ``build_program``
 # when the backend is 'cuda' and the group writes exactly that argument.
@@ -240,4 +364,9 @@ GRID_FUSED = {
     "trsm": (grid_trsm, 1),
     "syrk": (grid_syrk, 1),
     "gemm": (grid_gemm, 2),
+    "getrf": (grid_getrf, 0),
+    "trsml": (grid_trsml, 1),
+    "trsmu": (grid_trsmu, 1),
+    "trsmul": (grid_trsmul, 1),
+    "gemmnn": (grid_gemmnn, 2),
 }

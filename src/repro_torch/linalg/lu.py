@@ -1,0 +1,244 @@
+"""Application + technical layers for LU, triangular solve, and the
+end-to-end ``lu_solve`` drain (DESIGN.md §4/§6).
+
+Mirrors ``cholesky.py``: ``utp_getrf`` / ``utp_solve`` / ``utp_lu_solve``
+are the technical-layer subroutines (create one root task, submit it);
+``run_lu`` / ``run_lu_many`` / ``run_solve`` / ``run_lu_solve`` /
+``run_inv`` are whole application programs — define data + partitions,
+call the subroutine, drain.  They run on the same dispatcher and executors
+as Cholesky with no executor changes: the dispatcher only sees Operations.
+
+Conventions (pivot-free Doolittle, see ``linalg/ops.py``):
+
+    run_lu(a)                -> (L, U) with L unit-lower, U upper, L@U == a
+    run_solve(a, b)          -> x with tril(a, unit) @ x == b
+    run_solve(a, b, lower=False)              -> x with x @ triu(a) == b
+    run_solve(a, b, lower=False, side="left") -> x with triu(a) @ x == b
+    run_lu_solve(a, b)       -> x with a @ x == b  (factor+solve, ONE drain)
+    run_inv(a)               -> inv(a)             (lu_solve against I)
+
+``run_solve`` reads only the relevant triangle of ``a``, so a packed L\\U
+factor can be passed straight back in for forward/backward substitution.
+Inputs are numpy arrays or tensors; every entry point puts its data on
+``device``, which is CUDA unless the caller names another, and returns
+tensors there.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..core import Dispatcher, GData, GTask
+from ..core.data import from_grid, resolve_device
+from ..errors import NumericalError
+from .ops import GETRF, LUSOLVE, TRSML, TRSMU, TRSMUL
+
+Partitions = Tuple[Tuple[int, int], ...]
+
+
+def check_finite_result(name: str, *arrays: Optional[torch.Tensor]) -> None:
+    """Raise ``NumericalError`` if any result array is non-finite.
+
+    The pivot-free expansions have no singular-pivot detection (the paper's
+    fixed task-flow shape), so a zero pivot silently propagates inf/NaN
+    through the trailing updates; ``check_finite=True`` on the run_* entry
+    points turns that into a typed error (DESIGN.md §10).  Opt-in: the
+    check synchronizes with the card.
+    """
+    for a in arrays:
+        if a is not None and not bool(torch.isfinite(a).all()):
+            raise NumericalError(
+                f"{name}: non-finite values in result (singular pivot or "
+                f"overflow; input not factorizable without pivoting?)"
+            )
+
+
+def _gdata(a: Any, partitions: Partitions, device) -> GData:
+    dtype = a.dtype if torch.is_tensor(a) else torch.float32
+    return GData(tuple(a.shape), partitions=partitions, dtype=dtype, value=a, device=device)
+
+
+def _packed(A: GData) -> torch.Tensor:
+    # a drained root is still grid-resident: de-grid without ending the epoch
+    return from_grid(A.grid) if A.in_grid_epoch else A.value
+
+
+def _unpack(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    eye = torch.eye(packed.shape[0], dtype=packed.dtype, device=packed.device)
+    return torch.tril(packed, -1) + eye, torch.triu(packed)
+
+
+def utp_getrf(dispatcher: Dispatcher, A: GData) -> GTask:
+    task = GTask(GETRF, None, [A.root_view()])
+    dispatcher.submit_task(task)
+    return task
+
+
+def utp_solve(
+    dispatcher: Dispatcher,
+    A: GData,
+    B: GData,
+    lower: bool = True,
+    side: Optional[str] = None,
+) -> GTask:
+    """Submit one triangular-solve root task (technical layer).
+
+    ``side`` defaults to the algebra's native orientation per triangle:
+    "left" for lower (TRSML, forward substitution) and "right" for upper
+    (TRSMU).  ``lower=False, side="left"`` selects TRSMUL — the left-upper
+    backward substitution that closes ``A x = b`` end-to-end.
+    """
+    if side is None:
+        side = "left" if lower else "right"
+    if lower:
+        if side != "left":
+            raise ValueError("lower solves are left-sided (TRSML) only")
+        op = TRSML
+    else:
+        if side not in ("left", "right"):
+            raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+        op = TRSMUL if side == "left" else TRSMU
+    task = GTask(op, None, [A.root_view(), B.root_view()])
+    dispatcher.submit_task(task)
+    return task
+
+
+def utp_lu_solve(dispatcher: Dispatcher, A: GData, B: GData) -> GTask:
+    """Submit ONE composed factor+solve root task (LUSOLVE, DESIGN.md §4):
+    one scope, one task DAG, one launch list for the whole pipeline."""
+    task = GTask(LUSOLVE, None, [A.root_view(), B.root_view()])
+    dispatcher.submit_task(task)
+    return task
+
+
+def run_lu(
+    a: Any,
+    graph: str = "g2",
+    partitions: Partitions = ((4, 4),),
+    check_finite: bool = False,
+    device=None,
+    verify: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pivot-free blocked LU of ``a``; returns (L, U) unpacked.
+
+    ``a`` must admit LU without pivoting (e.g. diagonally dominant); the
+    expansion has no singular-pivot detection, but ``check_finite=True``
+    raises ``NumericalError`` instead of returning inf/NaN.
+    """
+    d = Dispatcher(graph=graph, verify=verify)
+    A = _gdata(a, partitions, device)
+    utp_getrf(d, A)
+    d.run()
+    packed = _packed(A)
+    if check_finite:
+        check_finite_result("run_lu", packed)
+    return _unpack(packed)
+
+
+def run_lu_many(
+    mats: Sequence[Any],
+    graph: str = "g2",
+    partitions: Partitions = ((4, 4),),
+    device=None,
+    verify: Optional[bool] = None,
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Pivot-free blocked LU of several matrices in ONE dispatcher drain.
+
+    Every factorization is its own root task; the scheduler interleaves the
+    independent task DAGs and the fusion pass merges their same-signature
+    groups into shared launches, one segment per root (the matrices may
+    differ in shape).  This is the JAX package's ``stack_roots=False``
+    path: the port's dispatcher has no stacking yet (ROADMAP queue A8).
+    """
+    d = Dispatcher(graph=graph, verify=verify)
+    roots = []
+    for a in mats:
+        A = _gdata(a, partitions, device)
+        utp_getrf(d, A)
+        roots.append(A)
+    d.run()
+    return [_unpack(_packed(A)) for A in roots]
+
+
+def run_solve(
+    a: Any,
+    b: Any,
+    lower: bool = True,
+    graph: str = "g2",
+    partitions: Partitions = ((4, 4),),
+    b_partitions: Optional[Partitions] = None,
+    side: Optional[str] = None,
+    check_finite: bool = False,
+    device=None,
+    verify: Optional[bool] = None,
+) -> torch.Tensor:
+    """Blocked triangular solve as a task workload.
+
+    ``lower=True``: x = inv(tril(a, unit-diagonal)) @ b (forward subst.).
+    ``lower=False``: x = b @ inv(triu(a)) (backward substitution from the
+    right), or x = inv(triu(a)) @ b with ``side="left"`` (TRSMUL).
+    ``b_partitions`` defaults to ``partitions``; give it explicitly for
+    non-square block counts (b's row grid must match a's for left-sided
+    solves, its column grid for the right-sided one).
+    """
+    d = Dispatcher(graph=graph, verify=verify)
+    A = _gdata(a, partitions, device)
+    B = _gdata(b, partitions if b_partitions is None else b_partitions, device)
+    utp_solve(d, A, B, lower=lower, side=side)
+    d.run()
+    x = B.value
+    if check_finite:
+        check_finite_result("run_solve", x)
+    return x
+
+
+def run_lu_solve(
+    a: Any,
+    b: Any,
+    graph: str = "g2",
+    partitions: Partitions = ((4, 4),),
+    b_partitions: Optional[Partitions] = None,
+    check_finite: bool = False,
+    device=None,
+    verify: Optional[bool] = None,
+) -> torch.Tensor:
+    """Solve ``a @ x == b`` by pivot-free LU — factor AND solve in ONE drain.
+
+    The whole pipeline is one composed LUSOLVE root: one task DAG, one
+    launch list, replayed through the drain memo on structurally repeated
+    calls.  ``b`` may be a matrix ``(n, m)`` or a vector ``(n,)``;
+    ``b_partitions`` defaults to ``partitions`` with the column counts
+    collapsed to 1 for a vector right-hand side.  ``check_finite=True``
+    raises ``NumericalError`` on a non-finite solution.
+    """
+    if b.shape[0] != a.shape[0]:
+        raise ValueError(f"shape mismatch: a {tuple(a.shape)} vs b {tuple(b.shape)}")
+    vec = b.ndim == 1
+    b2 = b[:, None] if vec else b
+    if b_partitions is None:
+        b_partitions = tuple((pr, 1 if vec else pc) for pr, pc in partitions)
+    d = Dispatcher(graph=graph, verify=verify)
+    A = _gdata(a, partitions, device)
+    B = _gdata(b2, b_partitions, device)
+    utp_lu_solve(d, A, B)
+    d.run()
+    x = B.value
+    if check_finite:
+        check_finite_result("run_lu_solve", x)
+    return x[:, 0] if vec else x
+
+
+def run_inv(
+    a: Any,
+    graph: str = "g2",
+    partitions: Partitions = ((4, 4),),
+    device=None,
+    verify: Optional[bool] = None,
+) -> torch.Tensor:
+    """Matrix inverse via LU: ``run_lu_solve(a, I)`` — the same composed
+    pipeline against the identity, with no new operation."""
+    dtype = a.dtype if torch.is_tensor(a) else torch.float32
+    eye = torch.eye(a.shape[0], dtype=dtype, device=resolve_device(device))
+    return run_lu_solve(a, eye, graph=graph, partitions=partitions, device=device, verify=verify)
