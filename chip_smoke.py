@@ -13,12 +13,20 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    widths bc = 1, 8 and b where a kernel takes a non-square operand), in
    the fused-grid form (random distinct write blocks on random non-square
    grids, arguments of one tile shape in one grid, whole grids compared)
-   and in the batched form.  Then each is timed at the main path's shapes
-   (the largest group of that kernel in the n = 4096, 32 x 32 plan of
-   Cholesky, of LU, or for TRSMUL of the matrix-RHS LU solve, on the
-   resident grids) beside its plain version, one PyTorch library call
-   computing the same group, and the least time the card could take (its
-   bound).
+   and in the batched form (2a); then in the stacked grid form on
+   (B, nr, nc, br, bc) grids, B = 3 and 4, all lanes sharing the indices
+   and the last lane a copy of the one before it (2c).  Each is timed at
+   the main path's shapes (the largest group of that kernel in the
+   n = 4096, 32 x 32 plan of Cholesky, of LU, or for TRSMUL of the
+   matrix-RHS LU solve, on the resident grids) beside its plain version,
+   one PyTorch library call computing the same group, and the least time
+   the card could take (its bound) (2b); and in stacked form at the
+   serving shapes (the largest group in the n = 1024, 8 x 8 template plan
+   over 64 lanes) beside the same group as 64 unstacked launches, the
+   plain stacked version, a library call on the flattened stack and the
+   bound, each result held against the plain version on those grids and
+   on random ones (2d).  Each stacked check also asserts that the written
+   grid left as it was would fail it.
 3. Cholesky main path: blocked Cholesky of a 4096 x 4096 fp32 SPD matrix on
    graph g2p with 32 x 32 partitions (128 x 128 tiles), drained twice
    (first drain, then a drain-memo replay), checked against float64
@@ -32,6 +40,21 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    with a vector b once (solution against float64 ``torch.linalg.solve``),
    a profiled replay of the matrix-RHS drain, then the same solve on g2
    and ``run_inv`` on g1 at n = 256.
+5. Serving: ``BatchServer(graph="g2p", max_batch=64)``; each tick queues 64
+   ``lu_solve`` (vector b), 16 ``lu`` and 16 ``cholesky`` requests of
+   n = 1024 in 8 x 8 partitions, three signature buckets of one stacked
+   launch list each.  Tick 1 captures; ticks 2-4 (fresh inputs, stacked
+   launch counts zeroed before and read after each) must show 0 builds,
+   3 launches, 3 stacked drains, 96 resolved, no host wait, a stacked
+   launch of all nine kernels, each bucket's template counters,
+   results within 2e-4 (factors) and 1e-3 (solutions) of float64, and
+   factors whose componentwise backward error stays within fp32's bound
+   for blocked LU and Cholesky, |LU - A| <= gamma_n |L||U|.  Then a
+   profiled repeat tick, the same tick on g2, the 64 solves as sequential
+   ``run_lu_solve`` replays and as one batched library call, and two fault
+   rounds (``check_finite=True``, no retries): a NaN request fails alone
+   with ``NumericalError``; an in-flight fault on one request bisects and
+   fails it alone with ``InflightError``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing it.
@@ -59,15 +82,15 @@ TOL = {"potrf": 2e-4, "trsm": 2e-3, "syrk": 1e-4, "gemm": 1e-4,
        "getrf": 2e-4, "trsml": 2e-3, "trsmu": 2e-3, "trsmul": 2e-3, "gemmnn": 1e-4}
 _TL = "src/repro/kernels/tile_linalg.py"
 REPLACES = {
-    "potrf": f"{_TL}:181 batched_potrf; :408 make_grid_fused (grid_potrf :444)",
-    "trsm": f"{_TL}:201 batched_trsm; :408 make_grid_fused (grid_trsm :445)",
-    "syrk": f"{_TL}:223 batched_syrk; :408 make_grid_fused (grid_syrk :446)",
-    "gemm": f"{_TL}:242 batched_gemm; :408 make_grid_fused (grid_gemm :447)",
-    "getrf": f"{_TL}:265 batched_getrf; :408 make_grid_fused (grid_getrf :448)",
-    "trsml": f"{_TL}:282 batched_trsml; :408 make_grid_fused (grid_trsml :449)",
-    "trsmu": f"{_TL}:302 batched_trsmu; :408 make_grid_fused (grid_trsmu :450)",
-    "trsmul": f"{_TL}:321 batched_trsmul; :408 make_grid_fused (grid_trsmul :451)",
-    "gemmnn": f"{_TL}:340 batched_gemmnn; :408 make_grid_fused (grid_gemmnn :452)",
+    "potrf": f"{_TL}:181 batched_potrf; :367 make_grid_fused (grid_potrf :444)",
+    "trsm": f"{_TL}:201 batched_trsm; :367 make_grid_fused (grid_trsm :445)",
+    "syrk": f"{_TL}:223 batched_syrk; :367 make_grid_fused (grid_syrk :446)",
+    "gemm": f"{_TL}:242 batched_gemm; :367 make_grid_fused (grid_gemm :447)",
+    "getrf": f"{_TL}:265 batched_getrf; :367 make_grid_fused (grid_getrf :448)",
+    "trsml": f"{_TL}:282 batched_trsml; :367 make_grid_fused (grid_trsml :449)",
+    "trsmu": f"{_TL}:302 batched_trsmu; :367 make_grid_fused (grid_trsmu :450)",
+    "trsmul": f"{_TL}:321 batched_trsmul; :367 make_grid_fused (grid_trsmul :451)",
+    "gemmnn": f"{_TL}:340 batched_gemmnn; :367 make_grid_fused (grid_gemmnn :452)",
 }
 SOURCE = "src/repro_torch/kernels/csrc/tile_linalg.cu"
 # FLOPs of one task from its arguments' tile shapes [(rows, cols), ...]
@@ -86,6 +109,14 @@ FLOPS = {
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 EXPECTED_LAUNCHES = {"potrf": 32, "trsm": 31, "syrk": 31, "gemm": 30}  # per drain at P = 32
+# the serving path: BatchServer(graph="g2p", max_batch=64) on n = 1024 requests
+# in 8 x 8 partitions (128 x 128 tiles, as on the main paths)
+SN, SP, LANES = 1024, 8, 64
+SERVED = {"lu_solve": 64, "lu": 16, "cholesky": 16}  # requests of each kind per tick
+# each bucket's template plan (leaves, groups, prefusion groups, slots): the
+# same at any tile size, so the same as the CPU tests' n = 64
+TEMPLATES = {"lu_solve": (276, 80, 80, 59), "lu": (204, 29, 29, 22), "cholesky": (120, 28, 28, 22)}
+STACKED_REPLACES = f"{_TL}:388 make_grid_fused kernel_stacked (_imap_stacked :401, pallas_call :433)"
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -182,19 +213,23 @@ def special_tiles(name: str, rng, n: int, b: int):
     return None if make is None else make(rng, n, b)
 
 
-def grid_case(tl, name: str, rng, b: int, bc: int, nr: int = 6, nc: int = 7, n: int = 12):
+def grid_case(tl, name: str, rng, b: int, bc: int, nr: int = 6, nc: int = 7, n: int = 12, lanes=None):
     """Random non-square grids, one per distinct tile shape (arguments of one
     shape address one grid, as in a single-root drain); distinct write
-    blocks, the written grid's read blocks drawn from the rest."""
+    blocks, the written grid's read blocks drawn from the rest.  With
+    ``lanes`` the grids are stacked ``(lanes, nr, nc, br, bc)``, every lane
+    with its own values and factor tiles, all lanes sharing the indices;
+    the last lane copies the one before it, as a pow2 padding lane does."""
     import numpy as np
 
+    lead = () if lanes is None else (lanes,)
     shapes = tl.tile_shapes(name, b, bc)
     w = tl.GRID_FUSED[name][1]
     grid_of, grids = {}, []
     for s in shapes:
         if s not in grid_of:
             grid_of[s] = len(grids)
-            grids.append(rng.standard_normal((nr, nc) + s).astype(np.float32) * 0.3)
+            grids.append(rng.standard_normal(lead + (nr, nc) + s).astype(np.float32) * 0.3)
     blocks = rng.permutation(nr * nc)
     writes, rest = blocks[:n], blocks[n:]
     flat = []
@@ -202,9 +237,14 @@ def grid_case(tl, name: str, rng, b: int, bc: int, nr: int = 6, nc: int = 7, n: 
         same = grid_of[s] == grid_of[shapes[w]]
         flat.append(writes if a == w else rng.choice(rest if same else np.arange(nr * nc), n))
     blk = np.unique(flat[0])
-    tiles = special_tiles(name, rng, len(blk), b)
-    if tiles is not None:
-        grids[grid_of[shapes[0]]].reshape(-1, b, b)[blk] = tiles
+    g = grids[grid_of[shapes[0]]]
+    for lane in range(1 if lanes is None else lanes):
+        tiles = special_tiles(name, rng, len(blk), b)
+        if tiles is not None:
+            (g if lanes is None else g[lane]).reshape(-1, b, b)[blk] = tiles
+    if lanes is not None:
+        for g in grids:
+            g[-1] = g[-2]
     idxs = [np.stack([f // nc, f % nc], 1).astype(np.int32) for f in flat]
     return grids, [grid_of[s] for s in shapes], idxs
 
@@ -249,6 +289,44 @@ def kernel_checks(torch, tl, rng) -> dict:
                 width = f" bc={bc:3d}" if name in WIDE else ""
                 print(f"check {name:6s} b={b:3d}{width}: grid max_abs_err={e_grid:.3e} "
                       f"batched max_abs_err={e_bat:.3e} (tol {TOL[name]})")
+    return err
+
+
+def stacked_checks(torch, tl, rng) -> dict:
+    """Phase 2c: the stacked grid form of every kernel (``make_grid_fused``'s
+    ``kernel_stacked``) against its plain stacked version, B = 3 and 4,
+    whole stacked grids compared: unwritten blocks and lanes keep their
+    bytes, and the padding lane's result equals the lane it copies."""
+    err = {k: 0.0 for k in KERNELS}
+    for b in TILES:
+        for name in KERNELS:
+            w = tl.GRID_FUSED[name][1]
+            for bc in sorted({1, 8, b}) if name in WIDE else [b]:
+                e_case = 0.0
+                for lanes in (3, 4):
+                    grids, which, idxs = grid_case(tl, name, rng, b, bc, lanes=lanes)
+                    ix = [torch.from_numpy(i).cuda() for i in idxs]
+                    g0 = [torch.from_numpy(g).cuda() for g in grids]
+                    gk, gp = [g.clone() for g in g0], [g.clone() for g in g0]
+                    before = tl.STACKED_LAUNCHES[name]
+                    getattr(tl, f"grid_{name}")(ix, [gk[k] for k in which])
+                    getattr(tl, f"grid_{name}_plain")(ix, [gp[k] for k in which])
+                    torch.cuda.synchronize()
+                    if tl.STACKED_LAUNCHES[name] != before + 1:
+                        raise AssertionError(f"grid_{name} on stacked grids did not count a stacked launch")
+                    e = max(close(x, y, TOL[name]) for x, y in zip(gk, gp))
+                    unchanged_fails(name, g0[which[w]], gp[which[w]])
+                    out = gk[which[w]]
+                    if not torch.equal(out[-1], out[-2]):
+                        raise AssertionError(f"stacked {name}: the padding lane differs from the lane it copies")
+                    for k in range(len(g0)):
+                        if k != which[w] and not torch.equal(gk[k], g0[k]):
+                            raise AssertionError(f"stacked {name} wrote a grid it only reads")
+                    e_case = max(e_case, e)
+                err[name] = max(err[name], e_case)
+                width = f" bc={bc:3d}" if name in WIDE else ""
+                print(f"check {name:6s}_stacked b={b:3d}{width} B=3,4: max_abs_err={e_case:.3e} "
+                      f"(tol {TOL[name]})")
     return err
 
 
@@ -372,15 +450,149 @@ def kernel_timings(torch, tl) -> dict:
     return out
 
 
+def lane_grids(torch, make, n: int, b: int, lanes: int):
+    """(lanes, n/b, n/b, b, b) stacked grids of ``make(n, seed=lane)``."""
+    from repro_torch.core.data import to_grid
+
+    return torch.stack([to_grid(make(n, seed=lane), b, b) for lane in range(lanes)])
+
+
+def unchanged_fails(name: str, before, want) -> None:
+    """Raises unless the written grid as it was before the call fails the
+    check against the plain version's result: a kernel that did nothing
+    must not pass."""
+    try:
+        close(before, want, TOL[name])
+    except AssertionError:
+        return
+    raise AssertionError(f"stacked {name}: the written blocks left as they were pass the check; it cannot see "
+                         "the kernel")
+
+
+def stacked_random_check(torch, tl, rng, name: str, g, grids) -> float:
+    """Phase 2d's check at the serving shapes: the group's stacked launch, its
+    LANES unstacked launches and its plain stacked version on random
+    0.3-scale grids of the timed grids' shapes, argument 0's factor tiles
+    made per lane as in 2a; the group's own indices; whole grids compared.
+    On the timed dd/spd grids some kernels change their blocks by less than
+    the tolerance, so this check, not that one, is the one that must fail a
+    kernel that did nothing; the script asserts that it would."""
+    import numpy as np
+
+    slots = g.segments[0][0]
+    w = slots[tl.GRID_FUSED[name][1]]
+    torch.manual_seed(int(rng.integers(2**31)))
+    g0 = [0.3 * torch.randn(x.shape, device=x.device) for x in grids]
+    blk = np.unique(g.idxs[0], axis=0)
+    b = grids[slots[0]].shape[-1]
+    tiles = special_tiles(name, rng, LANES * len(blk), b)
+    if tiles is not None:
+        r, c = torch.from_numpy(blk).long().cuda().unbind(1)
+        g0[slots[0]][:, r, c] = torch.from_numpy(tiles).cuda().view(LANES, len(blk), b, b)
+    idxs = [torch.from_numpy(ix).cuda() for ix in g.idxs]
+    gk, gu, gp = ([x.clone() for x in g0] for _ in range(3))
+    fused = getattr(tl, f"grid_{name}")
+    fused(idxs, [gk[s] for s in slots])
+    for i in range(LANES):
+        fused(idxs, [gu[s][i] for s in slots])
+    getattr(tl, f"grid_{name}_plain")(idxs, [gp[s] for s in slots])
+    torch.cuda.synchronize()
+    err = max(close(x, y, TOL[name]) for x, y in zip(gk + gu, gp + gp))
+    unchanged_fails(name, g0[w], gp[w])
+    for k in range(len(g0)):
+        if k != w and not (torch.equal(gk[k], g0[k]) and torch.equal(gu[k], g0[k])):
+            raise AssertionError(f"stacked {name} wrote a grid it only reads")
+    return err
+
+
+def stacked_timing(torch, tl, rng, name: str, groups, grids) -> dict:
+    """One kernel's stacked form at the serving shapes: its largest
+    single-segment group in the template plan, on (LANES, ...) stacked
+    grids; beside it the same group as LANES unstacked launches (one per
+    lane), the plain stacked version, one library call on the flattened
+    LANES * size stack, and the bound (LANES times one lane's).  The
+    results are held against the plain version on these grids and on
+    random ones (``stacked_random_check``)."""
+    from repro_torch.kernels.ref import fp32_matmul
+
+    g = max((g for g in groups if g.op.name == name and len(g.segments) == 1), key=lambda g: g.size)
+    err_random = stacked_random_check(torch, tl, rng, name, g, grids)
+    slots = g.segments[0][0]
+    wa = tl.GRID_FUSED[name][1]
+    w = slots[wa]
+    idxs = [torch.from_numpy(ix).cuda() for ix in g.idxs]
+    wr, wc = idxs[wa].long().unbind(1)
+    fresh = grids[w][:, wr, wc]
+    gk, gu, gp = ([x.clone() for x in grids] for _ in range(3))
+    fused = getattr(tl, f"grid_{name}")
+    kern = lambda: fused(idxs, [gk[s] for s in slots])
+    lanes = lambda: [fused(idxs, [gu[s][i] for s in slots]) for i in range(LANES)]
+    plain = lambda: getattr(tl, f"grid_{name}_plain")(idxs, [gp[s] for s in slots])
+    kern()
+    lanes()
+    plain()
+    torch.cuda.synchronize()
+    err = max(close(gk[w], gp[w], TOL[name]), close(gu[w], gp[w], TOL[name]))
+
+    def restore(x):
+        def put():
+            x[w][:, wr, wc] = fresh
+
+        return put
+
+    lib = library_call(torch, name, [grids[s][:, ix[:, 0].long(), ix[:, 1].long()].flatten(0, 1)
+                                     for s, ix in zip(slots, idxs)])
+    ms = cuda_ms_fresh(kern, restore(gk), 20)
+    lanes_ms = cuda_ms_fresh(lanes, restore(gu), 5)
+    plain_ms = cuda_ms_fresh(plain, restore(gp), 3)
+    with fp32_matmul():
+        lib_ms = cuda_ms(lib, 20)
+    one_ms, bound_by = bound(name, wa, g, [x[0] for x in grids])
+    bound_ms = LANES * one_ms
+    shapes = "x".join(f"{r}:{c}" for r, c in (tuple(grids[s].shape[-2:]) for s in slots))
+    print(f"time  {name:6s}_stacked B={LANES} tiles={shapes} tasks={g.size:3d}: kernel_ms={ms:.4f} "
+          f"{LANES}_unstacked_launches_ms={lanes_ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3e} random_grids_max_abs_err={err_random:.3e}")
+    return dict(tasks=g.size, err=max(err, err_random), ms=ms, unstacked_ms=lanes_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def stacked_timings(torch, tl, rng) -> dict:
+    """Phase 2d: each kernel's stacked form at its largest group of the
+    served templates (n = 1024, 8 x 8; the Cholesky four in the Cholesky
+    plan, GETRF/TRSML/TRSMU/GEMMNN in the LU plan, TRSMUL in the vector-b
+    LU-solve plan) over LANES lanes."""
+    from repro_torch.core import dd_matrix, spd_matrix
+    from repro_torch.linalg import GETRF, LUSOLVE, POTRF
+
+    b = SN // SP
+    a_spec = ((SN, SN), ((SP, SP),))
+    chol = plan_groups(POTRF, [a_spec])
+    lu = plan_groups(GETRF, [a_spec])
+    solve = plan_groups(LUSOLVE, [a_spec, ((SN, 1), ((SP, 1),))])
+    spd = [lane_grids(torch, spd_matrix, SN, b, LANES)]
+    dd = [lane_grids(torch, dd_matrix, SN, b, LANES)]
+    gen = torch.Generator().manual_seed(2)
+    rhs = torch.randn(LANES, SP, 1, b, 1, generator=gen).cuda()
+    out = {}
+    for name in CHOLESKY:
+        out[name] = stacked_timing(torch, tl, rng, name, chol, spd)
+    for name in ("getrf", "trsml", "trsmu", "gemmnn"):
+        out[name] = stacked_timing(torch, tl, rng, name, lu, dd)
+    out["trsmul"] = stacked_timing(torch, tl, rng, "trsmul", solve, dd + [rhs])
+    return out
+
+
 # --------------------------------------------------------------------------
 # Phases 3 and 4: the main paths
 # --------------------------------------------------------------------------
-TASK_BINS = (1, 4, 16, 64, 256, 1024, 4096)  # upper edges of the tasks-per-launch bins
+TASK_BINS = (1, 4, 16, 64, 256, 1024, 4096)  # upper edges of the CTAs-per-launch bins
 
 
 def by_launch_size(prof, path: Path) -> str:
     """Device time of each kernel split by its launches' CTA counts (tasks
-    per launch, binned), read from the profiler's trace written to ``path``."""
+    times lanes per launch, binned), read from the profiler's trace written
+    to ``path``."""
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     trace = json.loads(path.read_text())
@@ -390,7 +602,7 @@ def by_launch_size(prof, path: Path) -> str:
         m = re.search(r"(\w+)_kernel\b", ev.get("name", ""))
         if grid is None or not m or m.group(1) not in KERNELS:
             continue
-        tasks = grid[0]
+        tasks = grid[0] * (grid[1] if len(grid) > 1 else 1)
         hi = next((e for e in TASK_BINS if tasks <= e), tasks)
         lo = max((e + 1 for e in TASK_BINS if e < hi), default=1)
         key = (m.group(1), lo, hi)
@@ -401,22 +613,20 @@ def by_launch_size(prof, path: Path) -> str:
     return " ".join(f"{k}[{lo}-{hi}]={us / 1e3:.3f}ms/{n}" for (k, lo, hi), (n, us) in sorted(bins.items()))
 
 
-def replay_breakdown(torch, label: str, submit) -> None:
-    """Where one replay drain's time goes: device time by kernel from
-    torch.profiler, the union of device-busy intervals, and the idle share
-    of the device span (first kernel start to last kernel end).  ``submit``
-    puts a structurally repeated drain's roots on a fresh dispatcher."""
+def profiled(torch, label: str, run) -> None:
+    """Where one run's time goes: device time by kernel from torch.profiler,
+    the union of device-busy intervals, the idle share of the device span
+    (first kernel start to last kernel end), and the host's dispatch time
+    (``run()`` returning) beside the wall time (the card done).  ``run``
+    returns a string of its own counters to print."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import Dispatcher
-
-    d = Dispatcher(graph="g2p")
-    submit(d)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        d.run()
+        info = run()
+        host_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by = [], {}
@@ -430,8 +640,7 @@ def replay_breakdown(torch, label: str, submit) -> None:
         n, us = by.get(name, (0, 0.0))
         by[name] = (n + 1, us + tr.elapsed_us())
     if not spans:
-        print(f"{label} replay profile: no device events recorded (wall_ms={wall_ms:.3f}); "
-              "device time not measured")
+        print(f"{label} profile: no device events recorded (wall_ms={wall_ms:.3f}); device time not measured")
         return
     spans.sort()
     busy, (cs, ce) = 0.0, spans[0]
@@ -443,14 +652,29 @@ def replay_breakdown(torch, label: str, submit) -> None:
     busy += ce - cs
     span = max(e for _, e in spans) - spans[0][0]
     parts = " ".join(f"{k}={v[1] / 1e3:.3f}ms/{v[0]}" for k, v in sorted(by.items()))
-    print(f"{label} replay profile (profiler on): memo_hits={d.stats['memo_hits']} wall_ms={wall_ms:.3f} "
+    print(f"{label} profile (profiler on): {info} wall_ms={wall_ms:.3f} host_dispatch_ms={host_ms:.3f} "
           f"device_span_ms={span / 1e3:.3f} device_busy_ms={busy / 1e3:.3f} "
           f"idle_share_of_span={1 - busy / span:.3f} by_kernel: {parts}")
     trace = ROOT / "build" / "traces" / f"{re.sub(r'[^0-9A-Za-z]+', '_', label).strip('_')}.json"
-    print(f"{label} replay device time by tasks per launch: {by_launch_size(prof, trace)}")
+    print(f"{label} device time by CTAs per launch: {by_launch_size(prof, trace)}")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
-    print(f"{label} replay host ops by self time (profiler on): "
+    print(f"{label} host ops by self time (profiler on): "
           + " ".join(f"{e.key}={e.self_cpu_time_total / 1e3:.3f}ms/{e.count}" for e in host))
+
+
+def replay_breakdown(torch, label: str, submit) -> None:
+    """``profiled`` over one replay drain: ``submit`` puts a structurally
+    repeated drain's roots on a fresh dispatcher."""
+    from repro_torch.core import Dispatcher
+
+    d = Dispatcher(graph="g2p")
+    submit(d)
+
+    def run():
+        d.run()
+        return f"memo_hits={d.stats['memo_hits']}"
+
+    profiled(torch, f"{label} replay", run)
 
 
 def drain_checked(torch, tl, label: str, submit, want: tuple, want_launches: dict, error, tol: float,
@@ -466,7 +690,7 @@ def drain_checked(torch, tl, label: str, submit, want: tuple, want_launches: dic
     t0 = time.perf_counter()
     leaves = d.run()
     t_host = time.perf_counter() - t0
-    d.executor.epoch.wait()  # the drain's launch list, still in flight
+    d.executor.sync()  # the drain's launch list, still in flight
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in tl.LAUNCHES.items() if v}
     err = error(*datas)
@@ -631,6 +855,230 @@ def lu_main_path(torch, tl) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 5: serving
+# --------------------------------------------------------------------------
+def serving_path(torch, tl) -> dict:
+    """Phase 5: ``BatchServer(graph="g2p", max_batch=64)`` answers SERVED
+    requests a tick (three signature buckets, one stacked launch list
+    each): tick 1 captures, ticks 2-4 (fresh inputs) replay with every
+    stacked-launch count zeroed before the tick and read after; then a
+    profiled repeat tick, the same tick on g2, the same solves as
+    sequential ``run_lu_solve`` replays and as one batched library call,
+    and the fault rounds.  Returns the stacked launches of ticks 2-4."""
+    import numpy as np
+
+    from repro_torch.core import dd_matrix, spd_matrix
+    from repro_torch.errors import InflightError, NumericalError
+    from repro_torch.kernels.ref import fp32_matmul
+    from repro_torch.linalg import run_lu_solve
+    from repro_torch.serve import BatchServer
+    from repro_torch.testing import faults
+
+    kind_of = {"lu_solve": "lu_solve", "getrf": "lu", "potrf": "cholesky"}
+    parts = ((SP, SP),)
+
+    class Observed(BatchServer):
+        """A BatchServer that keeps each chunk drain's template counters."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.drained = []
+
+        def _drain_chunk(self, chunk):
+            d, h = super()._drain_chunk(chunk)
+            st = d.executor.stats
+            self.drained.append((kind_of[chunk[0].op.name], len(chunk),
+                                 (h.leaves, st["groups"], st["groups_prefusion"], st["slots"])))
+            return d, h
+
+    rng = np.random.default_rng(5)
+
+    def requests(tick: int):
+        """One tick's requests as host tensors, as callers send them."""
+        base = 1000 * tick
+        return {
+            "lu_solve": [(dd_matrix(SN, seed=base + i, device="cpu"),
+                          torch.from_numpy(rng.standard_normal(SN).astype(np.float32)))
+                         for i in range(SERVED["lu_solve"])],
+            "lu": [dd_matrix(SN, seed=base + 100 + i, device="cpu") for i in range(SERVED["lu"])],
+            "cholesky": [spd_matrix(SN, seed=base + 200 + i, device="cpu") for i in range(SERVED["cholesky"])],
+        }
+
+    def submit(srv, reqs):
+        return {
+            "lu_solve": [srv.lu_solve(a, b, partitions=parts) for a, b in reqs.get("lu_solve", ())],
+            "lu": [srv.lu(a, partitions=parts) for a in reqs.get("lu", ())],
+            "cholesky": [srv.cholesky(a, partitions=parts) for a in reqs.get("cholesky", ())],
+        }
+
+    def backward(residual, scale, n: int) -> float:
+        """Largest componentwise backward error |residual| / scale in units
+        of fp32's unit roundoff u; raises above n / (1 - n u), the bound of a
+        blocked LU or Cholesky in fp32 with conventional products
+        (|LU - A| <= gamma_n |L||U|, Higham, Accuracy and Stability of
+        Numerical Algorithms, Thms 9.3 and 10.3).  On these near-diagonal
+        inputs the absolute bounds alone would pass a factor that skipped
+        a trailing update; this one would not."""
+        u = 2.0**-24
+        ratio = (residual.abs() / scale.clamp_min(1e-300)).max().item() / u
+        if not ratio <= n / (1 - n * u):
+            raise AssertionError(f"componentwise backward error {ratio:.1f} u exceeds gamma_{n} = {n} u")
+        return ratio
+
+    def errors(reqs, futs, skip=()):
+        """Max abs error of each kind's results against float64 references
+        (pivot-free LU factor, Cholesky factor, solution), and for the
+        factors their componentwise backward error (``backward``)."""
+        out = {}
+        if reqs.get("lu_solve"):
+            keep = [i for i in range(len(reqs["lu_solve"])) if i not in skip]
+            a = torch.stack([reqs["lu_solve"][i][0] for i in keep]).cuda().double()
+            b = torch.stack([reqs["lu_solve"][i][1] for i in keep]).cuda().double()
+            ref = torch.linalg.solve(a, b[..., None])[..., 0]
+            x = torch.stack([futs["lu_solve"][i].result() for i in keep]).double()
+            out["lu_solve"] = (x - ref).abs().max().item()
+        if reqs.get("lu"):
+            a = torch.stack(reqs["lu"]).cuda().double()
+            ref = torch.linalg.lu_factor_ex(a, pivot=False).LU
+            lo, up = (torch.stack(f).double() for f in zip(*(f.result() for f in futs["lu"])))
+            out["lu"] = (torch.tril(lo, -1) + up - ref).abs().max().item()
+            out["lu_backward_u"] = backward(lo @ up - a, lo.abs() @ up.abs(), SN)
+        if reqs.get("cholesky"):
+            a = torch.stack(reqs["cholesky"]).cuda().double()
+            ref = torch.linalg.cholesky(a)
+            lo = torch.stack([f.result() for f in futs["cholesky"]]).double()
+            out["cholesky"] = (lo - ref).abs().max().item()
+            out["cholesky_backward_u"] = backward(lo @ lo.mT - a, lo.abs() @ lo.abs().mT, SN + 1)
+        for kind, e in out.items():
+            if kind.endswith("_backward_u"):
+                continue
+            if e > (1e-3 if kind == "lu_solve" else 2e-4):
+                raise AssertionError(f"served {kind} error {e:.3e} exceeds its bound")
+        return out
+
+    def tick(srv, label: str, reqs):
+        """Submit (ingest through pinned memory), wait for the copies, then
+        one tick between zeroed and read launch counts: the tick's host
+        wall time, the card done, the event span on the stream."""
+        t0 = time.perf_counter()
+        futs = submit(srv, reqs)
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        tl.reset_launches()
+        srv.drained.clear()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        rep = srv.tick()
+        tick_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        done_ms = (time.perf_counter() - t0) * 1e3
+        stacked = dict(tl.STACKED_LAUNCHES)
+        unstacked = {k: v for k, v in tl.LAUNCHES.items() if v}
+        print(f"{label}: requests={rep.requests} resolved={rep.resolved} failed={rep.failed} buckets={rep.buckets} "
+              f"launches={rep.launches} compiles={rep.compiles} stacked_drains={rep.stacked_drains} "
+              f"memo_hits={rep.memo_hits} bisected={rep.bisected} host_idle_us={rep.host_idle_us:.1f} "
+              f"submit_ms={submit_ms:.3f} tick_wall_ms={tick_ms:.3f} card_done_ms={done_ms:.3f} "
+              f"event_span_ms={start.elapsed_time(end):.3f} stacked_launches={stacked} "
+              f"unstacked_launches={unstacked}")
+        return rep, futs, stacked
+
+    srv = Observed(graph="g2p", max_batch=LANES)
+    reqs = requests(1)
+    rep, futs, _ = tick(srv, "serve g2p tick 1 (capture)", reqs)
+    if (rep.compiles, rep.launches, rep.stacked_drains, rep.resolved) != (3, 3, 3, sum(SERVED.values())):
+        raise AssertionError(f"capture tick counters {rep}")
+    launches = {k: 0 for k in KERNELS}
+    for t in (2, 3, 4):
+        reqs = requests(t)
+        rep, futs, stacked = tick(srv, f"serve g2p tick {t} (replay)", reqs)
+        got = (rep.compiles, rep.launches, rep.stacked_drains, rep.resolved, rep.failed, rep.host_idle_us)
+        if got != (0, 3, 3, sum(SERVED.values()), 0, 0):
+            raise AssertionError(f"tick {t}: (compiles, launches, stacked_drains, resolved, failed, "
+                                 f"host_idle_us) = {got}")
+        missing = [k for k in KERNELS if not stacked[k]]
+        if missing:
+            raise AssertionError(f"tick {t}: no stacked launch of {missing}")
+        for k in KERNELS:
+            launches[k] += stacked[k]
+        counters = {kind: c for kind, _, c in srv.drained}
+        if counters != TEMPLATES or sorted(n for _, n, _ in srv.drained) != sorted(SERVED.values()):
+            raise AssertionError(f"tick {t}: bucket templates {srv.drained} != {TEMPLATES}")
+        errs = errors(reqs, futs)
+        print(f"serve g2p tick {t}: templates (leaves, groups, prefusion, slots) {counters}; "
+              f"max_abs_err_vs_f64 and backward error in units of fp32 roundoff (_backward_u) "
+              + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+
+    reqs = requests(5)
+    futs = submit(srv, reqs)
+
+    def profiled_tick():
+        rep = srv.tick()
+        return (f"launches={rep.launches} compiles={rep.compiles} stacked_drains={rep.stacked_drains} "
+                f"resolved={rep.resolved}")
+
+    profiled(torch, "serve g2p repeat tick", profiled_tick)
+    errors(reqs, futs)
+
+    g2 = Observed(graph="g2", max_batch=LANES)
+    tick(g2, "serve g2 tick 1 (capture)", requests(6))
+    reqs = requests(7)
+    rep, futs, _ = tick(g2, "serve g2 tick 2 (replay, library leaves)", reqs)
+    errors(reqs, futs)
+
+    solve = [(a.cuda(), b.cuda()) for a, b in requests(8)["lu_solve"]]
+    run_lu_solve(*solve[0], graph="g2p", partitions=parts)  # capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a, b in solve:
+        run_lu_solve(a, b, graph="g2p", partitions=parts)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    A = torch.stack([a for a, _ in solve])
+    Bm = torch.stack([b for _, b in solve])[..., None]
+    sl = torch.linalg.solve_triangular
+
+    def library():
+        lu = torch.linalg.lu_factor_ex(A, pivot=False).LU
+        return sl(lu, sl(lu, Bm, upper=False, left=True, unitriangular=True), upper=True, left=True)
+
+    with fp32_matmul():
+        lib_ms = cuda_ms(library, 5)
+    print(f"{LANES} sequential g2p run_lu_solve memo replays (device inputs) ms={seq_ms:.3f}; library "
+          f"lu_factor_ex(pivot=False) + 2 solve_triangular on ({LANES}, {SN}, {SN}) ms={lib_ms:.3f}")
+
+    # fault rounds: check_finite on, no retries; an expected error on a
+    # future is a result, and is asserted
+    fsrv = Observed(graph="g2p", max_batch=LANES, check_finite=True, max_retries=0)
+    reqs = {"lu_solve": requests(9)["lu_solve"]}
+    a_bad = reqs["lu_solve"][3][0].clone()
+    a_bad[0, 0] = float("nan")
+    reqs["lu_solve"][3] = (a_bad, reqs["lu_solve"][3][1])
+    rep, futs, _ = tick(fsrv, "serve fault round 1 (NaN in request 3)", reqs)
+    if not isinstance(futs["lu_solve"][3].exception(), NumericalError) or (rep.resolved, rep.failed) != (63, 1):
+        raise AssertionError(f"NaN round: {futs['lu_solve'][3].exception()!r} resolved={rep.resolved}")
+    e1 = errors(reqs, futs, skip={3})
+    reqs = {"lu_solve": requests(10)["lu_solve"]}
+    futs = submit(fsrv, reqs)
+    target = futs["lu_solve"][5].rid
+    with faults.inject("drain.inflight", RuntimeError("injected in-flight failure"),
+                       when=lambda ctx: target in ctx.get("rids", ()), times=None):
+        reps = [fsrv.tick()]
+        while fsrv.pending() and len(reps) < 4:
+            reps.append(fsrv.tick())
+    bisected = sum(r.bisected for r in reps)
+    err = futs["lu_solve"][5].exception()
+    if not isinstance(err, InflightError) or bisected == 0 or fsrv.pending():
+        raise AssertionError(f"in-flight round: {err!r} bisected={bisected} pending={fsrv.pending()}")
+    e2 = errors(reqs, futs, skip={5})
+    print(f"serve fault round 1: request 3 failed with NumericalError, 63 resolved, max_abs_err={e1['lu_solve']:.3e}; "
+          f"round 2: drain.inflight on request 5 -> {type(err).__name__}, bisected={bisected}, ticks={len(reps)}, "
+          f"resolved={sum(r.resolved for r in reps)} max_abs_err={e2['lu_solve']:.3e}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -658,10 +1106,13 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     errs = kernel_checks(torch, tl, rng)
+    stacked_errs = stacked_checks(torch, tl, rng)
     times = kernel_timings(torch, tl)
+    stacked_times = stacked_timings(torch, tl, rng)
     launches = main_path(torch, tl)
     for k, v in lu_main_path(torch, tl).items():
         launches[k] += v
+    stacked_launches = serving_path(torch, tl)
 
     kernels = []
     for name in KERNELS:
@@ -673,6 +1124,17 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max(errs[name], t["err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "tasks": t["tasks"],
+        })
+    for name in KERNELS:
+        t = stacked_times[name]
+        if stacked_launches[name] == 0:
+            raise AssertionError(f"{name}_stacked was launched no time on the serving path")
+        kernels.append({
+            "name": f"{name}_stacked", "route": "cuda", "source": SOURCE, "replaces": STACKED_REPLACES,
+            "launches": stacked_launches[name], "max_abs_err": max(stacked_errs[name], t["err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "tasks": t["tasks"], "lanes": LANES,
+            "unstacked_launches_ms": t["unstacked_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

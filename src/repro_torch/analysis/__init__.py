@@ -3,7 +3,8 @@
 - ``hazards``: re-derive RAW/WAR/WAW dependences from task footprints and
   cross-check the ``DepTracker`` DAG (missing edge = race, spurious edge =
   lost parallelism).
-- ``verify``:  prove a ``SchedulePlan``'s fusion/slot/scatter invariants.
+- ``verify``:  prove a ``SchedulePlan``'s fusion/slot/scatter invariants
+  and stacked-lane disjointness.
 
 Runtime wiring: ``Dispatcher(verify=True)`` or ``REPRO_VERIFY=1`` runs both
 passes on every non-replay drain; memo replays re-execute a verified
@@ -17,7 +18,12 @@ from .hazards import (
     analyze_hazards,
     recompute_conflicts,
 )
-from .verify import clear_verified_cache, verifier_stats, verify_plan
+from .verify import (
+    clear_verified_cache,
+    verifier_stats,
+    verify_plan,
+    verify_stacked_members,
+)
 
 __all__ = [
     "Conflict",
@@ -28,4 +34,5 @@ __all__ = [
     "recompute_conflicts",
     "verifier_stats",
     "verify_plan",
+    "verify_stacked_members",
 ]

@@ -14,6 +14,8 @@ prose; this module proves them for every concrete plan (DESIGN.md §11):
     V4  A group's scatter index vector contains no duplicate write slots:
         two rows of one ``.at[idx].set`` landing on the same (root, block)
         would silently last-write-win.
+    V5  The lanes of a stacked drain are disjoint (``verify_stacked_members``):
+        no data handle appears in two lanes or two root slots.
 
 Verdicts are cached on the plan's structural key *plus* a digest of its
 block-index arrays (the structural key deliberately excludes indices —
@@ -25,7 +27,7 @@ verifier at all (DESIGN.md §11 cost model).
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 from ..core.task import GTask
 from ..core.versioning import TaskDag
@@ -187,8 +189,30 @@ def verify_plan(plan, dag: TaskDag, cache: bool = True) -> bool:
     return True
 
 
+def verify_stacked_members(member_lists: Sequence[Sequence]) -> bool:
+    """V5: lanes of a stacked drain must be block-disjoint, which at the
+    whole-root granularity the stacker uses means no ``GData`` handle may
+    appear in two lanes or in two root slots — an aliased lane would make
+    two lanes scatter into one buffer.
+    """
+    seen: Dict[int, Tuple[int, int]] = {}
+    for slot, members in enumerate(member_lists):
+        for lane, d in enumerate(members):
+            prev = seen.get(d.id)
+            if prev is not None:
+                raise ScheduleVerificationError(
+                    "verify_stacked.lane_alias",
+                    f"datum {d.name} appears as (slot {prev[0]}, lane "
+                    f"{prev[1]}) and (slot {slot}, lane {lane}) of one "
+                    f"stacked drain — lanes must be disjoint",
+                )
+            seen[d.id] = (slot, lane)
+    return True
+
+
 __all__ = [
     "clear_verified_cache",
     "verifier_stats",
     "verify_plan",
+    "verify_stacked_members",
 ]

@@ -7,7 +7,7 @@ task-flow graph configuration (G1-G4 analogs).
 
 from .api import dispatcher, utp_finalize, utp_get_parameters, utp_initialize
 from .data import GData, GView, Region, dd_matrix, resolve_device, spd_matrix
-from .dispatcher import Dispatcher
+from .dispatcher import Dispatcher, DrainHandle
 from .graph import GRAPHS, TaskFlowGraph, get_graph
 from .operation import Operation, OpRegistry
 from .task import Access, GTask, TaskState
@@ -17,6 +17,7 @@ __all__ = [
     "Access",
     "DepTracker",
     "Dispatcher",
+    "DrainHandle",
     "GData",
     "GRAPHS",
     "GTask",

@@ -14,8 +14,10 @@ paper's ``A(r, c)`` indexing interface (Fig. 2b).
 Storage ownership: the wave executors update resident grids IN PLACE (the
 counterpart of buffer donation), so a ``GData`` never aliases a tensor the
 caller holds.  It copies on ingest, ``to_grid`` and ``from_grid`` always
-return fresh storage, and ``GView.set`` replaces the root tensor instead of
-writing into it.
+return fresh storage, ``GView.set`` replaces the root tensor instead of
+writing into it, and re-entering a grid epoch from a stacked-epoch lane
+clones the lane (a view would let an in-place drain of this datum write
+into storage its bystander lanes share).
 """
 
 from __future__ import annotations
@@ -42,6 +44,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def host_to_device(t: torch.Tensor, device: torch.device, dtype=None) -> torch.Tensor:
+    """A fresh copy of ``t`` on ``device`` (converted to ``dtype``).
+
+    A copy from pageable host memory to the card synchronizes the stream,
+    which would fence the serving loop on every request ingest and every
+    first drain's index upload; the host tensor is staged through pinned
+    memory and copied without blocking instead (PyTorch's pinned-memory
+    allocator keeps the staging buffer until the copy has finished)."""
+    dtype = t.dtype if dtype is None else dtype
+    if device.type == "cuda" and t.device.type == "cpu":
+        # convert on the host first: a copy that converts as it crosses to
+        # the card goes through a pageable temporary
+        return t.to(dtype).pin_memory().to(device=device, non_blocking=True)
+    return t.to(device=device, dtype=dtype, copy=True)
+
+
 def to_grid(a: torch.Tensor, br: int, bc: int) -> torch.Tensor:
     """(R, C) root layout -> fresh (R//br, C//bc, br, bc) grid-major tensor."""
     r, c = a.shape
@@ -56,6 +74,35 @@ def from_grid(a4: torch.Tensor) -> torch.Tensor:
     out = torch.empty((nr * br, nc * bc), dtype=a4.dtype, device=a4.device)
     out.view(nr, br, nc, bc).copy_(a4.permute(0, 2, 1, 3))
     return out
+
+
+class StackedEpoch:
+    """Shared result holder for one stacked (batched) drain — DESIGN.md §7.
+
+    When the dispatcher stacks N structurally identical roots into one
+    batched launch list, the list's result per root slot is a single
+    ``(B, nr, nc, br, bc)`` stacked grid.  Splitting it eagerly back into N
+    per-root grids would reintroduce the per-root data movement the stacking
+    removed, so instead every member ``GData`` adopts a *lane* of this shared
+    epoch: reading a member's ``.value`` (or re-entering its grid epoch)
+    extracts its lane lazily, as a copy.  The epoch dies when the last
+    member resolves or re-adopts elsewhere.
+    """
+
+    __slots__ = ("grid", "block", "holders")
+
+    def __init__(self, grid: torch.Tensor, block: Tuple[int, int]):
+        self.grid = grid  # (B, nr, nc, br, bc), on the drain's device
+        self.block = tuple(block)
+        # live lane holders: an executor may run the next stacked list IN
+        # PLACE on this grid only when every holder is re-adopted in that
+        # same drain (otherwise it would overwrite a bystander's lane) —
+        # see WaveExecutor._stack_grids
+        self.holders = 0
+
+    @property
+    def batch(self) -> int:
+        return self.grid.shape[0]
 
 
 @dataclass(frozen=True)
@@ -109,6 +156,9 @@ class GData:
         # ``_value`` is stale; reading ``.value`` de-grids lazily.
         self._grid: Optional[torch.Tensor] = None
         self._grid_block: Optional[Tuple[int, int]] = None
+        # Stacked-epoch lane (DESIGN.md §7): while set, the authoritative
+        # bytes are one lane of a shared StackedEpoch grid; resolved lazily.
+        self._lane: Optional[Tuple[StackedEpoch, int]] = None
         self.value = None if value is None else self._ingest(value)
         self.name = name or f"gdata{self.id}"
         for lvl, (pr, pc) in enumerate(self.partitions):
@@ -126,13 +176,19 @@ class GData:
         t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
         if tuple(t.shape) != self.shape:
             raise ValueError(f"value shape {tuple(t.shape)} != {self.shape}")
-        return t.to(device=self.device, dtype=self.dtype, copy=True)
+        return host_to_device(t, self.device, self.dtype)
 
     # -- grid-resident epoch (DESIGN.md §2) ---------------------------------
     @property
     def value(self) -> Optional[torch.Tensor]:
         """Root-layout tensor.  Reading from inside a grid epoch de-grids
-        lazily and ends the epoch (the next drain re-enters it)."""
+        lazily and ends the epoch (the next drain re-enters it); reading
+        from a stacked-epoch lane extracts + de-grids that lane."""
+        if self._lane is not None:
+            ep, i = self._lane
+            self._drop_lane()
+            self._value = from_grid(ep.grid[i])
+            return self._value
         if self._grid is not None:
             self._value = from_grid(self._grid)
             self._grid = None
@@ -143,7 +199,13 @@ class GData:
     def value(self, v: Optional[torch.Tensor]) -> None:
         self._grid = None
         self._grid_block = None
+        self._drop_lane()
         self._value = v
+
+    def _drop_lane(self) -> None:
+        if self._lane is not None:
+            self._lane[0].holders -= 1
+            self._lane = None
 
     @property
     def in_grid_epoch(self) -> bool:
@@ -151,8 +213,36 @@ class GData:
 
     @property
     def has_value(self) -> bool:
-        """True when authoritative bytes exist (root value or grid)."""
-        return self._value is not None or self._grid is not None
+        """True when authoritative bytes exist in ANY epoch (root-layout
+        value, resident grid, or stacked-epoch lane)."""
+        return (
+            self._value is not None
+            or self._grid is not None
+            or self._lane is not None
+        )
+
+    @property
+    def lane(self) -> Optional[Tuple[StackedEpoch, int]]:
+        """(epoch, lane index) while lane-resident, else None."""
+        return self._lane
+
+    def adopt_lane(self, epoch: StackedEpoch, lane: int) -> None:
+        """Adopt lane ``lane`` of a stacked drain's result grid (DESIGN.md
+        §7).  The shared epoch becomes the single authority for this datum;
+        nothing is sliced or de-gridded until someone reads ``.value`` or
+        re-enters a per-datum grid epoch."""
+        nr, nc, br, bc = epoch.grid.shape[1:]
+        want = (nr * br, nc * bc)
+        if want != tuple(self.shape):
+            raise ValueError(
+                f"{self.name}: stacked lane shape {want} != {self.shape}"
+            )
+        self._grid = None
+        self._grid_block = None
+        self._value = None
+        self._drop_lane()
+        self._lane = (epoch, lane)
+        epoch.holders += 1
 
     @property
     def grid_block(self) -> Optional[Tuple[int, int]]:
@@ -172,7 +262,16 @@ class GData:
             )
         if self._grid is not None and self._grid_block == (br, bc):
             return self._grid
-        v = self.value  # flushes any differently-blocked resident grid
+        if self._lane is not None and self._lane[0].block == (br, bc):
+            # lane-resident with the right block shape: copy the lane out of
+            # the stacked epoch directly, no root-layout round trip.  A copy,
+            # not a view: the next drain updates this grid in place
+            ep, i = self._lane
+            self._drop_lane()
+            self._grid = ep.grid[i].clone()
+            self._grid_block = (br, bc)
+            return self._grid
+        v = self.value  # flushes any differently-blocked resident grid/lane
         if v is None:
             raise ValueError(f"{self.name}: cannot enter grid epoch, no value")
         self._grid = to_grid(v, br, bc)
@@ -308,7 +407,7 @@ def spd_matrix(n: int, dtype=torch.float32, seed: int = 0, device=None) -> torch
     rng = np.random.default_rng(seed)
     a = rng.standard_normal((n, n)).astype(np.float32) / np.sqrt(n)
     a = a @ a.T + np.eye(n, dtype=np.float32) * 2.0
-    return torch.from_numpy(a).to(device=dev, dtype=dtype)
+    return host_to_device(torch.from_numpy(a), dev, dtype)
 
 
 def dd_matrix(n: int, dtype=torch.float32, seed: int = 0, device=None) -> torch.Tensor:
@@ -320,4 +419,4 @@ def dd_matrix(n: int, dtype=torch.float32, seed: int = 0, device=None) -> torch.
     a /= np.abs(a).sum(axis=0, keepdims=True) * 1.5  # col |off-diag| sum < 2/3
     diag = 1.0 + rng.uniform(0.0, 1.0, n).astype(np.float32)
     np.fill_diagonal(a, diag)
-    return torch.from_numpy(a).to(device=dev, dtype=dtype)
+    return host_to_device(torch.from_numpy(a), dev, dtype)

@@ -4,7 +4,9 @@ from .jit_wave import (
     CudaExecutor,
     WaveExecutor,
     clear_compile_cache,
+    drain_memo_pressure,
     drain_memo_stats,
+    set_drain_memo_capacity,
 )
 from .wave_program import SchedulePlan, build_program, plan_schedule
 
@@ -16,7 +18,9 @@ __all__ = [
     "WaveExecutor",
     "build_program",
     "clear_compile_cache",
+    "drain_memo_pressure",
     "drain_memo_stats",
     "group_wave",
     "plan_schedule",
+    "set_drain_memo_capacity",
 ]

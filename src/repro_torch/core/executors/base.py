@@ -57,6 +57,22 @@ class Executor:
         # drain paths — so EVERY route into plan_schedule is covered.
         self.verify = False
 
+    def take_inflight(self) -> List[object]:
+        """Drain and return the executor's in-flight epoch handles
+        (``versioning.InFlightEpoch``) — the launches since the last take
+        whose device work may not have finished yet (DESIGN.md §12).
+        Synchronous executors have none: the base implementation returns
+        ``[]``, which callers treat as "everything already complete"."""
+        return []
+
+    def sync(self) -> float:
+        """Fence every outstanding in-flight epoch; returns host seconds
+        spent blocked.  No-op (0.0) for synchronous executors."""
+        total = 0.0
+        for ep in self.take_inflight():
+            total += ep.wait()
+        return total
+
     def execute_schedule(self, waves: List[List[GTask]], dag=None) -> int:
         """Run a leaf schedule: the Kahn level waves plus (optionally) the
         exact task DAG behind them (``versioning.TaskDag``).

@@ -14,6 +14,12 @@ wave boundaries (also across roots), one list per drain.  Roots stay in
 "compile" is a launch-list build on a cache miss; a "launch" is one run of
 a list.
 
+Stacked path (``execute_stacked``, DESIGN.md §7): a homogeneous root
+stream runs ONE list over ``(B, nr, nc, br, bc)`` stacked grids with B
+padded to a pow2 bucket — built lists and the drain memo key depend on the
+bucket, never on the exact request count, and results hand back as lazily
+extracted lanes of a shared ``StackedEpoch``.
+
 Fallback path (``execute_wave``/``_run_group``): per-wave-group launches
 over root-layout tensors, used when the schedule is not grid-uniform
 (mixed block shapes or unaligned regions on one root).  Each group runs at
@@ -31,7 +37,8 @@ import numpy as np
 import torch
 
 from ...analysis.verify import verify_plan
-from ..data import GData
+from ...testing import faults
+from ..data import GData, StackedEpoch, host_to_device
 from ..task import GTask, TaskState
 from ..versioning import InFlightEpoch
 from .base import Executor, group_wave
@@ -63,6 +70,8 @@ class DrainMemo:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.invalidations = 0
+        self.pressure_sheds = 0
 
     def get(self, key: tuple):
         entry = self._entries.get(key)
@@ -80,6 +89,39 @@ class DrainMemo:
             self._entries.popitem(last=False)
             self.evictions += 1
 
+    def set_capacity(self, capacity: int) -> None:
+        if capacity < 1:
+            raise ValueError(f"drain memo capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        while len(self._entries) > self.capacity:
+            self._entries.popitem(last=False)
+            self.evictions += 1
+
+    def discard(self, key: tuple) -> None:
+        """Drop one entry (no-op if absent) — the in-flight failure
+        hardening hook (DESIGN.md §12): a drain whose launches FAILED after
+        they were issued may have captured/refreshed an entry this drain can
+        no longer vouch for, so the dispatcher's ``DrainHandle`` invalidates
+        exactly the keys it stored.  Counted as an invalidation (the entry
+        is simply re-captured on the next healthy occurrence)."""
+        if key in self._entries:
+            del self._entries[key]
+            self.invalidations += 1
+
+    def shed(self) -> int:
+        """Evict the least-recently-used half of the entries; returns the
+        count shed.  The memory-pressure hook (DESIGN.md §14): a device
+        OOM means resident state must shrink NOW, and memo entries pin
+        device-side index tensors plus launch-list references — the LRU
+        tail is exactly the state least likely to be replayed soon.
+        Correctness is unaffected (a shed drain re-captures on its next
+        occurrence); counted under ``pressure_sheds``."""
+        n = max(1, len(self._entries) // 2) if self._entries else 0
+        for _ in range(n):
+            self._entries.popitem(last=False)
+        self.pressure_sheds += n
+        return n
+
     def stats(self) -> Dict[str, int]:
         return {
             "entries": len(self._entries),
@@ -87,6 +129,8 @@ class DrainMemo:
             "hits": self.hits,
             "misses": self.misses,
             "evictions": self.evictions,
+            "invalidations": self.invalidations,
+            "pressure_sheds": self.pressure_sheds,
         }
 
     def __len__(self) -> int:
@@ -104,9 +148,23 @@ class DrainMemo:
 _DRAIN_MEMO = DrainMemo()
 
 
+def set_drain_memo_capacity(capacity: int) -> None:
+    """Configure the LRU bound of the process-global drain memo."""
+    _DRAIN_MEMO.set_capacity(capacity)
+
+
 def drain_memo_stats() -> Dict[str, int]:
     """Entries/capacity/hits/misses/evictions of the global drain memo."""
     return _DRAIN_MEMO.stats()
+
+
+def drain_memo_pressure() -> int:
+    """Shed the LRU half of the global drain memo (DESIGN.md §14).
+
+    The memory-pressure callback: called by the serving layer on a device
+    OOM so resident launch-list state shrinks alongside the batch-cap
+    degradation.  Returns the number of entries shed."""
+    return _DRAIN_MEMO.shed()
 
 
 def clear_compile_cache() -> None:
@@ -122,7 +180,9 @@ class ProgramRecord:
     ``root_slots`` index into the drain's root-argument data order; the
     dispatcher resolves them to fresh ``GData`` objects on replay.
     ``idxs`` is the plan's device-resident flat index tensor — replay
-    reuses it as-is, no host concatenation or transfer."""
+    reuses it as-is, no host concatenation or transfer.  ``batch`` is the
+    stacked pow2 bucket for batched drains (DESIGN.md §7): replay then
+    resolves each slot to the LIST of member data handles to restack."""
 
     fn: object  # the launch list
     root_slots: Tuple[int, ...]
@@ -132,6 +192,7 @@ class ProgramRecord:
     n_groups: int = 0  # fused launch count inside the list
     n_groups_prefusion: int = 0  # barrier-wave group count before fusion
     n_slots: int = 0  # dependency-exact issue slots
+    batch: Optional[int] = None  # stacked bucket size (None = unstacked)
 
 
 class WaveExecutor(Executor):
@@ -147,11 +208,41 @@ class WaveExecutor(Executor):
         self._capture: Optional[List[ProgramRecord]] = None
         self._capture_ids: Dict[int, int] = {}
         self._capture_ok = True
-        # the last launch's (list or fallback group) in-flight device work
-        # (DESIGN.md §12):
-        # launches are asynchronous, so a caller that needs a fence waits
-        # on it, and the wait splits host dispatch time from the device tail
-        self.epoch: Optional[InFlightEpoch] = None
+        # in-flight epoch handles, one per launch list (or fallback group)
+        # since the last take (DESIGN.md §12); launches are asynchronous, so
+        # nothing here blocks
+        self.inflight: List[InFlightEpoch] = []
+
+    # -- async launch tracking (DESIGN.md §12) ---------------------------------
+    def _note_launch(self, device: torch.device, label: str) -> None:
+        """Record the device work just issued as an in-flight epoch (one
+        CUDA event on the current stream).  Already-finished epochs are
+        pruned opportunistically so a dispatcher reused across many drains
+        without ``take_inflight`` cannot accumulate handles."""
+        if len(self.inflight) >= 8:
+            self.inflight = [e for e in self.inflight if not e.is_ready()]
+        self.inflight.append(InFlightEpoch(device, label))
+
+    def take_inflight(self) -> List[InFlightEpoch]:
+        eps, self.inflight = self.inflight, []
+        return eps
+
+    def sync(self) -> float:
+        """Fence all outstanding launches; accumulates the blocked host
+        seconds into ``stats['host_block_us']``."""
+        blocked = super().sync()
+        self.stats["host_block_us"] += int(blocked * 1e6)
+        return blocked
+
+    @staticmethod
+    def _corrupt_outputs(grids: Sequence[torch.Tensor], **ctx) -> None:
+        """``executor.output`` fault site: the list's grids pass through the
+        armed corruption and the result is written back into them IN PLACE
+        (the kernels return nothing; the grids are the outputs)."""
+        outs = faults.corrupt("executor.output", list(grids), **ctx)
+        for g, o in zip(grids, outs):
+            if o is not g:
+                g.copy_(o)
 
     # -- drain capture/replay protocol (DESIGN.md §2) --------------------------
     def memo_key_extra(self) -> tuple:
@@ -175,11 +266,24 @@ class WaveExecutor(Executor):
         self._capture_ids = {}
         return records or [], ok and bool(records)
 
-    def replay_program(self, rec: ProgramRecord, datas: List[GData]) -> int:
-        """Re-execute a captured list against fresh data handles."""
-        grids = [d.enter_grid(*blk) for d, blk in zip(datas, rec.blocks)]
+    def replay_program(self, rec: ProgramRecord, datas: List) -> int:
+        """Re-execute a captured list against fresh data handles.
+
+        For a stacked record (``rec.batch``) each entry of ``datas`` is the
+        LIST of member handles for that root slot; they are restacked (with
+        pow2 padding) and the per-lane results handed back as lanes of a
+        shared ``StackedEpoch`` (DESIGN.md §7)."""
+        faults.fire("executor.launch", batch=rec.batch, n_tasks=rec.n_tasks, replay=True)
+        faults.fire("launch.oom", batch=rec.batch, n_tasks=rec.n_tasks, replay=True)
+        if rec.batch is not None:
+            grids = self._stack_grids(datas, rec.blocks, rec.batch)
+        else:
+            grids = [d.enter_grid(*blk) for d, blk in zip(datas, rec.blocks)]
         rec.fn(grids, rec.idxs)
-        self.epoch = InFlightEpoch(grids[0].device, "replay")
+        self._corrupt_outputs(grids, batch=rec.batch, replay=True)
+        self._note_launch(grids[0].device, "replay" if rec.batch is None else f"replay:stacked{rec.batch}")
+        if rec.batch is not None:
+            self._adopt_stacked(datas, grids, rec.blocks)
         self.stats["tasks"] += rec.n_tasks
         self.stats["launches"] += 1
         self.stats["groups"] += rec.n_groups
@@ -209,24 +313,122 @@ class WaveExecutor(Executor):
     def execute_waves(self, waves: List[List[GTask]]) -> int:
         return self.execute_schedule(waves)
 
-    def _run_program(self, plan: SchedulePlan) -> int:
-        """Build-or-fetch and run one planned launch list."""
+    # -- stacked (batched) drain path (DESIGN.md §7) ---------------------------
+    def execute_stacked(
+        self,
+        schedules: List[tuple],
+        members: Dict[int, List[GData]],
+        bucket: int,
+    ) -> Optional[int]:
+        """Run a homogeneous-root drain as ONE batched list per schedule.
+
+        ``schedules`` is the TEMPLATE root's list of leaf ``(waves, dag)``
+        schedules; ``members`` maps each template root-argument data id to
+        the per-request member handles (template first).  Every schedule is
+        planned up front: if ANY falls off the whole-program path (non-
+        grid-uniform), returns None WITHOUT executing anything, so the
+        caller can fall back to segment fusion with no partial state.
+        """
+        plans = []
+        for waves, dag in schedules:
+            waves = [w for w in waves if w]
+            if not waves:
+                continue
+            plan = plan_schedule(waves, dag)
+            if plan is None or any(d not in members for d in plan.roots_order):
+                return None
+            if self.verify and dag is not None:
+                # all template plans are proven up front, before ANY lane
+                # executes — a verification failure aborts with no partial
+                # state, same contract as the planning fall-off above
+                verify_plan(plan, dag)
+                self.stats["verified_plans"] += 1
+            plans.append(plan)
+        n = 0
+        for plan in plans:
+            n += self._run_program(plan, stack=(members, bucket))
+        return n
+
+    def _stack_grids(
+        self,
+        member_lists: Sequence[List[GData]],
+        blocks: Sequence[Tuple[int, int]],
+        bucket: int,
+    ) -> List[torch.Tensor]:
+        """Per root slot, stack the members' resident grids into one
+        ``(bucket, nr, nc, br, bc)`` tensor, padding the batch by repeating
+        the last member (lanes are independent, so padding lanes compute
+        junk that is never read back).
+
+        Repeat-tick fast path: when the members are exactly lanes 0..N-1 of
+        one prior StackedEpoch with the same block and bucket — and they
+        are that epoch's ONLY live holders, so running the next list in
+        place on its grid cannot overwrite a bystander lane — the grid is
+        reused as-is: zero per-request data movement between drains."""
+        out: List[torch.Tensor] = []
+        for members, (br, bc) in zip(member_lists, blocks):
+            first = members[0].lane
+            if (
+                first is not None
+                and first[0].block == (br, bc)
+                and first[0].batch == bucket
+                and first[0].holders == len(members)
+                and all(
+                    m.lane is not None
+                    and m.lane[0] is first[0]
+                    and m.lane[1] == i
+                    for i, m in enumerate(members)
+                )
+            ):
+                out.append(first[0].grid)
+                continue
+            gs = [m.enter_grid(br, bc) for m in members]
+            gs = gs + [gs[-1]] * (bucket - len(gs))
+            out.append(torch.stack(gs))
+        return out
+
+    @staticmethod
+    def _adopt_stacked(member_lists, grids, blocks) -> None:
+        """Hand each member its lane of the stacked result grids."""
+        for members, g, (br, bc) in zip(member_lists, grids, blocks):
+            epoch = StackedEpoch(g, (br, bc))
+            for i, m in enumerate(members):
+                m.adopt_lane(epoch, i)
+
+    def _run_program(self, plan: SchedulePlan, stack=None) -> int:
+        """Build-or-fetch and run one planned launch list.  With ``stack =
+        (members, bucket)`` the plan runs in stacked form over
+        ``(bucket, nr, nc, br, bc)`` grids (DESIGN.md §7): the list and its
+        cache key depend on the pow2 bucket, never on the exact request
+        count."""
         datas = [plan.datas[d] for d in plan.roots_order]
-        grids = [d.enter_grid(*blk) for d, blk in zip(datas, plan.blocks)]
-        key = ("waveprog", self.memo_key_extra()) + plan.key
+        batch = None
+        if stack is not None:
+            members, batch = stack
+            member_lists = [members[d] for d in plan.roots_order]
+            grids = self._stack_grids(member_lists, plan.blocks, batch)
+        else:
+            grids = [d.enter_grid(*blk) for d, blk in zip(datas, plan.blocks)]
+        key = ("waveprog", batch, self.memo_key_extra()) + plan.key
         fn = self._fn_cache.get(key)
         if fn is None:
-            fn = build_program(plan, self.backend)
+            fn = build_program(plan, self.backend, batch=batch)
             self._fn_cache[key] = fn
             self.stats["compiles"] += 1
         idxs = plan.flat_idxs  # built once at plan time, device-resident
+        faults.fire("executor.launch", batch=batch, n_tasks=len(plan.tasks), replay=False)
+        faults.fire("launch.oom", batch=batch, n_tasks=len(plan.tasks), replay=False)
         fn(grids, idxs)
-        self.epoch = InFlightEpoch(idxs.device, "program")
+        self._corrupt_outputs(grids, batch=batch, replay=False)
+        self._note_launch(idxs.device, "program" if batch is None else f"stacked{batch}")
+        if stack is not None:
+            self._adopt_stacked(member_lists, grids, plan.blocks)
         if self._capture is not None:
             slots = tuple(self._capture_ids.get(d, -1) for d in plan.roots_order)
             if -1 in slots:
                 self._capture_ok = False  # touches a non-root-arg datum
             else:
+                faults.fire("memo.capture", batch=batch)
                 self._capture.append(
                     ProgramRecord(
                         fn,
@@ -237,6 +439,7 @@ class WaveExecutor(Executor):
                         plan.n_groups,
                         plan.n_groups_prefusion,
                         plan.n_slots,
+                        batch,
                     )
                 )
         for t in plan.tasks:
@@ -343,13 +546,13 @@ class WaveExecutor(Executor):
         # package's jitted one there is no per-shape compile to bound
         device = data_of[roots_order[0]].device
         idxs = tuple(
-            torch.from_numpy(
+            host_to_device(torch.from_numpy(
                 np.array([t.args[a].block_index() for t in tasks], dtype=np.int32)
-            ).to(device)
+            ), device)
             for a in range(len(rep.args))
         )
         fn([data_of[d].value for d in roots_order], idxs)
-        self.epoch = InFlightEpoch(device, "group")
+        self._note_launch(device, "group")
         for t in tasks:
             t.state = TaskState.FINISHED
             self.stats["tasks"] += 1

@@ -33,9 +33,13 @@ Per single-segment group the list calls the operation's fused grid kernel
 in place in the written grid).  Otherwise it gathers the blocks, runs the
 batched leaf and scatters back with ``index_put_``.  Group sizes are exact,
 never padded: duplicate trailing indices are unsound for read-write fused
-kernels.  In-place writes take the place of the JAX package's buffer
-donation; launches are asynchronous on CUDA, and the executor records an
-``InFlightEpoch`` after each list.
+kernels.  (The *batch* axis of a stacked drain is different:
+``build_program(batch=B)`` runs over ``(B, nr, nc, br, bc)`` grids whose B
+is padded to a pow2 bucket upstream, so the list and the drain memo key
+depend on the bucket only — DESIGN.md §7; lanes are whole independent
+workloads, so padding lanes never alias real writes.)  In-place writes take
+the place of the JAX package's buffer donation; launches are asynchronous
+on CUDA, and the executor records an ``InFlightEpoch`` after each list.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from ..data import GData
+from ...testing import faults
+from ..data import GData, host_to_device
 from ..task import GTask
 from .base import group_wave
 
@@ -224,6 +229,33 @@ def _fuse(
     return slots, prefusion
 
 
+def _mutate_merge_dependent_groups(slots: List[List[_Fused]]) -> bool:
+    """``plan.merge_groups`` fault site (DESIGN.md §11): force-merge the
+    first same-signature group pair sitting in DIFFERENT issue slots.
+
+    Such a pair is dependent by construction — the legal fusion pass has
+    already merged every same-signature INDEPENDENT pair — so the merge
+    produces exactly the corrupted shape ``verify_plan`` must reject: one
+    launch containing path-connected tasks (V1), usually with overlapping
+    write blocks as well (V3/V4).  Mutating after slotting (not inside
+    ``_fuse``) keeps the quotient DAG acyclic, so planning itself cannot
+    hang — the bug ships silently unless the verifier catches it.
+    """
+    flat = [
+        (si, f) for si, groups in enumerate(slots) for f in groups
+    ]
+    for i, (si, f1) in enumerate(flat):
+        for sj, f2 in flat[i + 1 :]:
+            if sj > si and f1.compat == f2.compat and faults.fires(
+                "plan.merge_groups", op=f1.op.name, slots=(si, sj)
+            ):
+                for slots_, ts in f2.segments:
+                    f1.merge(slots_, ts, f2.preds)
+                slots[sj].remove(f2)
+                return True
+    return False
+
+
 def plan_schedule(
     waves: Sequence[Sequence[GTask]], dag=None
 ) -> Optional[SchedulePlan]:
@@ -270,6 +302,8 @@ def plan_schedule(
 
     heights = dag.heights() if dag is not None else {}
     fused_slots, prefusion = _fuse(waves, dag, slot_of)
+    if faults.active():
+        _mutate_merge_dependent_groups(fused_slots)
 
     plan_slots: List[List[GroupPlan]] = []
     tasks: List[GTask] = []
@@ -308,13 +342,13 @@ def plan_schedule(
         tuple(tuple(g.sig for g in slot) for slot in plan_slots),
     )
     parts = [ix for slot in plan_slots for g in slot for ix in g.idxs]
-    flat = torch.from_numpy(np.concatenate(parts, axis=0)).to(devices.pop())
+    flat = host_to_device(torch.from_numpy(np.concatenate(parts, axis=0)), devices.pop())
     return SchedulePlan(
         roots, datas, blocks_t, plan_slots, tasks, key, flat, prefusion
     )
 
 
-def build_program(plan: SchedulePlan, backend: str):
+def build_program(plan: SchedulePlan, backend: str, batch: Optional[int] = None):
     """Build ``plan``'s launch list: a fn ``(grids, idxs) -> None`` that
     updates the resident grids in place.
 
@@ -322,6 +356,15 @@ def build_program(plan: SchedulePlan, backend: str):
     fused grid kernel (single-segment groups only) or gather -> batched
     leaf -> scatter, with multi-segment groups concatenating the
     per-segment gathers and splitting the scatters across their roots.
+
+    With ``batch=B`` the SAME plan runs in stacked form (DESIGN.md §7):
+    every root grid carries a leading lane dimension ``(B, nr, nc, br, bc)``
+    holding B structurally identical workloads.  Fused groups call the
+    stacked grid kernel; gather groups pull ``(B, size)`` blocks per
+    argument and flatten the two batch axes into one leaf stack (so leaves
+    need no batch awareness), then scatter back lane by lane.  The index
+    tensor is the per-lane one, shared by all lanes — launch count and index
+    traffic stay flat in B.
 
     A group's reads are legal against the current grids even mid-slot: any
     block a group reads and a slot-mate writes would be a RAW/WAR edge,
@@ -336,6 +379,7 @@ def build_program(plan: SchedulePlan, backend: str):
     steps = []
     base = 0
     for g in plan.groups():
+        faults.fire("leaf.fn", op=g.op.name, backend=backend)
         fused = g.op.grid_fused_fn(backend)
         if (
             fused is not None
@@ -367,19 +411,39 @@ def build_program(plan: SchedulePlan, backend: str):
                 off = 0
                 for slots_, ssize in segments:
                     ix = gidx[a][off : off + ssize]
-                    chunks.append(grids[slots_[a]][ix[:, 0], ix[:, 1]])
+                    g = grids[slots_[a]]
+                    if batch is None:
+                        chunks.append(g[ix[:, 0], ix[:, 1]])
+                    else:
+                        chunks.append(g[:, ix[:, 0], ix[:, 1]])
                     off += ssize
-                blocks.append(chunks[0] if len(chunks) == 1 else torch.cat(chunks))
+                stack = (
+                    chunks[0]
+                    if len(chunks) == 1
+                    else torch.cat(chunks, dim=0 if batch is None else 1)
+                )
+                if batch is not None:
+                    # flatten (B, group) into one leaf stack: the batched
+                    # leaf is elementwise over the stack, so lane order only
+                    # has to match the un-flatten below
+                    stack = stack.flatten(0, 1)
+                blocks.append(stack)
             outs = fn(*blocks)
             if not isinstance(outs, (tuple, list)):
                 outs = (outs,)
             for out, a in zip(outs, write_pos):
+                if batch is not None:
+                    out = out.reshape(batch, size, *out.shape[1:])
                 off = 0
                 for slots_, ssize in segments:
                     r = slots_[a]
                     ix = gidx[a][off : off + ssize]
-                    part = out if len(segments) == 1 else out[off : off + ssize]
-                    grids[r].index_put_((ix[:, 0], ix[:, 1]), part.to(dtypes[r]))
+                    if batch is None:
+                        part = out if len(segments) == 1 else out[off : off + ssize]
+                        grids[r].index_put_((ix[:, 0], ix[:, 1]), part.to(dtypes[r]))
+                    else:
+                        part = out if len(segments) == 1 else out[:, off : off + ssize]
+                        grids[r][:, ix[:, 0], ix[:, 1]] = part.to(dtypes[r])
                     off += ssize
 
     return program

@@ -11,17 +11,27 @@
 //   trsmu_kernel   <- _trsmu_tile  / batched_trsmu  / grid_trsmu
 //   trsmul_kernel  <- _trsmul_tile / batched_trsmul / grid_trsmul
 //   gemmnn_kernel  <- _gemmnn_tile / batched_gemmnn / grid_gemmnn
-// and the fused gather/compute/scatter entry make_grid_fused (unstacked
-// form): every kernel reads its task's blocks straight from the resident
+// and the fused gather/compute/scatter entry make_grid_fused, in both its
+// forms: every kernel reads its task's blocks straight from the resident
 // (nr, nc, br, bc) grids through (n, 2) int32 block indices and writes the
 // result in place into the written argument's grid.  Each argument has its
 // own tile shape.  The batched form is the same kernel on a stack viewed as
 // an (n, 1, br, bc) grid with identity indices.
 //
-// One CTA per task.  Tasks of one launch are independent (the planner's
-// V3/V4 invariants: no task writes a block another task of the launch
-// reads or writes), so CTAs never race and nothing needs atomics.  All
-// arguments may point into the same grid, so no pointer is __restrict__.
+// The stacked form (make_grid_fused's kernel_stacked, grid (B, n)) is the
+// same nine kernels under a second grid dimension: the grids are
+// (B, nr, nc, br, bc), lane b = blockIdx.y reads and writes its blocks at
+// b * lane_stride elements from the base of each argument's grid, and all
+// B lanes share one index array.  The unstacked form is batch = 1.  A
+// stacked drain's lanes are whole independent workloads, so one launch of
+// B * n CTAs turns the small groups of a single drain (one POTRF or GETRF
+// per panel) into B-wide launches without new bodies.
+//
+// One CTA per (lane, task).  Tasks of one launch are independent (the
+// planner's V3/V4 invariants: no task writes a block another task of the
+// launch reads or writes; V5: lanes are disjoint), so CTAs never race and
+// nothing needs atomics.  All arguments may point into the same grid, so
+// no pointer is __restrict__.
 //
 // What bounds each kernel on H100, and what the design does about it:
 // - POTRF and TRSM are column recurrences: b dependent steps per tile, so
@@ -64,10 +74,14 @@ namespace {
 constexpr int kMaxB = 128;     // largest tile edge the kernels accept
 constexpr int kKC = 32;        // K chunk of the GEMM/SYRK/GEMMNN shared-memory stage
 constexpr int kThreads = 256;  // threads of the GETRF, TRSML/TRSMUL and GEMM-family CTAs
+constexpr int kMaxBatch = 65535;  // lanes of a stacked launch: gridDim.y's limit
 
-__device__ __forceinline__ long long block_offset(const int* idx, int task, int nc, int br, int bc) {
+// Element offset of this CTA's block: lane blockIdx.y of a stacked grid
+// (lane = 0 for an unstacked one), block (idx[task]) of that lane.
+__device__ __forceinline__ long long block_offset(const int* idx, int task, int nc, int br, int bc,
+                                                  long long lane) {
   const long long r = idx[2 * task], c = idx[2 * task + 1];
-  return (r * nc + c) * (long long)br * bc;
+  return blockIdx.y * lane + (r * nc + c) * (long long)br * bc;
 }
 
 // ---------------------------------------------------------------------------
@@ -78,10 +92,10 @@ __device__ __forceinline__ long long block_offset(const int* idx, int task, int 
 // itself stays un-rooted in shared memory until the write-back, so no
 // thread reads a value another thread rewrites in the same phase.
 // ---------------------------------------------------------------------------
-__global__ void potrf_kernel(float* grid, int nc, const int* idx, int b) {
+__global__ void potrf_kernel(float* grid, int nc, const int* idx, long long lane, int b) {
   extern __shared__ float T[];
   const int ld = b + 1;
-  float* tile = grid + block_offset(idx, blockIdx.x, nc, b, b);
+  float* tile = grid + block_offset(idx, blockIdx.x, nc, b, b, lane);
   for (int e = threadIdx.x; e < b * b; e += blockDim.x) T[(e / b) * ld + e % b] = tile[e];
   __syncthreads();
   const int i = threadIdx.x;  // the row this thread owns (blockDim.x >= b)
@@ -113,14 +127,14 @@ __global__ void potrf_kernel(float* grid, int nc, const int* idx, int b) {
 // ---------------------------------------------------------------------------
 template <bool kByColumn>
 __device__ __forceinline__ void trsm_right_rows(const float* tgrid, int tnc, const int* tidx,
-                                                float* bgrid, int bnc, const int* bidx, int br,
-                                                int b) {
+                                                long long tlane, float* bgrid, int bnc,
+                                                const int* bidx, long long blane, int br, int b) {
   extern __shared__ float smem[];
   const int ld = b + 1;
   float* T = smem;           // the triangle, row-major, padded
   float* X = smem + b * ld;  // B, then X, row-major, padded
-  const float* tt = tgrid + block_offset(tidx, blockIdx.x, tnc, b, b);
-  float* bt = bgrid + block_offset(bidx, blockIdx.x, bnc, br, b);
+  const float* tt = tgrid + block_offset(tidx, blockIdx.x, tnc, b, b, tlane);
+  float* bt = bgrid + block_offset(bidx, blockIdx.x, bnc, br, b, blane);
   if (kByColumn) {  // B may have br != b rows
     for (int e = threadIdx.x; e < b * b; e += blockDim.x) T[(e / b) * ld + e % b] = tt[e];
     for (int e = threadIdx.x; e < br * b; e += blockDim.x) X[(e / b) * ld + e % b] = bt[e];
@@ -143,14 +157,15 @@ __device__ __forceinline__ void trsm_right_rows(const float* tgrid, int tnc, con
   for (int e = threadIdx.x; e < br * b; e += blockDim.x) bt[e] = X[(e / b) * ld + e % b];
 }
 
-__global__ void trsm_kernel(const float* lgrid, int lnc, const int* lidx,
-                            float* bgrid, int bnc, const int* bidx, int b) {
-  trsm_right_rows<false>(lgrid, lnc, lidx, bgrid, bnc, bidx, b, b);
+__global__ void trsm_kernel(const float* lgrid, int lnc, const int* lidx, long long llane,
+                            float* bgrid, int bnc, const int* bidx, long long blane, int b) {
+  trsm_right_rows<false>(lgrid, lnc, lidx, llane, bgrid, bnc, bidx, blane, b, b);
 }
 
-__global__ void trsmu_kernel(const float* ugrid, int unc, const int* uidx, float* bgrid,
-                             int bnc, const int* bidx, int br, int b) {
-  trsm_right_rows<true>(ugrid, unc, uidx, bgrid, bnc, bidx, br, b);
+__global__ void trsmu_kernel(const float* ugrid, int unc, const int* uidx, long long ulane,
+                             float* bgrid, int bnc, const int* bidx, long long blane, int br,
+                             int b) {
+  trsm_right_rows<true>(ugrid, unc, uidx, ulane, bgrid, bnc, bidx, blane, br, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -160,10 +175,11 @@ __global__ void trsmu_kernel(const float* ugrid, int unc, const int* uidx, float
 // row and its lanes along the row (conflict-free; T[i][k] is a broadcast).
 // Two barriers per step; the tile never leaves shared memory.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads) getrf_kernel(float* grid, int nc, const int* idx, int b) {
+__global__ void __launch_bounds__(kThreads)
+getrf_kernel(float* grid, int nc, const int* idx, long long lane_stride, int b) {
   extern __shared__ float T[];
   const int ld = b + 1;
-  float* tile = grid + block_offset(idx, blockIdx.x, nc, b, b);
+  float* tile = grid + block_offset(idx, blockIdx.x, nc, b, b, lane_stride);
   for (int e = threadIdx.x; e < b * b; e += kThreads) T[(e / b) * ld + e % b] = tile[e];
   __syncthreads();
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -197,14 +213,15 @@ __global__ void __launch_bounds__(kThreads) getrf_kernel(float* grid, int nc, co
 // ---------------------------------------------------------------------------
 template <bool kUpper>
 __device__ __forceinline__ void trsm_rows(const float* tgrid, int tnc, const int* tidx,
-                                          float* bgrid, int bnc, const int* bidx, int b,
-                                          int bc, int g) {
+                                          long long tlane, float* bgrid, int bnc,
+                                          const int* bidx, long long blane, int b, int bc,
+                                          int g) {
   extern __shared__ float smem[];
   const int ld = b + 1;
   float* T = smem;           // the triangle, row-major, padded
   float* XT = smem + b * ld;  // X transposed: XT[c * ld + i] = X[i][c]
-  const float* tt = tgrid + block_offset(tidx, blockIdx.x, tnc, b, b);
-  float* bt = bgrid + block_offset(bidx, blockIdx.x, bnc, b, bc);
+  const float* tt = tgrid + block_offset(tidx, blockIdx.x, tnc, b, b, tlane);
+  float* bt = bgrid + block_offset(bidx, blockIdx.x, bnc, b, bc, blane);
   for (int e = threadIdx.x; e < b * b; e += kThreads) T[(e / b) * ld + e % b] = tt[e];
   for (int e = threadIdx.x; e < b * bc; e += kThreads) XT[(e % bc) * ld + e / bc] = bt[e];
   __syncthreads();
@@ -232,15 +249,15 @@ __device__ __forceinline__ void trsm_rows(const float* tgrid, int tnc, const int
 }
 
 __global__ void __launch_bounds__(kThreads)
-trsml_kernel(const float* lgrid, int lnc, const int* lidx, float* bgrid, int bnc,
-             const int* bidx, int b, int bc, int g) {
-  trsm_rows<false>(lgrid, lnc, lidx, bgrid, bnc, bidx, b, bc, g);
+trsml_kernel(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid,
+             int bnc, const int* bidx, long long blane, int b, int bc, int g) {
+  trsm_rows<false>(lgrid, lnc, lidx, llane, bgrid, bnc, bidx, blane, b, bc, g);
 }
 
 __global__ void __launch_bounds__(kThreads)
-trsmul_kernel(const float* ugrid, int unc, const int* uidx, float* bgrid, int bnc,
-              const int* bidx, int b, int bc, int g) {
-  trsm_rows<true>(ugrid, unc, uidx, bgrid, bnc, bidx, b, bc, g);
+trsmul_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid,
+              int bnc, const int* bidx, long long blane, int b, int bc, int g) {
+  trsm_rows<true>(ugrid, unc, uidx, ulane, bgrid, bnc, bidx, blane, b, bc, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -303,35 +320,39 @@ __device__ __forceinline__ void update_tile(const float* A, const float* Bm, flo
 
 template <int R>
 __global__ void __launch_bounds__(kThreads)
-gemm_kernel(const float* ag, int anc, const int* aidx, const float* bg, int bnc,
-            const int* bidx, float* cg, int cnc, const int* cidx, int b) {
-  update_tile<R, true>(ag + block_offset(aidx, blockIdx.x, anc, b, b),
-                       bg + block_offset(bidx, blockIdx.x, bnc, b, b),
-                       cg + block_offset(cidx, blockIdx.x, cnc, b, b), b, b, b);
+gemm_kernel(const float* ag, int anc, const int* aidx, long long alane, const float* bg,
+            int bnc, const int* bidx, long long blane, float* cg, int cnc, const int* cidx,
+            long long clane, int b) {
+  update_tile<R, true>(ag + block_offset(aidx, blockIdx.x, anc, b, b, alane),
+                       bg + block_offset(bidx, blockIdx.x, bnc, b, b, blane),
+                       cg + block_offset(cidx, blockIdx.x, cnc, b, b, clane), b, b, b);
 }
 
 template <int R>
 __global__ void __launch_bounds__(kThreads)
-syrk_kernel(const float* ag, int anc, const int* aidx, float* cg, int cnc,
-            const int* cidx, int b) {
-  const float* a = ag + block_offset(aidx, blockIdx.x, anc, b, b);
-  update_tile<R, true>(a, a, cg + block_offset(cidx, blockIdx.x, cnc, b, b), b, b, b);
+syrk_kernel(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc,
+            const int* cidx, long long clane, int b) {
+  const float* a = ag + block_offset(aidx, blockIdx.x, anc, b, b, alane);
+  update_tile<R, true>(a, a, cg + block_offset(cidx, blockIdx.x, cnc, b, b, clane), b, b, b);
 }
 
 template <int R>
 __global__ void __launch_bounds__(kThreads)
-gemmnn_kernel(const float* ag, int anc, const int* aidx, const float* bg, int bnc,
-              const int* bidx, float* cg, int cnc, const int* cidx, int m, int k, int q) {
-  update_tile<R, false>(ag + block_offset(aidx, blockIdx.x, anc, m, k),
-                        bg + block_offset(bidx, blockIdx.x, bnc, k, q),
-                        cg + block_offset(cidx, blockIdx.x, cnc, m, q), m, k, q);
+gemmnn_kernel(const float* ag, int anc, const int* aidx, long long alane, const float* bg,
+              int bnc, const int* bidx, long long blane, float* cg, int cnc, const int* cidx,
+              long long clane, int m, int k, int q) {
+  update_tile<R, false>(ag + block_offset(aidx, blockIdx.x, anc, m, k, alane),
+                        bg + block_offset(bidx, blockIdx.x, bnc, k, q, blane),
+                        cg + block_offset(cidx, blockIdx.x, cnc, m, q, clane), m, k, q);
 }
 
 int row_threads(int b) { return ((b + 31) / 32) * 32; }
 
 bool bad_edge(int e) { return e < 1 || e > kMaxB; }
 
-bool bad_args(int n, int b) { return n < 1 || bad_edge(b); }
+bool bad_args(int n, int batch, int b) {
+  return n < 1 || batch < 1 || batch > kMaxBatch || bad_edge(b);
+}
 
 // bytes of `rows` shared-memory rows of b floats at the padded stride b + 1
 int padded_bytes(int rows, int b) { return rows * (b + 1) * (int)sizeof(float); }
@@ -343,14 +364,14 @@ int team_lanes(int bc) {
   return g;
 }
 
-// Launch `kernel` on n CTAs with `smem` bytes of dynamic shared memory,
-// raising the kernel's limit first (above 48 KB it must be asked for).
+// Launch `kernel` on n x batch CTAs with `smem` bytes of dynamic shared
+// memory, raising the kernel's limit first (above 48 KB it must be asked for).
 template <typename K, typename... Args>
-int launch_smem(K kernel, int n, int threads, int smem, void* stream, Args... args) {
+int launch_smem(K kernel, int n, int batch, int threads, int smem, void* stream, Args... args) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<n, threads, smem, (cudaStream_t)stream>>>(args...);
+  kernel<<<dim3(n, batch), threads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -358,79 +379,91 @@ int launch_smem(K kernel, int n, int threads, int smem, void* stream, Args... ar
 
 extern "C" {
 
-int tile_potrf(float* grid, int nc, const int* idx, int n, int b, void* stream) {
-  if (bad_args(n, b)) return (int)cudaErrorInvalidValue;
-  return launch_smem(potrf_kernel, n, row_threads(b), padded_bytes(b, b), stream, grid, nc, idx, b);
+// Every entry takes, per argument, its grid, the grid's block columns nc,
+// its (n, 2) block indices and its lane stride in elements (the size of one
+// lane of a stacked grid; unused when batch == 1), then the task count n,
+// the lane count batch, the tile dimensions and the stream.
+int tile_potrf(float* grid, int nc, const int* idx, long long lane, int n, int batch, int b,
+               void* stream) {
+  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
+  return launch_smem(potrf_kernel, n, batch, row_threads(b), padded_bytes(b, b), stream, grid, nc,
+                     idx, lane, b);
 }
 
-int tile_trsm(const float* lgrid, int lnc, const int* lidx, float* bgrid, int bnc,
-              const int* bidx, int n, int b, void* stream) {
-  if (bad_args(n, b)) return (int)cudaErrorInvalidValue;
-  return launch_smem(trsm_kernel, n, row_threads(b), padded_bytes(2 * b, b), stream, lgrid, lnc,
-                     lidx, bgrid, bnc, bidx, b);
+int tile_trsm(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid,
+              int bnc, const int* bidx, long long blane, int n, int batch, int b, void* stream) {
+  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
+  return launch_smem(trsm_kernel, n, batch, row_threads(b), padded_bytes(2 * b, b), stream, lgrid,
+                     lnc, lidx, llane, bgrid, bnc, bidx, blane, b);
 }
 
 #define TILE_DISPATCH(KERNEL, EDGE, ...)                                          \
   switch (((EDGE) + 15) / 16) {                                                   \
-    case 1: KERNEL<1><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
-    case 2: KERNEL<2><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
-    case 3: KERNEL<3><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
-    case 4: KERNEL<4><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
-    case 5: KERNEL<5><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
-    case 6: KERNEL<6><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
-    case 7: KERNEL<7><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                 \
-    default: KERNEL<8><<<n, kThreads, 0, s>>>(__VA_ARGS__); break;                \
+    case 1: KERNEL<1><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
+    case 2: KERNEL<2><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
+    case 3: KERNEL<3><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
+    case 4: KERNEL<4><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
+    case 5: KERNEL<5><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
+    case 6: KERNEL<6><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
+    case 7: KERNEL<7><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
+    default: KERNEL<8><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;   \
   }
 
-int tile_syrk(const float* ag, int anc, const int* aidx, float* cg, int cnc,
-              const int* cidx, int n, int b, void* stream) {
-  if (bad_args(n, b)) return (int)cudaErrorInvalidValue;
+int tile_syrk(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc,
+              const int* cidx, long long clane, int n, int batch, int b, void* stream) {
+  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  TILE_DISPATCH(syrk_kernel, b, ag, anc, aidx, cg, cnc, cidx, b)
+  TILE_DISPATCH(syrk_kernel, b, ag, anc, aidx, alane, cg, cnc, cidx, clane, b)
   return (int)cudaGetLastError();
 }
 
-int tile_gemm(const float* ag, int anc, const int* aidx, const float* bg, int bnc,
-              const int* bidx, float* cg, int cnc, const int* cidx, int n, int b,
-              void* stream) {
-  if (bad_args(n, b)) return (int)cudaErrorInvalidValue;
+int tile_gemm(const float* ag, int anc, const int* aidx, long long alane, const float* bg,
+              int bnc, const int* bidx, long long blane, float* cg, int cnc, const int* cidx,
+              long long clane, int n, int batch, int b, void* stream) {
+  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  TILE_DISPATCH(gemm_kernel, b, ag, anc, aidx, bg, bnc, bidx, cg, cnc, cidx, b)
+  TILE_DISPATCH(gemm_kernel, b, ag, anc, aidx, alane, bg, bnc, bidx, blane, cg, cnc, cidx, clane, b)
   return (int)cudaGetLastError();
 }
 
-int tile_getrf(float* grid, int nc, const int* idx, int n, int b, void* stream) {
-  if (bad_args(n, b)) return (int)cudaErrorInvalidValue;
-  return launch_smem(getrf_kernel, n, kThreads, padded_bytes(b, b), stream, grid, nc, idx, b);
+int tile_getrf(float* grid, int nc, const int* idx, long long lane, int n, int batch, int b,
+               void* stream) {
+  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
+  return launch_smem(getrf_kernel, n, batch, kThreads, padded_bytes(b, b), stream, grid, nc, idx,
+                     lane, b);
 }
 
-int tile_trsml(const float* lgrid, int lnc, const int* lidx, float* bgrid, int bnc,
-               const int* bidx, int n, int b, int bc, void* stream) {
-  if (bad_args(n, b) || bad_edge(bc)) return (int)cudaErrorInvalidValue;
-  return launch_smem(trsml_kernel, n, kThreads, padded_bytes(b + bc, b), stream, lgrid, lnc, lidx,
-                     bgrid, bnc, bidx, b, bc, team_lanes(bc));
+int tile_trsml(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid,
+               int bnc, const int* bidx, long long blane, int n, int batch, int b, int bc,
+               void* stream) {
+  if (bad_args(n, batch, b) || bad_edge(bc)) return (int)cudaErrorInvalidValue;
+  return launch_smem(trsml_kernel, n, batch, kThreads, padded_bytes(b + bc, b), stream, lgrid, lnc,
+                     lidx, llane, bgrid, bnc, bidx, blane, b, bc, team_lanes(bc));
 }
 
-int tile_trsmul(const float* ugrid, int unc, const int* uidx, float* bgrid, int bnc,
-                const int* bidx, int n, int b, int bc, void* stream) {
-  if (bad_args(n, b) || bad_edge(bc)) return (int)cudaErrorInvalidValue;
-  return launch_smem(trsmul_kernel, n, kThreads, padded_bytes(b + bc, b), stream, ugrid, unc, uidx,
-                     bgrid, bnc, bidx, b, bc, team_lanes(bc));
+int tile_trsmul(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid,
+                int bnc, const int* bidx, long long blane, int n, int batch, int b, int bc,
+                void* stream) {
+  if (bad_args(n, batch, b) || bad_edge(bc)) return (int)cudaErrorInvalidValue;
+  return launch_smem(trsmul_kernel, n, batch, kThreads, padded_bytes(b + bc, b), stream, ugrid,
+                     unc, uidx, ulane, bgrid, bnc, bidx, blane, b, bc, team_lanes(bc));
 }
 
-int tile_trsmu(const float* ugrid, int unc, const int* uidx, float* bgrid, int bnc,
-               const int* bidx, int n, int br, int b, void* stream) {
-  if (bad_args(n, b) || bad_edge(br)) return (int)cudaErrorInvalidValue;
-  return launch_smem(trsmu_kernel, n, row_threads(br), padded_bytes(b + br, b), stream, ugrid, unc,
-                     uidx, bgrid, bnc, bidx, br, b);
+int tile_trsmu(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid,
+               int bnc, const int* bidx, long long blane, int n, int batch, int br, int b,
+               void* stream) {
+  if (bad_args(n, batch, b) || bad_edge(br)) return (int)cudaErrorInvalidValue;
+  return launch_smem(trsmu_kernel, n, batch, row_threads(br), padded_bytes(b + br, b), stream,
+                     ugrid, unc, uidx, ulane, bgrid, bnc, bidx, blane, br, b);
 }
 
-int tile_gemmnn(const float* ag, int anc, const int* aidx, const float* bg, int bnc,
-                const int* bidx, float* cg, int cnc, const int* cidx, int n, int m, int k,
-                int q, void* stream) {
-  if (bad_args(n, m) || bad_edge(k) || bad_edge(q)) return (int)cudaErrorInvalidValue;
+int tile_gemmnn(const float* ag, int anc, const int* aidx, long long alane, const float* bg,
+                int bnc, const int* bidx, long long blane, float* cg, int cnc, const int* cidx,
+                long long clane, int n, int batch, int m, int k, int q, void* stream) {
+  if (bad_args(n, batch, m) || bad_edge(k) || bad_edge(q)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  TILE_DISPATCH(gemmnn_kernel, m > q ? m : q, ag, anc, aidx, bg, bnc, bidx, cg, cnc, cidx, m, k, q)
+  TILE_DISPATCH(gemmnn_kernel, m > q ? m : q, ag, anc, aidx, alane, bg, bnc, bidx, blane, cg, cnc,
+                cidx, clane, m, k, q)
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,7 @@ versions.
 The leaves of the ``"cuda"`` backend (the paper's cuBLAS wrapper analog).
 Nine kernels in ``csrc/tile_linalg.cu`` — POTRF, TRSM, SYRK and GEMM for
 Cholesky; GETRF, TRSML, TRSMU, TRSMUL and GEMMNN for pivot-free LU — each
-serve two forms:
+serve three forms:
 
 - the fused grid form (``grid_*``), the counterpart of the JAX package's
   ``make_grid_fused``: every argument is a resident ``(nr, nc, br, bc)``
@@ -12,6 +12,10 @@ serve two forms:
   each task's blocks through them and updates the written argument's grid
   IN PLACE (one CTA per task; tasks of one call must write distinct blocks
   that no other task of the call reads, which the planner guarantees);
+- the stacked grid form, the same call on ``(B, nr, nc, br, bc)`` grids
+  (``make_grid_fused``'s ``kernel_stacked``): lane ``b`` of every argument
+  is one independent workload, all lanes share the index tensors, and the
+  kernel runs on B x n CTAs;
 - the batched form (``batched_*``) on ``(n, br, bc)`` stacks, which returns
   a new stack: the wrapper copies the written stack and runs the same
   kernel on it viewed as an ``(n, 1, br, bc)`` grid with identity indices.
@@ -26,7 +30,8 @@ Beside each kernel is its plain PyTorch version (``*_plain``): the same
 recurrence as the JAX tile body, over any leading batch dimensions.  The
 wrappers run the plain version for tensors on the CPU and launch the kernel
 for tensors on a CUDA device — there is no fallback between the two.
-``LAUNCHES`` counts kernel launches per kernel.
+``LAUNCHES`` counts unstacked kernel launches per kernel, ``STACKED_LAUNCHES``
+stacked ones.
 """
 
 from __future__ import annotations
@@ -47,13 +52,18 @@ _SIGNATURES = {
     "getrf": (1, 1), "trsml": (2, 2), "trsmu": (2, 2), "trsmul": (2, 2), "gemmnn": (3, 3),
 }
 
-# kernel name -> number of launches since the last reset_launches()
+MAX_BATCH = 65535  # most lanes of one stacked launch (csrc kMaxBatch, gridDim.y)
+
+# kernel name -> number of launches since the last reset_launches(), of the
+# unstacked forms (4-D grids, batched stacks) and of the stacked grid form
 LAUNCHES: Dict[str, int] = {k: 0 for k in _SIGNATURES}
+STACKED_LAUNCHES: Dict[str, int] = {k: 0 for k in _SIGNATURES}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, STACKED_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -169,12 +179,20 @@ def gemmnn_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Ten
 
 def _grid_plain(body, write_arg: int):
     """Plain fused grid form: gather the blocks, apply ``body``, write the
-    result back into the written argument's grid in place."""
+    result back into the written argument's grid in place.  On stacked
+    ``(B, nr, nc, br, bc)`` grids every lane gathers the same blocks
+    (``g[:, ix0, ix1]``), the body runs once on the flattened ``(B * n)``
+    stack, and the result is written back lane by lane."""
 
     def call(idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> torch.Tensor:
-        tiles = [g[ix[:, 0], ix[:, 1]] for ix, g in zip(idxs, grids)]
         w, ix = grids[write_arg], idxs[write_arg]
-        w.index_put_((ix[:, 0], ix[:, 1]), body(*tiles).to(w.dtype))
+        if w.dim() == 4:
+            tiles = [g[i[:, 0], i[:, 1]] for i, g in zip(idxs, grids)]
+            w.index_put_((ix[:, 0], ix[:, 1]), body(*tiles).to(w.dtype))
+            return w
+        tiles = [g[:, i[:, 0], i[:, 1]].flatten(0, 1) for i, g in zip(idxs, grids)]
+        out = body(*tiles).to(w.dtype)
+        w[:, ix[:, 0], ix[:, 1]] = out.reshape(w.shape[0], ix.shape[0], *out.shape[1:])
         return w
 
     return call
@@ -236,10 +254,10 @@ def _dims(name: str, shapes: Sequence[Tuple[int, int]]) -> Tuple[int, ...]:
 # --------------------------------------------------------------------------
 # Kernel launch
 # --------------------------------------------------------------------------
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-# C entry tile_<name>(per arg: grid, nc, idx; n; dims...; stream)
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry tile_<name>(per arg: grid, nc, idx, lane stride; n; batch; dims...; stream)
 _ARGTYPES = {
-    name: [_VP, _I, _VP] * arity + [_I] * (1 + n_dims) + [_VP]
+    name: [_VP, _I, _VP, _LL] * arity + [_I] * (2 + n_dims) + [_VP]
     for name, (arity, n_dims) in _SIGNATURES.items()
 }
 
@@ -262,16 +280,38 @@ def _kernel_fn(name: str):
     return fn
 
 
+def _lanes(grids: Sequence[torch.Tensor]) -> int:
+    """The lane count of a fused call: 1 for ``(nr, nc, br, bc)`` grids, B
+    for stacked ``(B, nr, nc, br, bc)`` ones, which every argument must
+    share; raises ``ValueError`` on anything else."""
+    dims = {g.dim() for g in grids}
+    if dims == {4}:
+        return 1
+    if dims != {5}:
+        raise ValueError(
+            "grids must all be (nr, nc, br, bc) or all (B, nr, nc, br, bc), "
+            f"got shapes {[tuple(g.shape) for g in grids]}"
+        )
+    lanes = {g.shape[0] for g in grids}
+    if len(lanes) != 1:
+        raise ValueError(f"stacked grids disagree on the lane count: {sorted(lanes)}")
+    batch = lanes.pop()
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"lane count {batch} outside the kernels' limit 1..{MAX_BATCH}")
+    return batch
+
+
 def _check(name: str, idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> Tuple[int, ...]:
     """Validate one fused call's arguments; returns the kernel's dims."""
     dev = grids[0].device
     if dev.type != "cuda":
         raise ValueError(f"the tile kernels run on CUDA tensors, got {dev}")
     n = idxs[0].shape[0]
+    _lanes(grids)
     for g in grids:
-        if g.device != dev or g.dtype != torch.float32 or g.dim() != 4:
+        if g.device != dev or g.dtype != torch.float32:
             raise ValueError(
-                f"grids must be float32 (nr, nc, br, bc) tensors on {dev}, "
+                f"grids must be float32 tensors on {dev}, "
                 f"got {g.dtype} {tuple(g.shape)} on {g.device}"
             )
         if not g.is_contiguous():
@@ -292,20 +332,23 @@ def _launch(name: str, idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tenso
     n = idxs[0].shape[0]
     if n == 0:
         return
+    stacked = grids[0].dim() == 5
     args = []
     for ix, g in zip(idxs, grids):
-        args += [g.data_ptr(), g.shape[1], ix.data_ptr()]
+        args += [g.data_ptr(), g.shape[-3], ix.data_ptr(), g.stride(0) if stacked else 0]
+    batch = grids[0].shape[0] if stacked else 1
     stream = torch.cuda.current_stream(grids[0].device).cuda_stream
     with torch.cuda.device(grids[0].device):
-        err = _kernel_fn(name)(*args, n, *dims, stream)
+        err = _kernel_fn(name)(*args, n, batch, *dims, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    (STACKED_LAUNCHES if stacked else LAUNCHES)[name] += 1
 
 
 def _fused(name: str, write_arg: int, plain):
     def call(idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> torch.Tensor:
         if grids[write_arg].device.type == "cpu":
+            _lanes(grids)
             _dims(name, [tuple(g.shape[-2:]) for g in grids])
             return plain(idxs, grids)
         _launch(name, idxs, grids)
@@ -313,8 +356,9 @@ def _fused(name: str, write_arg: int, plain):
 
     call.__name__ = f"grid_{name}"
     call.__doc__ = (
-        f"Fused {name.upper()} over resident grids, in place in grid "
-        f"{write_arg}; CUDA kernel on the card, plain version on the CPU."
+        f"Fused {name.upper()} over resident grids (4-D, or stacked 5-D with "
+        f"one lane per workload), in place in grid {write_arg}; CUDA kernel "
+        f"on the card, plain version on the CPU."
     )
     return call
 

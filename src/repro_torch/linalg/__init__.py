@@ -4,8 +4,10 @@ application layers).
     run_cholesky(a)     lower Cholesky factor of SPD ``a``
     run_lu(a)           pivot-free blocked LU -> (L, U)
     run_lu_many(mats)   several LUs in ONE multi-root drain (segment fusion)
+    run_lu_batched(mats) N same-geometry LUs as ONE stacked drain
     run_solve(a, b)     blocked triangular solve (TRSML / TRSMU / TRSMUL)
     run_lu_solve(a, b)  factor + forward + backward solve in ONE drain
+    run_lu_solve_batched(mats, rhss)  N such solves as ONE stacked drain
     run_inv(a)          matrix inverse via the same composed pipeline
 
 ``utp_*`` create one root task on an existing dispatcher.  The operation
@@ -17,8 +19,10 @@ from .cholesky import run_cholesky, utp_cholesky
 from .lu import (
     run_inv,
     run_lu,
+    run_lu_batched,
     run_lu_many,
     run_lu_solve,
+    run_lu_solve_batched,
     run_solve,
     utp_getrf,
     utp_lu_solve,
@@ -40,8 +44,10 @@ __all__ = [
     "run_cholesky",
     "run_inv",
     "run_lu",
+    "run_lu_batched",
     "run_lu_many",
     "run_lu_solve",
+    "run_lu_solve_batched",
     "run_solve",
     "utp_cholesky",
     "utp_getrf",

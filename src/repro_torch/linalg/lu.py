@@ -3,8 +3,9 @@ end-to-end ``lu_solve`` drain (DESIGN.md §4/§6).
 
 Mirrors ``cholesky.py``: ``utp_getrf`` / ``utp_solve`` / ``utp_lu_solve``
 are the technical-layer subroutines (create one root task, submit it);
-``run_lu`` / ``run_lu_many`` / ``run_solve`` / ``run_lu_solve`` /
-``run_inv`` are whole application programs — define data + partitions,
+``run_lu`` / ``run_lu_many`` / ``run_lu_batched`` / ``run_solve`` /
+``run_lu_solve`` / ``run_lu_solve_batched`` / ``run_inv`` are whole
+application programs — define data + partitions,
 call the subroutine, drain.  They run on the same dispatcher and executors
 as Cholesky with no executor changes: the dispatcher only sees Operations.
 
@@ -149,8 +150,36 @@ def run_lu_many(
     Every factorization is its own root task; the scheduler interleaves the
     independent task DAGs and the fusion pass merges their same-signature
     groups into shared launches, one segment per root (the matrices may
-    differ in shape).  This is the JAX package's ``stack_roots=False``
-    path: the port's dispatcher has no stacking yet (ROADMAP queue A8).
+    differ in shape).  Stacking is deliberately OFF here: this is the
+    per-root *segment fusion* form, the baseline the stacked
+    ``run_lu_batched`` is compared against (DESIGN.md §7).
+    """
+    d = Dispatcher(graph=graph, stack_roots=False, verify=verify)
+    roots = []
+    for a in mats:
+        A = _gdata(a, partitions, device)
+        utp_getrf(d, A)
+        roots.append(A)
+    d.run()
+    return [_unpack(_packed(A)) for A in roots]
+
+
+def run_lu_batched(
+    mats: Sequence[Any],
+    graph: str = "g2",
+    partitions: Partitions = ((4, 4),),
+    device=None,
+    verify: Optional[bool] = None,
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Pivot-free blocked LU of N same-geometry matrices as ONE *stacked*
+    batched drain (DESIGN.md §7).
+
+    All matrices must share shape/dtype; the dispatcher detects the
+    homogeneous root stream, stacks the roots along a new leading batch
+    dimension padded to a pow2 bucket, and expands/builds the task graph
+    ONCE — launch count and built-list count are flat in N (any N hits one
+    of O(log N) bucket lists), unlike ``run_lu_many`` whose fused groups
+    still carry one gather/scatter segment per root.
     """
     d = Dispatcher(graph=graph, verify=verify)
     roots = []
@@ -228,6 +257,39 @@ def run_lu_solve(
     if check_finite:
         check_finite_result("run_lu_solve", x)
     return x[:, 0] if vec else x
+
+
+def run_lu_solve_batched(
+    mats: Sequence[Any],
+    rhss: Sequence[Any],
+    graph: str = "g2",
+    partitions: Partitions = ((4, 4),),
+    b_partitions: Optional[Partitions] = None,
+    device=None,
+    verify: Optional[bool] = None,
+) -> List[torch.Tensor]:
+    """Solve N same-geometry systems ``a_i @ x_i == b_i`` in ONE stacked
+    drain (DESIGN.md §7): N composed LUSOLVE roots stack into a single
+    batched launch list — the serving hot path ``BatchServer`` drains per
+    tick.  Geometry rules follow ``run_lu_solve`` (vector or matrix b)."""
+    if len(mats) != len(rhss):
+        raise ValueError(f"{len(mats)} matrices vs {len(rhss)} right-hand sides")
+    d = Dispatcher(graph=graph, verify=verify)
+    outs = []
+    for a, b in zip(mats, rhss):
+        if b.shape[0] != a.shape[0]:
+            raise ValueError(f"shape mismatch: a {tuple(a.shape)} vs b {tuple(b.shape)}")
+        vec = b.ndim == 1
+        b2 = b[:, None] if vec else b
+        bp = b_partitions
+        if bp is None:
+            bp = tuple((pr, 1 if vec else pc) for pr, pc in partitions)
+        A = _gdata(a, partitions, device)
+        B = _gdata(b2, bp, device)
+        utp_lu_solve(d, A, B)
+        outs.append((B, vec))
+    d.run()
+    return [B.value[:, 0] if vec else B.value for B, vec in outs]
 
 
 def run_inv(

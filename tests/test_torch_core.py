@@ -232,7 +232,8 @@ def test_fallback_per_group_path_pads_and_matches(monkeypatch):
     assert ex.stats["launches"] == sum(len(group_wave(w)) for w in waves)
     assert sizes == [len(g) for w in waves for g in group_wave(w).values()]
     assert 3 in sizes  # a size a power-of-two pad would have changed
-    assert ex.epoch.label == "group" and ex.epoch.is_ready()
+    epochs = ex.take_inflight()  # one per launched group, born complete on the CPU
+    assert [e.label for e in epochs][-1] == "group" and all(e.is_ready() for e in epochs)
     assert torch.equal(held, a)
     L = torch.tril(A.value)
     torch.testing.assert_close(L, torch.linalg.cholesky(a), rtol=2e-4, atol=2e-4)
@@ -288,8 +289,9 @@ def test_inflight_epoch_on_cpu_is_complete():
     a = tcore.spd_matrix(32, seed=6, device="cpu")
     for label in ("program", "replay"):
         d, _, _ = _drain("g2p", a)
-        assert d.executor.epoch.label == label
-        assert d.executor.epoch.is_ready() and d.executor.epoch.event is None
+        (ep,) = d.executor.take_inflight()  # one launch list per drain
+        assert ep.label == label and ep.is_ready() and ep.event is None
+        assert d.executor.sync() == 0.0 and d.executor.stats["host_block_us"] == 0
 
 
 def test_drain_memo_lru_bounds():
@@ -301,7 +303,8 @@ def test_drain_memo_lru_bounds():
     assert (m.hits, m.misses) == (1, 1)
     m["d"] = "d"  # "b" was used last, so "c" goes
     assert "b" in m and "c" not in m and m.evictions == 2
-    assert m.stats() == {"entries": 2, "capacity": 2, "hits": 1, "misses": 1, "evictions": 2}
+    assert m.stats() == {"entries": 2, "capacity": 2, "hits": 1, "misses": 1, "evictions": 2,
+                         "invalidations": 0, "pressure_sheds": 0}
 
 
 def test_paper_facade_runs_a_drain():

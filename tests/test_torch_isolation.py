@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points never run on the CPU unless the caller asks for it."""
+"""The port stands alone: it imports neither JAX nor the JAX package (its
+serving layer and fault registry included), and its entry points, the
+``BatchServer`` among them, never run on the CPU unless the caller asks
+for it."""
 
 import os
 import re
@@ -12,7 +14,8 @@ import pytest
 import torch
 
 import repro_torch.core as tcore
-from repro_torch.linalg import run_cholesky
+from repro_torch.linalg import run_cholesky, run_lu_batched, run_lu_solve_batched
+from repro_torch.serve import BatchServer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -26,6 +29,22 @@ a = spd_matrix(32, seed=1, device="cpu")
 for g in ("g1", "g2", "g2p"):
     L = run_cholesky(a, graph=g, partitions=((2, 2),), device="cpu", verify=True)
     assert float((L @ L.T - a).abs().max()) < 2e-4
+import numpy as np
+from repro_torch.core import dd_matrix
+from repro_torch.serve import BatchServer
+from repro_torch.testing import faults
+srv = BatchServer(graph="g2p", device="cpu")
+def submit():
+    return [srv.lu_solve(dd_matrix(32, seed=s, device="cpu"), np.ones(32, np.float32),
+                         partitions=((2, 2),)) for s in range(3)]
+futs = submit()
+with faults.inject("serve.drain", RuntimeError("probe"), times=1):
+    rep = srv.tick()  # the failed chunk bisects, and both halves resolve
+assert (rep.resolved, rep.bisected) == (3, 1), rep
+futs += submit()
+rep = srv.tick()
+assert (rep.resolved, rep.stacked_drains) == (3, 1), rep
+assert all(f.exception() is None for f in futs)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and (m == "repro" or m.startswith("repro.") or m.startswith("jax")))
 assert bad == [], bad
@@ -63,4 +82,11 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         tcore.spd_matrix(8)
     with pytest.raises(RuntimeError, match="cuda"):
         tcore.GData((8, 8), value=a)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_lu_batched([a, a], partitions=((2, 2),))
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_lu_solve_batched([a, a], [a[0], a[1]], partitions=((2, 2),))
+    with pytest.raises(RuntimeError, match="cuda"):
+        BatchServer()
     assert run_cholesky(a, partitions=((2, 2),), device="cpu").device.type == "cpu"
+    assert BatchServer(device="cpu").device.type == "cpu"
