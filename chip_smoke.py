@@ -56,6 +56,25 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    with ``NumericalError``; an in-flight fault on one request bisects and
    fails it alone with ``InflightError``.
 
+6. LM inference (after freeing the earlier phases' memory): the flash
+   attention kernel against its plain version, float32 and bfloat16, at
+   tests/test_kernels.py's shapes (windows 0 and 16), GQA groups of 3 and
+   9, head dims 8 to 256, ragged S and the model's transposed layout, and
+   the tiled matmul at tests/test_kernels.py's shapes and 4096^3, each
+   check asserting that an all-zero output would fail it (6a); both timed
+   beside their plain versions, a library call and their bounds, flash at
+   starcoder2-7b's and gemma3-12b's prefill shapes (6b); starcoder2-7b at
+   its published widths, all 32 layers, bf16, seeded random weights: the
+   no-cache forward at S = 4096 through the flash kernel (exactly one
+   launch a layer) and through the plain attention, both timed and
+   profiled, checked layer by layer on the same inputs (teacher-forced:
+   end to end, this random network is chaotic), a check shown to fail for
+   a kernel that drops the last KV tile (6c); ``ServeEngine`` at full
+   width, 4 slots, 8 greedy requests of 32 tokens in 62 decode steps, with
+   TTFT, decode ms a step and tokens/s, and request 0's prefill and first
+   two decode steps checked, teacher-forced, against a no-cache forward
+   (6d); the ``ops.matmul`` entry point at 4096^3 (6e).
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing it.
 """
@@ -613,12 +632,19 @@ def by_launch_size(prof, path: Path) -> str:
     return " ".join(f"{k}[{lo}-{hi}]={us / 1e3:.3f}ms/{n}" for (k, lo, hi), (n, us) in sorted(bins.items()))
 
 
-def profiled(torch, label: str, run) -> None:
-    """Where one run's time goes: device time by kernel from torch.profiler,
-    the union of device-busy intervals, the idle share of the device span
-    (first kernel start to last kernel end), and the host's dispatch time
-    (``run()`` returning) beside the wall time (the card done).  ``run``
-    returns a string of its own counters to print."""
+def tile_kernel(name: str) -> str:
+    """The tile kernel a device event belongs to, or "other"."""
+    m = re.search(r"(\w+)_kernel\b", name)
+    return m.group(1) if m and m.group(1) in KERNELS else "other"
+
+
+def profiled(torch, label: str, run, classify=tile_kernel) -> None:
+    """Where one run's time goes: device time by kernel from torch.profiler
+    (grouped by ``classify`` of the kernel's name), the union of
+    device-busy intervals, the idle share of the device span (first kernel
+    start to last kernel end), and the host's dispatch time (``run()``
+    returning) beside the wall time (the card done).  ``run`` returns a
+    string of its own counters to print."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -635,8 +661,7 @@ def profiled(torch, label: str, run) -> None:
             continue
         tr = ev.time_range
         spans.append((tr.start, tr.end))
-        m = re.search(r"(\w+)_kernel\b", ev.name)
-        name = m.group(1) if m and m.group(1) in KERNELS else "other"
+        name = classify(ev.name)
         n, us = by.get(name, (0, 0.0))
         by[name] = (n + 1, us + tr.elapsed_us())
     if not spans:
@@ -655,8 +680,9 @@ def profiled(torch, label: str, run) -> None:
     print(f"{label} profile (profiler on): {info} wall_ms={wall_ms:.3f} host_dispatch_ms={host_ms:.3f} "
           f"device_span_ms={span / 1e3:.3f} device_busy_ms={busy / 1e3:.3f} "
           f"idle_share_of_span={1 - busy / span:.3f} by_kernel: {parts}")
-    trace = ROOT / "build" / "traces" / f"{re.sub(r'[^0-9A-Za-z]+', '_', label).strip('_')}.json"
-    print(f"{label} device time by CTAs per launch: {by_launch_size(prof, trace)}")
+    if classify is tile_kernel:
+        trace = ROOT / "build" / "traces" / f"{re.sub(r'[^0-9A-Za-z]+', '_', label).strip('_')}.json"
+        print(f"{label} device time by CTAs per launch: {by_launch_size(prof, trace)}")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
     print(f"{label} host ops by self time (profiler on): "
           + " ".join(f"{e.key}={e.self_cpu_time_total / 1e3:.3f}ms/{e.count}" for e in host))
@@ -1078,6 +1104,573 @@ def serving_path(torch, tl) -> dict:
           f"resolved={sum(r.resolved for r in reps)} max_abs_err={e2['lu_solve']:.3e}")
     return launches
 
+# --------------------------------------------------------------------------
+# Phase 6: the LM inference path
+# --------------------------------------------------------------------------
+LM = "starcoder2-7b"  # published widths, all 32 layers, bf16, seeded random weights
+LM_S = 4096  # no-cache forward length
+LM_TILE = 128  # the JAX kernel's KV tile: the drop-the-last-tile probe removes this many keys
+# teacher-forced checks (each layer on the same input both ways; see lm_forward):
+# the largest relative L2 error of one position's bf16 activations, over every
+# position; 1e-2 = a few bf16 ulps (2^-8 relative) spread over a vector
+LM_TOL = 1e-2
+# lm_logits against the upcast fp32 product: both sum exact bf16 products in
+# float32, in other orders (relative L2 ~1e-6 over a vector of 49152)
+HEAD_TOL = 1e-4
+ENGINE = {"slots": 4, "max_seq": 2048}
+ENGINE_REQUESTS, ENGINE_NEW, ENGINE_PROMPTS = 8, 32, (64, 1024)
+ENGINE_PROBE = 510  # request 0's prompt; with its first two tokens, a 512-long forward
+ENGINE_DECODE_STEPS = 62  # two waves of four slots, 31 decode steps each
+# tests/test_kernels.py::test_flash_attention; flash outputs are also held to it row
+# by row, as each row's relative L2 error (see flash_close)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# tests/test_kernels.py::test_matmul_tiled's 1e-4; bf16: one bf16 ulp of the result
+# (2^-7 relative at worst), as both round a float32 sum
+MATMUL_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+MATMUL_SOURCE = "src/repro_torch/kernels/csrc/matmul.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:97 flash_attention (_flash_kernel :28, pallas_call :128)"
+MATMUL_REPLACES = f"{_TL}:487 matmul (_matmul_kernel :473, pallas_call :504)"
+# (B, Hq, Hkv, S, D), window, block: tests/test_kernels.py:184-188's grid with its
+# 16-blocks, GQA groups of 3 and of 9 (36 / 4, starcoder2-7b), head dims 8 ... 256
+# (gemma3-12b's 256, nemotron-4-340b's 192), and ragged S (the kernel's tile is 64)
+FLASH_CASES = (
+    *[(shape, w, 16) for shape in ((1, 2, 2, 32, 8), (2, 4, 2, 64, 16), (1, 8, 1, 32, 32)) for w in (0, 16)],
+    ((1, 6, 2, 256, 64), 0, 128), ((1, 6, 2, 256, 64), 100, 128),
+    ((1, 36, 4, 256, 128), 0, 128), ((1, 36, 4, 256, 128), 100, 128),
+    *[((1, 4, 2, 256, d), w, 128) for d in (8, 128, 192, 256) for w in (0, 100)],
+    ((2, 4, 2, 12, 16), 0, 128), ((1, 4, 1, 100, 64), 16, 128), ((1, 2, 1, 1, 32), 0, 128),
+)
+# (m, k, n, bm, bk, bn): tests/test_kernels.py::test_matmul_tiled's shapes, and 4096^3
+MM_N = 4096  # the matmul's timed and entry-point size, m = k = n
+MATMUL_CASES = ((32, 32, 32, 16, 16, 16), (64, 128, 32, 32, 64, 16), (128, 64, 128, 128, 64, 128),
+                (MM_N, MM_N, MM_N, 128, 128, 128))
+
+
+def zero_fails(label: str, want, tol: float) -> None:
+    """Raises unless an all-zero output (an output the kernel never wrote)
+    fails the check against ``want``: the check must be able to see it."""
+    import torch
+
+    try:
+        close(torch.zeros_like(want), want, tol)
+    except AssertionError:
+        return
+    raise AssertionError(f"{label}: an all-zero output passes the check; it cannot see the kernel")
+
+
+def rows_rel_l2(got, want):
+    """Relative L2 error of each row (vector along the last axis), flat."""
+    g, w = got.float(), want.float()
+    return ((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).flatten()
+
+
+def flash_close(got, want, tol: float) -> tuple:
+    """(max abs error, largest row's relative L2 error); raises unless
+    both the elementwise check (``close``) and every row's relative L2
+    error pass ``tol``.  At a long sequence an output row is small
+    (about 0.3 / sqrt(keys) an element at these inputs), below the
+    elementwise tolerance; the row check holds each row to its own size."""
+    e = close(got, want, tol)
+    r = rows_rel_l2(got, want).max().item()
+    if r > tol:
+        raise AssertionError(f"a row's relative L2 error {r:.3e} exceeds tolerance {tol}")
+    return e, r
+
+
+def must_fail(label: str, check) -> None:
+    """Raises unless ``check()`` raises AssertionError: a wrong output
+    must fail the check."""
+    try:
+        check()
+    except AssertionError:
+        return
+    raise AssertionError(f"{label} passes the check; it cannot see that fault")
+
+
+def randn(torch, rng, shape, dtype, scale: float = 0.3):
+    """A seeded normal tensor on the card (drawn on the host by numpy)."""
+    import numpy as np
+
+    return (torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).cuda()).to(dtype)
+
+
+def flash_checks(torch, fa, rng) -> float:
+    """Phase 6a: the flash kernel against its plain version, float32 and
+    bfloat16, at every FLASH_CASES entry, and on the model's transposed
+    (B, S, H, D) layout."""
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        for (B, Hq, Hkv, S, D), window, blk in FLASH_CASES:
+            q, k, v = (randn(torch, rng, (B, h, S, D), dtype) for h in (Hq, Hkv, Hkv))
+            got = fa.flash_attention(q, k, v, causal=True, window=window, block_q=blk, block_k=blk)
+            want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            e, r = flash_close(got, want, tol)
+            zero_fails("flash_attention", want.float(), tol)
+            err = max(err, e)
+            print(f"check flash_attention {str(dtype)[6:]:8s} B,Hq,Hkv,S,D={B},{Hq},{Hkv},{S},{D} window={window}: "
+                  f"max_abs_err={e:.3e} max_row_rel_l2={r:.3e} (tol {tol})")
+        # the model's layout: (B, S, H, D) activations passed as transposed views
+        q, k, v = (randn(torch, rng, (1, 256, h, 128), dtype).transpose(1, 2) for h in (36, 4, 4))
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if got.transpose(1, 2).stride() != got.transpose(1, 2).contiguous().stride():
+            raise AssertionError("flash_attention's output does not keep the (B, S, H, D) layout of its input")
+        e, r = flash_close(got, want, tol)
+        err = max(err, e)
+        print(f"check flash_attention {str(dtype)[6:]:8s} transposed (B, S, H, D) views S=256 GQA 36/4: "
+              f"max_abs_err={e:.3e} max_row_rel_l2={r:.3e} (tol {tol})")
+    return err
+
+
+def matmul_checks(torch, tl, rng) -> float:
+    """Phase 6a: the tiled matmul against its plain version, float32 and
+    bfloat16, at MATMUL_CASES."""
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = MATMUL_TOL[str(dtype).split(".")[-1]]
+        for m, k, n, bm, bk, bn in MATMUL_CASES:
+            a, b = randn(torch, rng, (m, k), dtype), randn(torch, rng, (k, n), dtype)
+            got = tl.matmul(a, b, bm=bm, bn=bn, bk=bk)
+            want = tl.matmul_plain(a, b)
+            torch.cuda.synchronize()
+            e = close(got.float(), want.float(), tol)
+            zero_fails("matmul", want.float(), tol)
+            err = max(err, e)
+            print(f"check matmul {str(dtype)[6:]:8s} m,k,n={m},{k},{n} blocks={bm},{bk},{bn}: max_abs_err={e:.3e} "
+                  f"(tol {tol})")
+    return err
+
+
+def attention_pairs(S: int, window: int) -> int:
+    """Unmasked (query, key) pairs of causal attention over S positions."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_timing(torch, fa, rng, label: str, B: int, Hq: int, Hkv: int, S: int, D: int, window: int) -> dict:
+    """Phase 6b: the kernel at a model's prefill shape in bf16, beside its
+    plain version, one library call (scaled_dot_product_attention, timed
+    here and never called by the port) and its bound: bytes of q, k, v and
+    o once at the HBM rate, against the causal (windowed) FLOPs at the bf16
+    tensor-core peak.  The output is checked at this shape row by row
+    (``flash_close``), and the check must fail for an output whose last
+    quarter of rows is zero and for a kernel that drops the last KV tile."""
+    import torch.nn.functional as F
+
+    dt, tol = torch.bfloat16, FLASH_TOL["bfloat16"]
+    q, k, v = (randn(torch, rng, (B, h, S, D), dt) for h in (Hq, Hkv, Hkv))
+    kern = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
+    plain = lambda: fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    want = plain().float()
+    got = kern()
+    err, row_err = flash_close(got, want, tol)
+    zeroed = got.clone()
+    zeroed[:, :, S - S // 4:] = 0
+    dropped = drop_last_kv_tile(fa.flash_attention)(q, k, v, causal=True, window=window)
+    must_fail("an output with its last quarter of rows zero", lambda: flash_close(zeroed, want, tol))
+    must_fail("a kernel that drops the last KV tile", lambda: flash_close(dropped, want, tol))
+    probes = (rows_rel_l2(zeroed, want).max().item(), rows_rel_l2(dropped, want).max().item())
+    del zeroed, dropped
+    if window:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    lib_err = (lib().float() - want).abs().max().item()
+    ms = cuda_ms(kern, 10)
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    lib_ms = cuda_ms(lib, 10)
+    flops = 4 * B * Hq * D * attention_pairs(S, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    print(f"time  flash_attention {label} (B,Hq,Hkv,S,D)=({B},{Hq},{Hkv},{S},{D}) window={window} bf16: "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (sdpa, max_abs_err vs plain "
+          f"{lib_err:.3e}) bound_ms={bound_ms:.4f} ({bound_by}) kernel_tflops={flops / ms / 1e9:.2f} "
+          f"max_abs_err={err:.3e} max_row_rel_l2={row_err:.3e} (tol {tol}; the same with the last quarter of rows "
+          f"zeroed {probes[0]:.3e}, with the last KV tile dropped {probes[1]:.3e}: both fail)")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def matmul_timing(torch, tl, rng) -> dict:
+    """Phase 6b: the matmul at 4096^3 float32 (TF32 off) beside its plain
+    version, torch.matmul and its bound (FLOPs at the fp32 peak)."""
+    from repro_torch.kernels.ref import fp32_matmul
+
+    n = MM_N
+    a, b = randn(torch, rng, (n, n), torch.float32), randn(torch, rng, (n, n), torch.float32)
+    with fp32_matmul():
+        err = close(tl.matmul(a, b), tl.matmul_plain(a, b), MATMUL_TOL["float32"])
+        ms = cuda_ms(lambda: tl.matmul(a, b), 10)
+        plain_ms = cuda_ms(lambda: tl.matmul_plain(a, b), 10)
+        lib_ms = cuda_ms(lambda: torch.matmul(a, b), 10)
+    t_bytes, t_ops = 3 * n * n * 4 / PEAK_BYTES * 1e3, 2 * n**3 / PEAK_FP32_FLOPS * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    print(f"time  matmul m=k=n={n} fp32 (no TF32): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(torch.matmul) bound_ms={bound_ms:.4f} ({bound_by}) kernel_tflops={2 * n**3 / ms / 1e9:.2f} "
+          f"max_abs_err={err:.3e}")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def lm_kernel(name: str) -> str:
+    """The group of a device event of the LM forward: the flash kernel,
+    cuBLAS products, or PyTorch's elementwise/reduction/copy kernels."""
+    if "flash_kernel" in name:
+        return "flash_attention"
+    low = name.lower()
+    for key, group in (("gemm", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"),
+                       ("softmax", "softmax"), ("reduce", "reduce"), ("elementwise", "elementwise"),
+                       ("copy", "copy"), ("cat", "cat")):
+        if key in low:
+            return group
+    return "other"
+
+
+def rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def drop_last_kv_tile(flash):
+    """A flash attention that is wrong as a kernel that skips the last KV
+    tile would be: the last LM_TILE queries attend without the last LM_TILE
+    keys (all earlier keys precede them, so only a window's mask is left)."""
+    import torch
+
+    def call(q, k, v, *, causal=True, window=0):
+        o = flash(q, k, v, causal=causal, window=window)
+        B, Hq, S, D = q.shape
+        Hkv, T = k.shape[1], LM_TILE
+        qt = q[:, :, S - T:].float().reshape(B, Hkv, Hq // Hkv, T, D) * D ** -0.5
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qt, k[:, :, : S - T].float())
+        if window:
+            qpos = torch.arange(S - T, S, device=q.device)[:, None]
+            s = s.masked_fill(torch.arange(S - T, device=q.device)[None] <= qpos - window, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        o[:, :, S - T:] = torch.einsum("bhgqk,bhkd->bhgqd", p, v[:, :, : S - T].float()).reshape(B, Hq, T, D)
+        return o
+
+    return call
+
+
+def model_layers(model):
+    """(layer description, layer parameters) of every layer, in order."""
+    from repro_torch.models.transformer import group_layout
+
+    layout = group_layout(model.cfg)
+    return [(d, p) for g in model.params["stack"]["groups"] for d, p in zip(layout, g["layers"])]
+
+
+def teacher_forced(torch, model, batch, other_cfg) -> dict:
+    """The stack layer by layer under ``model.cfg``, each layer also run
+    under ``other_cfg`` on the SAME input.  Every error is the largest
+    relative L2 error of one position, over all S positions: per layer,
+    then of the final hidden states and of the logits of the last layer's
+    two outputs.  (Free-running, two correct attentions do not stay
+    comparable on this random network; see lm_forward.)"""
+    from repro_torch.models.layers import norm_apply
+    from repro_torch.models.transformer import _layer_apply
+
+    cfg = model.cfg
+    B, S = batch["tokens"].shape
+    pos = torch.arange(S, device=batch["tokens"].device)[None].expand(B, S)
+    x = model.embed_batch(batch, pos)
+    errs, over = [], 0
+    for desc, p in model_layers(model):
+        y = _layer_apply(cfg, desc, p, x, pos, None, None)
+        y_o = _layer_apply(other_cfg, desc, p, x, pos, None, None)
+        e = rows_rel_l2(y, y_o)
+        errs.append(e.max().item())
+        over += int((e > LM_TOL).sum())
+        x = y
+    h, h_o = (norm_apply(cfg, model.params["final_norm"], t) for t in (y, y_o))
+    lg, lg_o = model.lm_logits(h), model.lm_logits(h_o)
+    return dict(layer_max=max(errs), layer_worst=errs.index(max(errs)), over=over,
+                hidden=rows_rel_l2(h, h_o).max().item(), logits=rows_rel_l2(lg, lg_o).max().item(),
+                top1=(lg.argmax(-1) == lg_o.argmax(-1)).float().mean().item())
+
+
+def lm_forward(torch, fa):
+    """Phase 6c: starcoder2-7b at its published widths, all layers, bf16,
+    seeded random weights made on the card; B = 1, S = LM_S.  The no-cache
+    forward with ``use_pallas=True`` (flash launches counted: exactly one a
+    layer) and with ``use_pallas=False`` (the portable chunked attention)
+    on the same weights and tokens, both timed and profiled.
+
+    The two forwards are compared end to end (printed: relative errors and
+    top-1 agreement), but that comparison cannot be a check: at the JAX
+    init scales the attention scores have a standard deviation near 400, so
+    softmax is an argmax, and the rounding difference between any two
+    correct attentions flips near-tied rows, which the later layers spread
+    to every position (a free-running pair diverges by layer 7, in float32
+    as in bf16).  The check is teacher-forced: every layer is run both
+    ways on the same input, and the per-layer outputs, the final hidden
+    states and the logits must agree within LM_TOL at every position; the
+    same check must fail for a kernel that drops the last KV tile.
+    Returns (model, flash launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ref import fp32_matmul
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_arch(LM), use_pallas=True)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"lm {cfg.name}: layers={cfg.n_layers} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv} hd={cfg.hd} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} params={n_params} (template {model.param_counts()['total']}) "
+          f"weights_GB={torch.cuda.memory_allocated() / 1e9:.2f} init_s={time.perf_counter() - t0:.2f}")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, LM_S))).cuda()
+    batch = {"tokens": toks}
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    h_k, _ = model(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES["flash_attention"]
+    if launches != cfg.n_layers:
+        raise AssertionError(f"the forward launched flash_attention {launches} times, not once per layer "
+                             f"({cfg.n_layers})")
+    kern_ms = cuda_ms(lambda: model(batch), 3)
+    model.cfg = plain_cfg
+    h_p, _ = model(batch)
+    plain_ms = cuda_ms(lambda: model(batch), 2, warmup=1)
+    model.cfg = cfg
+    if not (torch.isfinite(h_k).all() and torch.isfinite(h_p).all()) or h_k.shape != (1, LM_S, cfg.d_model):
+        raise AssertionError(f"forward hidden states not finite or of shape {tuple(h_k.shape)}")
+    lg, lg_p = model.lm_logits(h_k[:, -1]), model.lm_logits(h_p[:, -1])
+    # lm_logits multiplies the bf16 head with an fp32 accumulator and fp32
+    # output: held against the upcast fp32 product (a bf16 output would be
+    # off by its rounding, ~2e-3)
+    h4, w = h_k[0, -4:], model._head_weight()
+    with fp32_matmul():
+        want = h4.float() @ w.float()
+    head_err, bf16_err = rows_rel_l2(model.lm_logits(h4), want).max().item(), rows_rel_l2(h4 @ w, want).max().item()
+    print(f"lm_logits vs the upcast fp32 product, 4 positions: max rel_l2={head_err:.3e} (tol {HEAD_TOL}; a bf16 "
+          f"output: {bf16_err:.3e})")
+    if head_err > HEAD_TOL or bf16_err <= HEAD_TOL:
+        raise AssertionError(f"lm_logits: rel_l2 {head_err:.3e}, a bf16 output's {bf16_err:.3e}, tol {HEAD_TOL}")
+    del want
+    print(f"lm forward S={LM_S}: flash launches={launches} (one a layer) first_s={first_s:.3f} "
+          f"forward_ms use_pallas=True {kern_ms:.3f}, use_pallas=False (plain _sdpa_chunked) {plain_ms:.3f}; "
+          f"free-running flash vs plain (not a check: chaotic at these init scales): last {LM_TILE} positions' "
+          f"hidden rel_l2={rel_l2(h_k[:, -LM_TILE:], h_p[:, -LM_TILE:]):.3e}, last logits rel_l2="
+          f"{rel_l2(lg, lg_p):.3e} top1_agree={bool(lg.argmax() == lg_p.argmax())}")
+    del h_k, h_p
+    got = teacher_forced(torch, model, batch, plain_cfg)
+    print(f"lm forward teacher-forced, each layer flash vs plain on the same input, largest per-position rel_l2 "
+          f"over all {LM_S} positions: layers {got['layer_max']:.3e} (layer {got['layer_worst']}; "
+          f"{got['over']} layer positions above tol), final hidden {got['hidden']:.3e}, logits {got['logits']:.3e}, "
+          f"top1 agreement {got['top1']:.4f} of positions (tol {LM_TOL})")
+    if max(got["layer_max"], got["hidden"], got["logits"]) > LM_TOL:
+        raise AssertionError(f"the flash forward disagrees with the plain one: {got}")
+    flash = attn.flash_attention
+    attn.flash_attention = drop_last_kv_tile(flash)
+    try:
+        dropped = teacher_forced(torch, model, batch, plain_cfg)
+    finally:
+        attn.flash_attention = flash
+    print(f"lm forward teacher-forced with the last KV tile dropped: largest per-position rel_l2 layers "
+          f"{dropped['layer_max']:.3e} ({dropped['over']} layer positions above tol), final hidden "
+          f"{dropped['hidden']:.3e}, logits {dropped['logits']:.3e}")
+    if max(dropped["layer_max"], dropped["hidden"], dropped["logits"]) <= LM_TOL:
+        raise AssertionError("a flash kernel that drops the last KV tile passes the forward check")
+
+    def run():
+        model(batch)
+        return f"use_pallas={model.cfg.use_pallas}"
+
+    profiled(torch, f"lm forward S={LM_S} flash", run, classify=lm_kernel)
+    model.cfg = plain_cfg
+    profiled(torch, f"lm forward S={LM_S} plain", run, classify=lm_kernel)
+    model.cfg = cfg
+    print(f"lm peak device memory GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    return model, launches
+
+
+def lm_engine(torch, model) -> None:
+    """Phase 6d: ``ServeEngine`` at full width, greedy, ENGINE slots:
+    ENGINE_REQUESTS requests of ENGINE_NEW new tokens with prompts of
+    ENGINE_PROMPTS tokens from ``np.random.default_rng(0)`` (request 0's
+    prompt ENGINE_PROBE long).  Checks the requests, tokens and decode
+    steps; then request 0's prefill and first two decode steps against a
+    no-cache forward over its prompt and those two tokens (ENGINE_PROBE + 2
+    long, a multiple of the flash kernel's 128), teacher-forced as in
+    lm_forward: every layer of the forward takes the inputs the engine's
+    layers saw (the prefill's, then slot 0's of each decode step), and its
+    outputs and logits at the last three positions must agree with the
+    engine's.  That holds only if the prefill's cache scatter, the
+    per-slot positions and the cache reads are right."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import norm_apply
+    from repro_torch.serving import EngineConfig, Request, ServeEngine
+
+    cfg = model.cfg
+    torch.cuda.empty_cache()
+    eng = ServeEngine(cfg, model, EngineConfig(**ENGINE))
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(ENGINE_PROMPTS[0], ENGINE_PROMPTS[1] + 1, ENGINE_REQUESTS)
+    lengths[0] = ENGINE_PROBE
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)), max_new_tokens=ENGINE_NEW)
+            for i, n in enumerate(lengths)]
+    # request 0's calls: the first prefill, then the first two decode steps (slot 0);
+    # for each, every layer's input and last-position output, and the logits
+    rec = {"prefill": 0, "decode": 0, "on": False}
+    captured, logits = [], []
+    prefill, decode_step, layer_apply = model.prefill, model.decode_step, tr._layer_apply
+
+    def record_layer(cfg_, desc, p, x, positions, cache, cache_pos):
+        y = layer_apply(cfg_, desc, p, x, positions, cache, cache_pos)
+        if rec["on"]:
+            captured[-1].append((x[:1].clone(), y[:1, -1:].clone()))
+        return y
+
+    def record(fn, kind: str, first: int):
+        def call(*args):
+            rec["on"] = rec[kind] < first
+            rec[kind] += 1
+            if rec["on"]:
+                captured.append([])
+            out, cache = fn(*args)
+            if rec["on"]:
+                logits.append(out[0].clone())
+            rec["on"] = False
+            return out, cache
+
+        return call
+
+    fa.reset_launches()
+    model.prefill, model.decode_step = record(prefill, "prefill", 1), record(decode_step, "decode", 2)
+    tr._layer_apply = record_layer
+    try:
+        t_start = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        decode_ms, admit_ms = [], []
+        while eng.queue or any(r is not None for r in eng.slot_req):
+            queued = len(eng.queue)
+            t0 = time.perf_counter()
+            eng.step()
+            (admit_ms if len(eng.queue) < queued else decode_ms).append((time.perf_counter() - t0) * 1e3)
+        wall_s = time.perf_counter() - t_start
+    finally:
+        del model.prefill, model.decode_step
+        tr._layer_apply = layer_apply
+    fa_launches = fa.LAUNCHES["flash_attention"]
+    done = [r for r in reqs if r.done]
+    bad = [r.rid for r in reqs if len(r.out_tokens) != ENGINE_NEW or not all(0 <= t < cfg.vocab for t in r.out_tokens)]
+    if len(done) != ENGINE_REQUESTS or bad or eng.decode_steps != ENGINE_DECODE_STEPS:
+        raise AssertionError(f"engine: done={len(done)} bad requests={bad} decode_steps={eng.decode_steps} "
+                             f"(want {ENGINE_REQUESTS}, none, {ENGINE_DECODE_STEPS})")
+    ttft = [(r.t_first - r.t_submit) * 1e3 for r in reqs]
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(f"engine {cfg.name} slots={ENGINE['slots']} max_seq={ENGINE['max_seq']} greedy: {len(done)} requests, "
+          f"prompts {sorted(int(n) for n in lengths)}, {ENGINE_NEW} new tokens each, decode_steps={eng.decode_steps}, "
+          f"flash launches={fa_launches} (the cache path attends through _sdpa_auto); wall_s={wall_s:.3f} "
+          f"tokens_per_s={n_tok / wall_s:.1f}; TTFT ms wave 1 {', '.join(f'{t:.1f}' for t in ttft[:4])}, wave 2 "
+          f"{', '.join(f'{t:.1f}' for t in ttft[4:])}; decode-only step ms mean={np.mean(decode_ms):.3f} "
+          f"min={np.min(decode_ms):.3f} max={np.max(decode_ms):.3f} over {len(decode_ms)} steps; steps with "
+          f"admissions ms={', '.join(f'{t:.1f}' for t in admit_ms)}")
+
+    pre, d1, d2 = captured
+    n = ENGINE_PROBE + 2
+    pos = torch.arange(n, device=model.device)[None]
+    errs = []
+    for i, (desc, p) in enumerate(model_layers(model)):
+        x = torch.cat([pre[i][0], d1[i][0], d2[i][0]], dim=1)  # (1, n, D): the inputs the engine's layer saw
+        y = layer_apply(cfg, desc, p, x, pos, None, None)
+        got = torch.cat([pre[i][1], d1[i][1], d2[i][1]], dim=1)
+        errs.append(max(rel_l2(g, w) for g, w in zip(got[0], y[0, -3:])))
+    want = model.lm_logits(norm_apply(cfg, model.params["final_norm"], y[0, -3:]))
+    lg_errs = [rel_l2(g, w) for g, w in zip(logits, want)]
+    top1 = [bool(g.argmax() == w.argmax()) for g, w in zip(logits, want)]
+    r0 = reqs[0]
+    seq = np.concatenate([r0.prompt, r0.out_tokens[:2]])
+    h, _ = model({"tokens": torch.from_numpy(seq[None]).cuda()})
+    free = model.lm_logits(h[0, -3:])
+    print(f"engine request 0 (prompt {ENGINE_PROBE}): prefill and decode steps 1-2 vs a no-cache forward of {n} "
+          f"tokens at positions {n - 3}..{n - 1}, teacher-forced: max layer rel_l2={max(errs):.3e} (layer "
+          f"{errs.index(max(errs))}), logits rel_l2={', '.join(f'{e:.3e}' for e in lg_errs)} top1_agree={top1} "
+          f"(tol {LM_TOL}); free-running (not a check) logits rel_l2="
+          f"{', '.join(f'{rel_l2(g, w):.3e}' for g, w in zip(logits, free))} top1_agree="
+          f"{[bool(g.argmax() == w.argmax()) for g, w in zip(logits, free)]}")
+    if max(errs + lg_errs) > LM_TOL:
+        raise AssertionError(f"engine disagrees with the no-cache forward: layers {errs} logits {lg_errs}")
+    toks = torch.zeros(ENGINE["slots"], dtype=torch.long, device=model.device)
+    pos = torch.full((ENGINE["slots"],), ENGINE_PROBE, device=model.device)
+
+    def decode():
+        eng._decode_fn(toks, pos).cpu()  # as a step: the sampled tokens come back to the host
+        return f"slots={ENGINE['slots']}"
+
+    profiled(torch, "engine decode step", decode, classify=lm_kernel)
+
+
+def matmul_path(torch, tl, rng) -> int:
+    """Phase 6e: the standalone ``kernels.ops.matmul`` entry point, as a
+    caller would use it, at 4096^3 float32, between zeroed and read launch
+    counts; the product against float64."""
+    from repro_torch.kernels import ops
+
+    n = MM_N
+    a, b = randn(torch, rng, (n, n), torch.float32), randn(torch, rng, (n, n), torch.float32)
+    tl.MATMUL_LAUNCHES["matmul"] = 0
+    c = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    launches = tl.MATMUL_LAUNCHES["matmul"]
+    err = close(c, a.double() @ b.double(), MATMUL_TOL["float32"])
+    print(f"matmul entry point m=k=n={n} fp32: launches={launches} shape={tuple(c.shape)} max_abs_err_vs_f64={err:.3e}")
+    if launches != 1 or c.shape != (n, n):
+        raise AssertionError(f"ops.matmul: launches={launches} shape={tuple(c.shape)}")
+    return launches
+
+
+def lm_path(torch, tl, rng) -> list:
+    """Phase 6: the two kernels' checks and times (6a, 6b), the full-width
+    forward (6c), the engine (6d) and the matmul entry point (6e).  Returns
+    the two kernels' entries of the ``kernels`` line."""
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    flash_err = flash_checks(torch, fa, rng)
+    matmul_err = matmul_checks(torch, tl, rng)
+    flash = flash_timing(torch, fa, rng, LM, 1, 36, 4, LM_S, 128, 0)
+    flash_timing(torch, fa, rng, "gemma3-12b local", 1, 16, 8, LM_S, 256, 1024)
+    mm = matmul_timing(torch, tl, rng)
+    model, flash_launches = lm_forward(torch, fa)
+    lm_engine(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    mm_launches = matmul_path(torch, tl, rng)
+    return [
+        {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+         "launches": flash_launches, "max_abs_err": max(flash_err, flash["err"]), "ms": flash["ms"],
+         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+         "library_ms": flash["library_ms"], "shape": f"(1, 36, 4, {LM_S}, 128) bf16 causal"},
+        {"name": "matmul", "route": "cuda", "source": MATMUL_SOURCE, "replaces": MATMUL_REPLACES,
+         "launches": mm_launches, "max_abs_err": max(matmul_err, mm["err"]), "ms": mm["ms"],
+         "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"],
+         "library_ms": mm["library_ms"], "shape": f"{MM_N}^3 fp32"},
+    ]
+
 
 def main() -> int:
     import torch
@@ -1097,7 +1690,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    reports = _build.build(["tile_linalg"])
+    reports = _build.build(["tile_linalg", "flash_attention", "matmul"])
     print(f"kernel build s={time.perf_counter() - t0:.2f} (built: {sorted(reports) or 'cached'})")
     for log in reports.values():
         for line in log.splitlines():
@@ -1113,6 +1706,7 @@ def main() -> int:
     for k, v in lu_main_path(torch, tl).items():
         launches[k] += v
     stacked_launches = serving_path(torch, tl)
+    lm_kernels = lm_path(torch, tl, rng)
 
     kernels = []
     for name in KERNELS:
@@ -1136,6 +1730,10 @@ def main() -> int:
             "library_ms": t["library_ms"], "tasks": t["tasks"], "lanes": LANES,
             "unstacked_launches_ms": t["unstacked_ms"],
         })
+    for entry in lm_kernels:
+        if entry["launches"] == 0:
+            raise AssertionError(f"{entry['name']} was launched no time on its path")
+    kernels += lm_kernels
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,6 @@ nor ``repro``.  Entry points put their data on CUDA unless the caller
 passes ``device="cpu"``.
 """
 
-from . import core, kernels, linalg, serve, testing
+from . import configs, core, kernels, linalg, models, serve, serving, testing
 
-__all__ = ["core", "kernels", "linalg", "serve", "testing"]
+__all__ = ["configs", "core", "kernels", "linalg", "models", "serve", "serving", "testing"]

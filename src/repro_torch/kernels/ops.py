@@ -1,12 +1,14 @@
 """The ``"cuda"`` backend's leaves: single-tile entry points over the
 batched tile kernels (one tile in, one tile out), the batched kernels and
-the fused grid table.  CUDA kernel on the card, plain version on the
+the fused grid table, plus the two standalone kernels ``matmul`` and
+``flash_attention``.  CUDA kernel on the card, plain version on the
 CPU."""
 
 from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention
 from .tile_linalg import (
     GRID_FUSED,
     batched_gemm,
@@ -18,6 +20,7 @@ from .tile_linalg import (
     batched_trsml,
     batched_trsmu,
     batched_trsmul,
+    matmul,
 )
 
 
@@ -77,10 +80,12 @@ __all__ = [
     "batched_trsml",
     "batched_trsmu",
     "batched_trsmul",
+    "flash_attention",
     "gemm",
     "gemmnn",
     "getrf",
     "lu_solve",
+    "matmul",
     "potrf",
     "syrk",
     "trsm",

@@ -19,6 +19,12 @@ and the blocked right-looking pivot-free LU:
     gemmnn(a, b, c) -> c - a @ b
     lu_solve(a, b)  -> (packed L\\U of a, x with a @ x == b)
 
+and the oracles of the two standalone kernels:
+
+    matmul(a, b)                -> a @ b in float32, cast to a's dtype
+    flash_attention(q, k, v)    -> causal / windowed GQA attention,
+                                   (B, Hq, S, D) with (B, Hkv, S, D) K, V
+
 The triangular-solve oracles read only their own triangle (plus U's
 diagonal), so packed L\\U blocks pass without masking.  PyTorch has no
 pivot-free LU on the CPU (``lu_factor_ex(pivot=False)`` is CUDA-only), so
@@ -111,3 +117,36 @@ def lu_solve(a: torch.Tensor, b: torch.Tensor):
     one updated array per READWRITE argument of the composed LUSOLVE."""
     packed = getrf(a)
     return packed, trsmul(packed, trsml(packed, b))
+
+
+@fp32_matmul()
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+@fp32_matmul()
+def flash_attention(
+    q: torch.Tensor,  # (B, Hq, S, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    causal: bool = True,
+    window: int = 0,  # 0 = global; >0 = local sliding window
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Reference attention with GQA head-group broadcasting (K and V
+    repeated to the query heads), softmax over -inf masks."""
+    B, Hq, S, D = q.shape
+    g = Hq // k.shape[1]
+    scale = (D ** -0.5) if scale is None else scale
+    kq = k.float().repeat_interleave(g, dim=1)
+    vq = v.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, kq)
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window > 0:
+        mask &= ki > qi - window
+    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vq).to(q.dtype)

@@ -32,6 +32,9 @@ wrappers run the plain version for tensors on the CPU and launch the kernel
 for tensors on a CUDA device — there is no fallback between the two.
 ``LAUNCHES`` counts unstacked kernel launches per kernel, ``STACKED_LAUNCHES``
 stacked ones.
+
+``matmul`` (``csrc/matmul.cu``) is the standalone tiled product C = A B,
+with ``MATMUL_LAUNCHES``; no drain calls it.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from . import _build
+from . import _build, ref
 from .ref import fp32_matmul
 
 MAX_TILE = 128  # largest tile edge the kernels accept (csrc kMaxB)
@@ -61,7 +64,7 @@ STACKED_LAUNCHES: Dict[str, int] = {k: 0 for k in _SIGNATURES}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, STACKED_LAUNCHES):
+    for counts in (LAUNCHES, STACKED_LAUNCHES, MATMUL_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -414,3 +417,59 @@ GRID_FUSED = {
     "trsmul": (grid_trsmul, 1),
     "gemmnn": (grid_gemmnn, 2),
 }
+
+
+# --------------------------------------------------------------------------
+# General tiled matmul (``csrc/matmul.cu``, replacing the JAX package's
+# ``_matmul_kernel`` / ``matmul``): standalone, on no drain path.  Its own
+# source, so that editing it rebuilds nothing of the nine tile kernels.
+# --------------------------------------------------------------------------
+MATMUL_LAUNCHES: Dict[str, int] = {"matmul": 0}
+
+
+matmul_plain = ref.matmul  # C = A B in float32, cast to A's dtype
+
+
+_MATMUL_FNS: Dict[torch.dtype, object] = {}
+
+
+def _matmul_fn(dtype: torch.dtype):
+    fn = _MATMUL_FNS.get(dtype)
+    if fn is None:
+        lib = _build.load("matmul")
+        for dt, sym in ((torch.float32, "matmul_f32"), (torch.bfloat16, "matmul_bf16")):
+            f = getattr(lib, sym)
+            f.argtypes = [_VP, _VP, _VP, _I, _I, _I, _VP]
+            f.restype = ctypes.c_int
+            _MATMUL_FNS[dt] = f
+        fn = _MATMUL_FNS[dtype]
+    return fn
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128, bk: int = 128) -> torch.Tensor:
+    """C = A B with a float32 accumulator, in A's dtype (float32 or
+    bfloat16).  The blocks keep the JAX kernel's divisibility contract
+    (each dimension a multiple of its block, clipped to the dimension);
+    the CUDA kernel tiles on its own and masks its edges.  CUDA kernel on
+    the card, plain version on the CPU."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul needs (m, k) @ (k, n), got {tuple(a.shape)} @ {tuple(b.shape)}")
+    (m, k), n = a.shape, b.shape[1]
+    bm, bn, bk = min(bm, m), min(bn, n), min(bk, k)
+    if m % bm or n % bn or k % bk:
+        raise ValueError(f"{tuple(a.shape)} @ {tuple(b.shape)} not divisible by blocks ({bm}, {bn}, {bk})")
+    if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"a and b must share float32 or bfloat16, got {a.dtype}, {b.dtype}")
+    if a.device.type == "cpu":
+        return matmul_plain(a, b)
+    if a.device != b.device or a.device.type != "cuda":
+        raise ValueError(f"a and b must lie on one CUDA device, got {a.device}, {b.device}")
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = _matmul_fn(a.dtype)(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
+    if err != 0:
+        raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
+    MATMUL_LAUNCHES["matmul"] += 1
+    return c

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (its
-serving layer and fault registry included), and its entry points, the
-``BatchServer`` among them, never run on the CPU unless the caller asks
+serving layer, fault registry, LM models, configs and LM serving engine
+included), and its entry points, the ``BatchServer``, ``build_model`` and
+``ServeEngine`` among them, never run on the CPU unless the caller asks
 for it."""
 
 import os
@@ -15,7 +16,10 @@ import torch
 
 import repro_torch.core as tcore
 from repro_torch.linalg import run_cholesky, run_lu_batched, run_lu_solve_batched
+from repro_torch.configs import get_arch
+from repro_torch.models import build_model
 from repro_torch.serve import BatchServer
+from repro_torch.serving import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -45,6 +49,18 @@ futs += submit()
 rep = srv.tick()
 assert (rep.resolved, rep.stacked_drains) == (3, 1), rep
 assert all(f.exception() is None for f in futs)
+import torch
+from repro_torch.configs import get_arch
+from repro_torch.models import build_model
+from repro_torch.serving import EngineConfig, Request, ServeEngine
+cfg = get_arch("starcoder2-7b").reduced()
+model = build_model(cfg, device="cpu")
+h, _ = model({"tokens": torch.arange(12)[None]})
+assert h.shape == (1, 12, cfg.d_model) and bool(torch.isfinite(h).all())
+eng = ServeEngine(cfg, model, EngineConfig(slots=2, max_seq=16), device="cpu")
+for i in range(2):
+    eng.submit(Request(rid=i, prompt=np.arange(3 + i), max_new_tokens=3))
+assert len(eng.run_until_drained()) == 2 and eng.decode_steps == 2
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and (m == "repro" or m.startswith("repro.") or m.startswith("jax")))
 assert bad == [], bad
@@ -88,5 +104,10 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         run_lu_solve_batched([a, a], [a[0], a[1]], partitions=((2, 2),))
     with pytest.raises(RuntimeError, match="cuda"):
         BatchServer()
+    cfg = get_arch("starcoder2-7b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(cfg, build_model(cfg, device="cpu"))
     assert run_cholesky(a, partitions=((2, 2),), device="cpu").device.type == "cpu"
     assert BatchServer(device="cpu").device.type == "cpu"
