@@ -6,7 +6,9 @@
 Phases (any failure raises and exits non-zero; no phase catches its own):
 
 1. Environment: torch/CUDA versions, the card's name and power limit, and
-   the build of the hand-written kernels from ``src/repro_torch/kernels/csrc``.
+   the build of the hand-written kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` a source, all started together), with each kernel's
+   registers and spills; the Hopper flash kernel must not spill.
 2. Kernels: each of the nine tile kernels — Cholesky's POTRF, TRSM, SYRK,
    GEMM and LU's GETRF, TRSML, TRSMU, TRSMUL, GEMMNN — is held against its
    plain PyTorch version on the card at b = 8 ... 128 (right-hand-side
@@ -56,20 +58,27 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    with ``NumericalError``; an in-flight fault on one request bisects and
    fails it alone with ``InflightError``.
 
-6. LM inference (after freeing the earlier phases' memory): the flash
-   attention kernel against its plain version, float32 and bfloat16, at
+6. LM inference (after freeing the earlier phases' memory): flash
+   attention against its plain version, float32 and bfloat16, at
    tests/test_kernels.py's shapes (windows 0 and 16), GQA groups of 3 and
-   9, head dims 8 to 256, ragged S and the model's transposed layout, and
-   the tiled matmul at tests/test_kernels.py's shapes and 4096^3, each
-   check asserting that an all-zero output would fail it (6a); both timed
-   beside their plain versions, a library call and their bounds, flash at
-   starcoder2-7b's and gemma3-12b's prefill shapes (6b); starcoder2-7b at
-   its published widths, all 32 layers, bf16, seeded random weights: the
-   no-cache forward at S = 4096 through the flash kernel (exactly one
-   launch a layer) and through the plain attention, both timed and
-   profiled, checked layer by layer on the same inputs (teacher-forced:
-   end to end, this random network is chaotic), a check shown to fail for
-   a kernel that drops the last KV tile (6c); ``ServeEngine`` at full
+   9, head dims 8 to 256, ragged S and the model's transposed layout, each
+   on the route ``flash_route`` names (bf16 with D a multiple of 16 in
+   64..256: the Hopper kernel; the rest: the simple kernel), and on the
+   Hopper route without a causal mask, with a caller's scale, at S = 1, a
+   ragged S = 300 with GQA 9, D = 192 and 80, and a misaligned view; the
+   tiled matmul at tests/test_kernels.py's shapes and 4096^3; each check
+   asserting that an all-zero output would fail it (6a); the Hopper kernel
+   timed at starcoder2-7b's and gemma3-12b's prefill shapes beside the
+   simple kernel, its plain version, a library call and its bound, the
+   simple kernel at the float32 forward's shape, and the matmul (6b);
+   starcoder2-7b at its published widths, all 32 layers, bf16, seeded
+   random weights: the no-cache forward at S = 4096 through the Hopper
+   kernel (exactly one launch a layer, every one on that route) and
+   through the plain attention, both timed and profiled, checked layer by
+   layer on the same inputs (teacher-forced: end to end, this random
+   network is chaotic), a check shown to fail for a kernel that drops the
+   last KV tile; then the same widths in float32, two layers, S = 1024,
+   through the simple kernel, checked the same way (6c); ``ServeEngine`` at full
    width, 4 slots, 8 greedy requests of 32 tokens in 62 decode steps, with
    TTFT, decode ms a step and tokens/s, and request 0's prefill and first
    two decode steps checked, teacher-forced, against a no-cache forward
@@ -1129,6 +1138,7 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MATMUL_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_SM90_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 MATMUL_SOURCE = "src/repro_torch/kernels/csrc/matmul.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:97 flash_attention (_flash_kernel :28, pallas_call :128)"
 MATMUL_REPLACES = f"{_TL}:487 matmul (_matmul_kernel :473, pallas_call :504)"
@@ -1142,6 +1152,17 @@ FLASH_CASES = (
     *[((1, 4, 2, 256, d), w, 128) for d in (8, 128, 192, 256) for w in (0, 100)],
     ((2, 4, 2, 12, 16), 0, 128), ((1, 4, 1, 100, 64), 16, 128), ((1, 2, 1, 1, 32), 0, 128),
 )
+# (B, Hq, Hkv, S, D), window, causal, scale, block: bf16 cases of the Hopper route
+# beyond FLASH_CASES (blocks 512 keep the JAX contract's divisibility at S = 300)
+FLASH_SM90_CASES = (
+    ((2, 4, 2, 256, 128), 0, False, None, 128),  # no causal mask
+    ((1, 4, 2, 256, 128), 0, True, 0.3, 128),  # a caller's scale
+    ((1, 4, 2, 1, 128), 0, True, None, 128),  # S = 1
+    ((1, 36, 4, 300, 128), 0, True, None, 512),  # ragged S, GQA 9
+    ((1, 4, 2, 300, 192), 100, True, None, 512),  # D = 192 (64-key tiles), ragged, windowed
+    ((1, 4, 2, 256, 80), 0, True, None, 128),  # D padded to 128 in shared memory
+)
+LM_F32 = {"n_layers": 2, "S": 1024}  # the float32 forward: the simple kernel's path
 # (m, k, n, bm, bk, bn): tests/test_kernels.py::test_matmul_tiled's shapes, and 4096^3
 MM_N = 4096  # the matmul's timed and entry-point size, m = k = n
 MATMUL_CASES = ((32, 32, 32, 16, 16, 16), (64, 128, 32, 32, 64, 16), (128, 64, 128, 128, 64, 128),
@@ -1196,34 +1217,58 @@ def randn(torch, rng, shape, dtype, scale: float = 0.3):
     return (torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).cuda()).to(dtype)
 
 
-def flash_checks(torch, fa, rng) -> float:
-    """Phase 6a: the flash kernel against its plain version, float32 and
-    bfloat16, at every FLASH_CASES entry, and on the model's transposed
-    (B, S, H, D) layout."""
-    err = 0.0
+def routed(fa, q, call):
+    """``call()``'s output and the route it launched on, checked against
+    ``fa.flash_route``: exactly one launch, on the Hopper kernel exactly
+    when the route says so."""
+    before = dict(fa.LAUNCHES)
+    got = call()
+    route = fa.flash_route(q.dtype, q.shape[-1])
+    total = fa.LAUNCHES["flash_attention"] - before["flash_attention"]
+    sm90 = fa.LAUNCHES["flash_attention_sm90"] - before["flash_attention_sm90"]
+    if (total, sm90) != (1, int(route == fa.SM90)):
+        raise AssertionError(f"route {route}: {total} launches, {sm90} on the Hopper kernel")
+    return got, route
+
+
+def flash_checks(torch, fa, rng) -> dict:
+    """Phase 6a: flash attention against its plain version, float32 and
+    bfloat16, at every FLASH_CASES entry and on the model's transposed
+    (B, S, H, D) layout, each on its route; then FLASH_SM90_CASES and a
+    misaligned view on the Hopper route.  Returns the largest error of
+    each route."""
+    err = {fa.SIMPLE: 0.0, fa.SM90: 0.0}
+
+    def check(label, q, k, v, tol, causal=True, window=0, scale=None, blk=128):
+        got, route = routed(fa, q, lambda: fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                                              block_q=blk, block_k=blk))
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+        torch.cuda.synchronize()
+        e, r = flash_close(got, want, tol)
+        zero_fails("flash_attention", want.float(), tol)
+        err[route] = max(err[route], e)
+        print(f"check flash_attention {str(q.dtype)[6:]:8s} {label} route={route}: max_abs_err={e:.3e} "
+              f"max_row_rel_l2={r:.3e} (tol {tol})")
+        return got
+
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[str(dtype).split(".")[-1]]
         for (B, Hq, Hkv, S, D), window, blk in FLASH_CASES:
             q, k, v = (randn(torch, rng, (B, h, S, D), dtype) for h in (Hq, Hkv, Hkv))
-            got = fa.flash_attention(q, k, v, causal=True, window=window, block_q=blk, block_k=blk)
-            want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
-            torch.cuda.synchronize()
-            e, r = flash_close(got, want, tol)
-            zero_fails("flash_attention", want.float(), tol)
-            err = max(err, e)
-            print(f"check flash_attention {str(dtype)[6:]:8s} B,Hq,Hkv,S,D={B},{Hq},{Hkv},{S},{D} window={window}: "
-                  f"max_abs_err={e:.3e} max_row_rel_l2={r:.3e} (tol {tol})")
+            check(f"B,Hq,Hkv,S,D={B},{Hq},{Hkv},{S},{D} window={window}", q, k, v, tol, window=window, blk=blk)
         # the model's layout: (B, S, H, D) activations passed as transposed views
         q, k, v = (randn(torch, rng, (1, 256, h, 128), dtype).transpose(1, 2) for h in (36, 4, 4))
-        got = fa.flash_attention(q, k, v, causal=True)
-        want = fa.flash_attention_plain(q, k, v, causal=True)
-        torch.cuda.synchronize()
+        got = check("transposed (B, S, H, D) views S=256 GQA 36/4", q, k, v, tol)
         if got.transpose(1, 2).stride() != got.transpose(1, 2).contiguous().stride():
             raise AssertionError("flash_attention's output does not keep the (B, S, H, D) layout of its input")
-        e, r = flash_close(got, want, tol)
-        err = max(err, e)
-        print(f"check flash_attention {str(dtype)[6:]:8s} transposed (B, S, H, D) views S=256 GQA 36/4: "
-              f"max_abs_err={e:.3e} max_row_rel_l2={r:.3e} (tol {tol})")
+    tol = FLASH_TOL["bfloat16"]
+    for (B, Hq, Hkv, S, D), window, causal, scale, blk in FLASH_SM90_CASES:
+        q, k, v = (randn(torch, rng, (B, h, S, D), torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        check(f"B,Hq,Hkv,S,D={B},{Hq},{Hkv},{S},{D} window={window} causal={causal} scale={scale}", q, k, v, tol,
+              causal=causal, window=window, scale=scale, blk=blk)
+    # a view one element into its storage: a 2-byte aligned base, copied for TMA
+    q, k, v = (randn(torch, rng, (h * 256 * 128 + 1,), torch.bfloat16)[1:].view(1, h, 256, 128) for h in (4, 2, 2))
+    check("misaligned view (1, 4, 2, 256, 128)", q, k, v, tol)
     return err
 
 
@@ -1253,22 +1298,26 @@ def attention_pairs(S: int, window: int) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def flash_timing(torch, fa, rng, label: str, B: int, Hq: int, Hkv: int, S: int, D: int, window: int) -> dict:
-    """Phase 6b: the kernel at a model's prefill shape in bf16, beside its
-    plain version, one library call (scaled_dot_product_attention, timed
-    here and never called by the port) and its bound: bytes of q, k, v and
-    o once at the HBM rate, against the causal (windowed) FLOPs at the bf16
-    tensor-core peak.  The output is checked at this shape row by row
+def flash_timing(torch, fa, rng, label: str, B: int, Hq: int, Hkv: int, S: int, D: int, window: int,
+                 dt=None) -> dict:
+    """Phase 6b: flash attention at a model's shape (bf16 unless ``dt``) on
+    its route, beside the plain version, one library call (scaled_dot_
+    product_attention, timed here and never called by the port) and its
+    bound: bytes of q, k, v and o once at the HBM rate, against the causal
+    (windowed) FLOPs at the peak for the type (bf16 tensor cores, or fp32
+    without them); on the Hopper route also beside the simple kernel on the
+    same inputs.  The output is checked at this shape row by row
     (``flash_close``), and the check must fail for an output whose last
     quarter of rows is zero and for a kernel that drops the last KV tile."""
     import torch.nn.functional as F
 
-    dt, tol = torch.bfloat16, FLASH_TOL["bfloat16"]
+    dt = torch.bfloat16 if dt is None else dt
+    tol = FLASH_TOL[str(dt).split(".")[-1]]
     q, k, v = (randn(torch, rng, (B, h, S, D), dt) for h in (Hq, Hkv, Hkv))
     kern = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
     plain = lambda: fa.flash_attention_plain(q, k, v, causal=True, window=window)
     want = plain().float()
-    got = kern()
+    got, route = routed(fa, q, kern)
     err, row_err = flash_close(got, want, tol)
     zeroed = got.clone()
     zeroed[:, :, S - S // 4:] = 0
@@ -1285,18 +1334,25 @@ def flash_timing(torch, fa, rng, label: str, B: int, Hq: int, Hkv: int, S: int, 
         lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
     lib_err = (lib().float() - want).abs().max().item()
     ms = cuda_ms(kern, 10)
+    simple = lambda: fa._launch(fa.SIMPLE, q, k, v, causal=True, window=window, scale=None)
+    simple_ms = cuda_ms(simple, 3, warmup=1) if route == fa.SM90 else ms
     plain_ms = cuda_ms(plain, 3, warmup=1)
     lib_ms = cuda_ms(lib, 10)
     flops = 4 * B * Hq * D * attention_pairs(S, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-    print(f"time  flash_attention {label} (B,Hq,Hkv,S,D)=({B},{Hq},{Hkv},{S},{D}) window={window} bf16: "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (sdpa, max_abs_err vs plain "
-          f"{lib_err:.3e}) bound_ms={bound_ms:.4f} ({bound_by}) kernel_tflops={flops / ms / 1e9:.2f} "
+    versus = (f" simple_kernel_ms={simple_ms:.4f} (simple / this kernel {simple_ms / ms:.1f}x)"
+              if route == fa.SM90 else "")
+    print(f"time  flash_attention {label} (B,Hq,Hkv,S,D)=({B},{Hq},{Hkv},{S},{D}) window={window} {str(dt)[6:]} "
+          f"route={route}: kernel_ms={ms:.4f}{versus} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (sdpa, "
+          f"max_abs_err vs plain {lib_err:.3e}; kernel / sdpa {ms / lib_ms:.2f}x) bound_ms={bound_ms:.4f} "
+          f"({bound_by}; kernel / bound {ms / bound_ms:.2f}x) kernel_tflops={flops / ms / 1e9:.2f} "
           f"max_abs_err={err:.3e} max_row_rel_l2={row_err:.3e} (tol {tol}; the same with the last quarter of rows "
           f"zeroed {probes[0]:.3e}, with the last KV tile dropped {probes[1]:.3e}: both fail)")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                simple_ms=simple_ms)
 
 
 def matmul_timing(torch, tl, rng) -> dict:
@@ -1322,7 +1378,7 @@ def matmul_timing(torch, tl, rng) -> dict:
 def lm_kernel(name: str) -> str:
     """The group of a device event of the LM forward: the flash kernel,
     cuBLAS products, or PyTorch's elementwise/reduction/copy kernels."""
-    if "flash_kernel" in name:
+    if "flash_kernel" in name:  # flash_kernel (simple) and flash_kernel_sm90
         return "flash_attention"
     low = name.lower()
     for key, group in (("gemm", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"),
@@ -1442,10 +1498,10 @@ def lm_forward(torch, fa):
     h_k, _ = model(batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = fa.LAUNCHES["flash_attention"]
-    if launches != cfg.n_layers:
-        raise AssertionError(f"the forward launched flash_attention {launches} times, not once per layer "
-                             f"({cfg.n_layers})")
+    launches, sm90 = fa.LAUNCHES["flash_attention"], fa.LAUNCHES["flash_attention_sm90"]
+    if launches != cfg.n_layers or sm90 != launches:
+        raise AssertionError(f"the forward launched flash_attention {launches} times ({sm90} on the Hopper "
+                             f"kernel), not once per layer on it ({cfg.n_layers})")
     kern_ms = cuda_ms(lambda: model(batch), 3)
     model.cfg = plain_cfg
     h_p, _ = model(batch)
@@ -1466,7 +1522,8 @@ def lm_forward(torch, fa):
     if head_err > HEAD_TOL or bf16_err <= HEAD_TOL:
         raise AssertionError(f"lm_logits: rel_l2 {head_err:.3e}, a bf16 output's {bf16_err:.3e}, tol {HEAD_TOL}")
     del want
-    print(f"lm forward S={LM_S}: flash launches={launches} (one a layer) first_s={first_s:.3f} "
+    print(f"lm forward S={LM_S}: flash launches={launches} (one a layer; {sm90} on the Hopper kernel) "
+          f"first_s={first_s:.3f} "
           f"forward_ms use_pallas=True {kern_ms:.3f}, use_pallas=False (plain _sdpa_chunked) {plain_ms:.3f}; "
           f"free-running flash vs plain (not a check: chaotic at these init scales): last {LM_TILE} positions' "
           f"hidden rel_l2={rel_l2(h_k[:, -LM_TILE:], h_p[:, -LM_TILE:]):.3e}, last logits rel_l2="
@@ -1501,6 +1558,45 @@ def lm_forward(torch, fa):
     model.cfg = cfg
     print(f"lm peak device memory GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     return model, launches
+
+
+def lm_forward_f32(torch, fa) -> int:
+    """Phase 6c, float32: the simple kernel's path.  starcoder2-7b's widths
+    in float32 (cut to LM_F32's layers and length), the no-cache forward
+    with ``use_pallas=True`` between zeroed and read launch counts (one
+    launch a layer, none on the Hopper kernel), checked teacher-forced
+    against the plain attention at every position.  Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    torch.cuda.empty_cache()
+    S = LM_F32["S"]
+    cfg = dataclasses.replace(get_arch(LM), use_pallas=True, n_layers=LM_F32["n_layers"],
+                              compute_dtype=torch.float32)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    model = build_model(cfg, seed=0)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (1, S))).cuda()}
+    fa.reset_launches()
+    h, _ = model(batch)
+    torch.cuda.synchronize()
+    launches, sm90 = fa.LAUNCHES["flash_attention"], fa.LAUNCHES["flash_attention_sm90"]
+    if launches != cfg.n_layers or sm90 != 0 or h.dtype != torch.float32 or not torch.isfinite(h).all():
+        raise AssertionError(f"float32 forward: {launches} flash launches ({sm90} on the Hopper kernel), "
+                             f"hidden {h.dtype}, finite {bool(torch.isfinite(h).all())}")
+    ms = cuda_ms(lambda: model(batch), 2, warmup=1)
+    got = teacher_forced(torch, model, batch, plain_cfg)
+    print(f"lm forward float32 {cfg.name} widths, {cfg.n_layers} layers, S={S}: flash launches={launches} (all on "
+          f"the simple kernel) forward_ms={ms:.3f}; teacher-forced vs plain, largest per-position rel_l2: layers "
+          f"{got['layer_max']:.3e}, final hidden {got['hidden']:.3e}, logits {got['logits']:.3e} (tol {LM_TOL})")
+    if max(got["layer_max"], got["hidden"], got["logits"]) > LM_TOL:
+        raise AssertionError(f"the float32 flash forward disagrees with the plain one: {got}")
+    del model, h
+    torch.cuda.empty_cache()
+    return launches
 
 
 def lm_engine(torch, model) -> None:
@@ -1644,27 +1740,35 @@ def matmul_path(torch, tl, rng) -> int:
 
 
 def lm_path(torch, tl, rng) -> list:
-    """Phase 6: the two kernels' checks and times (6a, 6b), the full-width
-    forward (6c), the engine (6d) and the matmul entry point (6e).  Returns
-    the two kernels' entries of the ``kernels`` line."""
+    """Phase 6: the kernels' checks and times (6a, 6b), the full-width
+    forward and the float32 one (6c), the engine (6d) and the matmul entry
+    point (6e).  Returns the three kernels' entries of the ``kernels``
+    line: the Hopper flash kernel, the simple one and the matmul."""
     from repro_torch.kernels import flash_attention as fa
 
     torch.cuda.empty_cache()
     flash_err = flash_checks(torch, fa, rng)
     matmul_err = matmul_checks(torch, tl, rng)
     flash = flash_timing(torch, fa, rng, LM, 1, 36, 4, LM_S, 128, 0)
-    flash_timing(torch, fa, rng, "gemma3-12b local", 1, 16, 8, LM_S, 256, 1024)
+    local = flash_timing(torch, fa, rng, "gemma3-12b local", 1, 16, 8, LM_S, 256, 1024)
+    simple = flash_timing(torch, fa, rng, f"{LM} float32", 1, 36, 4, LM_F32["S"], 128, 0, dt=torch.float32)
     mm = matmul_timing(torch, tl, rng)
     model, flash_launches = lm_forward(torch, fa)
     lm_engine(torch, model)
     del model
-    torch.cuda.empty_cache()
+    simple_launches = lm_forward_f32(torch, fa)
     mm_launches = matmul_path(torch, tl, rng)
     return [
+        {"name": "flash_attention_sm90", "route": "cuda", "source": FLASH_SM90_SOURCE, "replaces": FLASH_REPLACES,
+         "launches": flash_launches, "max_abs_err": max(flash_err[fa.SM90], flash["err"], local["err"]),
+         "ms": flash["ms"], "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+         "shape": f"(1, 36, 4, {LM_S}, 128) bf16 causal", "simple_kernel_ms": flash["simple_ms"],
+         "gemma3_local_ms": local["ms"], "gemma3_local_library_ms": local["library_ms"]},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-         "launches": flash_launches, "max_abs_err": max(flash_err, flash["err"]), "ms": flash["ms"],
-         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-         "library_ms": flash["library_ms"], "shape": f"(1, 36, 4, {LM_S}, 128) bf16 causal"},
+         "launches": simple_launches, "max_abs_err": max(flash_err[fa.SIMPLE], simple["err"]), "ms": simple["ms"],
+         "plain_ms": simple["plain_ms"], "bound_ms": simple["bound_ms"], "bound_by": simple["bound_by"],
+         "library_ms": simple["library_ms"], "shape": f"(1, 36, 4, {LM_F32['S']}, 128) float32 causal"},
         {"name": "matmul", "route": "cuda", "source": MATMUL_SOURCE, "replaces": MATMUL_REPLACES,
          "launches": mm_launches, "max_abs_err": max(matmul_err, mm["err"]), "ms": mm["ms"],
          "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"],
@@ -1690,12 +1794,14 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    reports = _build.build(["tile_linalg", "flash_attention", "matmul"])
+    reports = _build.build(["tile_linalg", "flash_attention", "flash_attention_sm90", "matmul"])
     print(f"kernel build s={time.perf_counter() - t0:.2f} (built: {sorted(reports) or 'cached'})")
-    for log in reports.values():
+    for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line or "setmaxnreg" in line:
                 print("  ptxas:", line.strip())
+            if name == "flash_attention_sm90" and ("setmaxnreg" in line or re.search(r"[1-9]\d* bytes spill", line)):
+                raise AssertionError(f"flash_attention_sm90: {line.strip()}")
 
     rng = np.random.default_rng(0)
     errs = kernel_checks(torch, tl, rng)
