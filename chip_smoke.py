@@ -8,11 +8,15 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
 1. Environment: torch/CUDA versions, the card's name and power limit, and
    the build of the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` a source, all started together), with each kernel's
-   registers and spills; the Hopper flash kernel must not spill.
+   registers and spills; the Hopper flash kernel and the redesigned
+   TRSMU/GEMMNN (``tile_lu_sm90``) must not spill.
 2. Kernels: each of the nine tile kernels — Cholesky's POTRF, TRSM, SYRK,
    GEMM and LU's GETRF, TRSML, TRSMU, TRSMUL, GEMMNN — is held against its
    plain PyTorch version on the card at b = 8 ... 128 (right-hand-side
-   widths bc = 1, 8 and b where a kernel takes a non-square operand), in
+   widths bc = 1, 8 and b where a kernel takes a non-square operand; TRSMU
+   and GEMMNN also at the ragged b = 96 and 120 with bc = 1, 3, 40 and b,
+   and GEMMNN at m != k), under each launch shape its wrapper may choose
+   (TRSMU's rows a CTA, GEMMNN's output tile), in
    the fused-grid form (random distinct write blocks on random non-square
    grids, arguments of one tile shape in one grid, whole grids compared)
    and in the batched form (2a); then in the stacked grid form on
@@ -20,15 +24,20 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    and the last lane a copy of the one before it (2c).  Each is timed at
    the main path's shapes (the largest group of that kernel in the
    n = 4096, 32 x 32 plan of Cholesky, of LU, or for TRSMUL of the
-   matrix-RHS LU solve, on the resident grids) beside its plain version,
+   matrix-RHS LU solve, on the resident grids; GEMMNN also at a 4-task
+   group of the matrix-RHS solve and the largest q = 1 group of the vector
+   solve) beside its plain version,
    one PyTorch library call computing the same group, and the least time
-   the card could take (its bound) (2b); and in stacked form at the
+   the card could take (its bound, at the peak rate of the kernel's
+   arithmetic route: fp32 FMAs, or 3xTF32 on the tensor cores) (2b); and in stacked form at the
    serving shapes (the largest group in the n = 1024, 8 x 8 template plan
    over 64 lanes) beside the same group as 64 unstacked launches, the
    plain stacked version, a library call on the flattened stack and the
    bound, each result held against the plain version on those grids and
    on random ones (2d).  Each stacked check also asserts that the written
-   grid left as it was would fail it.
+   grid left as it was would fail it.  After each 2b/2d timing one more
+   call runs under the profiler, and its trace gives what was launched:
+   CTAs, threads, registers and shared memory a CTA (``launch`` lines).
 3. Cholesky main path: blocked Cholesky of a 4096 x 4096 fp32 SPD matrix on
    graph g2p with 32 x 32 partitions (128 x 128 tiles), drained twice
    (first drain, then a drain-memo replay), checked against float64
@@ -91,6 +100,7 @@ or without the repository beside it, the script fails before printing it.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -101,6 +111,15 @@ ROOT = Path(__file__).resolve().parent
 N, P = 4096, 32  # main paths: n x n fp32, P x P partitions -> 128 x 128 tiles
 RHS, RHS_P = 512, 4  # matrix right-hand side of the LU solve: (N, 512) in P x 4 blocks
 TILES = (8, 16, 32, 64, 128)
+# edges that are no power of two, for the kernels that cut a task across CTAs
+# (TRSMU's row split, GEMMNN's output tiles): b with right-hand-side widths bc
+RAGGED, RAGGED_WIDTHS = (96, 120), (1, 3, 40)
+# GEMMNN ((m, k), (k, q)) with m != k, ragged in every dimension
+GEMMNN_SHAPES = (((96, 120), (120, 40)), ((120, 40), (40, 96)), ((33, 128), (128, 1)), ((1, 7), (7, 9)),
+                 ((128, 5), (5, 128)))
+# every launch shape each wrapper may choose (tile_linalg.launch_shape), each
+# checked in turn; GEMMNN's 0 (the matrix-vector mapping) only for q < 8
+SHAPES = {"trsmu": (16, 32), "gemmnn": (0, 32, 64)}
 CHOLESKY = ("potrf", "trsm", "syrk", "gemm")
 LU = ("getrf", "trsml", "trsmu", "trsmul", "gemmnn")
 KERNELS = CHOLESKY + LU
@@ -120,7 +139,7 @@ REPLACES = {
     "trsmul": f"{_TL}:321 batched_trsmul; :367 make_grid_fused (grid_trsmul :451)",
     "gemmnn": f"{_TL}:340 batched_gemmnn; :367 make_grid_fused (grid_gemmnn :452)",
 }
-SOURCE = "src/repro_torch/kernels/csrc/tile_linalg.cu"
+CSRC = "src/repro_torch/kernels/csrc"
 # FLOPs of one task from its arguments' tile shapes [(rows, cols), ...]
 FLOPS = {
     "potrf": lambda s: s[0][0] ** 3 / 3,
@@ -133,8 +152,10 @@ FLOPS = {
     "trsmu": lambda s: s[1][0] * s[0][0] ** 2,
     "gemmnn": lambda s: 2 * s[0][0] * s[0][1] * s[1][1],
 }
-# H100 SXM published peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3
+# H100 SXM published peaks (NVIDIA data sheet): fp32 on the CUDA cores, TF32
+# on the tensor cores (dense), HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 EXPECTED_LAUNCHES = {"potrf": 32, "trsm": 31, "syrk": 31, "gemm": 30}  # per drain at P = 32
 # the serving path: BatchServer(graph="g2p", max_batch=64) on n = 1024 requests
@@ -241,17 +262,18 @@ def special_tiles(name: str, rng, n: int, b: int):
     return None if make is None else make(rng, n, b)
 
 
-def grid_case(tl, name: str, rng, b: int, bc: int, nr: int = 6, nc: int = 7, n: int = 12, lanes=None):
-    """Random non-square grids, one per distinct tile shape (arguments of one
-    shape address one grid, as in a single-root drain); distinct write
-    blocks, the written grid's read blocks drawn from the rest.  With
-    ``lanes`` the grids are stacked ``(lanes, nr, nc, br, bc)``, every lane
-    with its own values and factor tiles, all lanes sharing the indices;
-    the last lane copies the one before it, as a pow2 padding lane does."""
+def grid_case(tl, name: str, rng, shapes, nr: int = 6, nc: int = 7, n: int = 12, lanes=None):
+    """Random non-square grids, one per distinct tile shape of ``shapes`` (the
+    arguments' tiles; arguments of one shape address one grid, as in a
+    single-root drain); distinct write blocks, the written grid's read
+    blocks drawn from the rest.  With ``lanes`` the grids are stacked
+    ``(lanes, nr, nc, br, bc)``, every lane with its own values and factor
+    tiles, all lanes sharing the indices; the last lane copies the one
+    before it, as a pow2 padding lane does."""
     import numpy as np
 
     lead = () if lanes is None else (lanes,)
-    shapes = tl.tile_shapes(name, b, bc)
+    b = shapes[0][0]
     w = tl.GRID_FUSED[name][1]
     grid_of, grids = {}, []
     for s in shapes:
@@ -277,84 +299,127 @@ def grid_case(tl, name: str, rng, b: int, bc: int, nr: int = 6, nc: int = 7, n: 
     return grids, [grid_of[s] for s in shapes], idxs
 
 
+def check_cases(tl):
+    """(name, label, tile shapes) of every 2a/2c case: each kernel at
+    b = TILES (right-hand-side widths 1, 8 and b where it takes one), TRSMU
+    and GEMMNN also at the ragged RAGGED x RAGGED_WIDTHS, and GEMMNN at
+    GEMMNN_SHAPES."""
+    for b in TILES:
+        for name in KERNELS:
+            for bc in sorted({1, 8, b}) if name in WIDE else [b]:
+                yield name, f"b={b:3d}" + (f" bc={bc:3d}" if name in WIDE else ""), tl.tile_shapes(name, b, bc)
+    for b in RAGGED:
+        for name in SHAPES:
+            for bc in sorted({*RAGGED_WIDTHS, b}):
+                yield name, f"b={b:3d} bc={bc:3d}", tl.tile_shapes(name, b, bc)
+    for (m, k), (_, q) in GEMMNN_SHAPES:
+        yield "gemmnn", f"m={m} k={k} q={q}", [(m, k), (k, q), (m, q)]
+
+
+def launch_shapes(name: str, shapes):
+    """The launch shapes to check ``name`` under: each one its wrapper may
+    choose for these tiles (None: the kernel has a single launch shape)."""
+    if name not in SHAPES:
+        return [None]
+    q = shapes[-1][1]
+    return [s for s in SHAPES[name] if name != "gemmnn" or s != 0 or q < 8]
+
+
+class forced_shape:
+    """Within the block, ``tl.launch_shape`` returns ``shape`` for the kernels
+    that take one: each of a kernel's launch shapes gets checked whatever
+    size the check's group has."""
+
+    def __init__(self, tl, shape):
+        self.tl, self.shape, self.orig = tl, shape, tl.launch_shape
+
+    def __enter__(self):
+        if self.shape is not None:
+            self.tl.launch_shape = lambda name, shapes, n, batch, sms: (self.shape,)
+
+    def __exit__(self, *exc):
+        self.tl.launch_shape = self.orig
+
+
 def kernel_checks(torch, tl, rng) -> dict:
-    """Phase 2a: every kernel against its plain version, both forms."""
+    """Phase 2a: every kernel against its plain version, grid and batched
+    forms, under each of its launch shapes."""
     import numpy as np
 
     err = {k: 0.0 for k in KERNELS}
     n = 12
-    for b in TILES:
-        for name in KERNELS:
-            w = tl.GRID_FUSED[name][1]
-            for bc in sorted({1, 8, b}) if name in WIDE else [b]:
-                grids, which, idxs = grid_case(tl, name, rng, b, bc, n=n)
-                ix = [torch.from_numpy(i).cuda() for i in idxs]
-                g0 = [torch.from_numpy(g).cuda() for g in grids]
-                gk, gp = [g.clone() for g in g0], [g.clone() for g in g0]
+    for name, label, shapes in check_cases(tl):
+        w = tl.GRID_FUSED[name][1]
+        for shape in launch_shapes(name, shapes):
+            grids, which, idxs = grid_case(tl, name, rng, shapes, n=n)
+            ix = [torch.from_numpy(i).cuda() for i in idxs]
+            g0 = [torch.from_numpy(g).cuda() for g in grids]
+            gk, gp = [g.clone() for g in g0], [g.clone() for g in g0]
+            with forced_shape(tl, shape):
                 getattr(tl, f"grid_{name}")(ix, [gk[k] for k in which])
-                getattr(tl, f"grid_{name}_plain")(ix, [gp[k] for k in which])
-                torch.cuda.synchronize()
-                e_grid = max(close(x, y, TOL[name]) for x, y in zip(gk, gp))
-                for k in range(len(g0)):
-                    if k != which[w] and not torch.equal(gk[k], g0[k]):
-                        raise AssertionError(f"grid_{name} wrote a grid it only reads")
-                # batched form on (n, br, bc) stacks
-                stacks = [rng.standard_normal((n,) + s).astype(np.float32) * 0.3
-                          for s in tl.tile_shapes(name, b, bc)]
-                tiles = special_tiles(name, rng, n, b)
-                if tiles is not None:
-                    stacks[0] = tiles
-                st = [torch.from_numpy(s).cuda() for s in stacks]
-                before = [s.clone() for s in st]
+            getattr(tl, f"grid_{name}_plain")(ix, [gp[k] for k in which])
+            torch.cuda.synchronize()
+            e_grid = max(close(x, y, TOL[name]) for x, y in zip(gk, gp))
+            for k in range(len(g0)):
+                if k != which[w] and not torch.equal(gk[k], g0[k]):
+                    raise AssertionError(f"grid_{name} wrote a grid it only reads")
+            # batched form on (n, br, bc) stacks
+            stacks = [rng.standard_normal((n,) + s).astype(np.float32) * 0.3 for s in shapes]
+            tiles = special_tiles(name, rng, n, shapes[0][0])
+            if tiles is not None:
+                stacks[0] = tiles
+            st = [torch.from_numpy(s).cuda() for s in stacks]
+            before = [s.clone() for s in st]
+            with forced_shape(tl, shape):
                 out_k = getattr(tl, f"batched_{name}")(*st)
-                out_p = getattr(tl, f"{name}_plain")(*st)
-                torch.cuda.synchronize()
-                e_bat = close(out_k, out_p, TOL[name])
-                for s, s0 in zip(st, before):
-                    if not torch.equal(s, s0):
-                        raise AssertionError(f"batched_{name} modified its input stack")
-                err[name] = max(err[name], e_grid, e_bat)
-                width = f" bc={bc:3d}" if name in WIDE else ""
-                print(f"check {name:6s} b={b:3d}{width}: grid max_abs_err={e_grid:.3e} "
-                      f"batched max_abs_err={e_bat:.3e} (tol {TOL[name]})")
+            out_p = getattr(tl, f"{name}_plain")(*st)
+            torch.cuda.synchronize()
+            e_bat = close(out_k, out_p, TOL[name])
+            for s, s0 in zip(st, before):
+                if not torch.equal(s, s0):
+                    raise AssertionError(f"batched_{name} modified its input stack")
+            err[name] = max(err[name], e_grid, e_bat)
+            how = "" if shape is None else f" shape={shape:3d}"
+            print(f"check {name:6s} {label}{how}: grid max_abs_err={e_grid:.3e} "
+                  f"batched max_abs_err={e_bat:.3e} (tol {TOL[name]})")
     return err
 
 
 def stacked_checks(torch, tl, rng) -> dict:
     """Phase 2c: the stacked grid form of every kernel (``make_grid_fused``'s
     ``kernel_stacked``) against its plain stacked version, B = 3 and 4,
-    whole stacked grids compared: unwritten blocks and lanes keep their
-    bytes, and the padding lane's result equals the lane it copies."""
+    under each launch shape, whole stacked grids compared: unwritten blocks
+    and lanes keep their bytes, and the padding lane's result equals the
+    lane it copies."""
     err = {k: 0.0 for k in KERNELS}
-    for b in TILES:
-        for name in KERNELS:
-            w = tl.GRID_FUSED[name][1]
-            for bc in sorted({1, 8, b}) if name in WIDE else [b]:
-                e_case = 0.0
-                for lanes in (3, 4):
-                    grids, which, idxs = grid_case(tl, name, rng, b, bc, lanes=lanes)
-                    ix = [torch.from_numpy(i).cuda() for i in idxs]
-                    g0 = [torch.from_numpy(g).cuda() for g in grids]
-                    gk, gp = [g.clone() for g in g0], [g.clone() for g in g0]
-                    before = tl.STACKED_LAUNCHES[name]
+    for name, label, shapes in check_cases(tl):
+        w = tl.GRID_FUSED[name][1]
+        for shape in launch_shapes(name, shapes):
+            e_case = 0.0
+            for lanes in (3, 4):
+                grids, which, idxs = grid_case(tl, name, rng, shapes, lanes=lanes)
+                ix = [torch.from_numpy(i).cuda() for i in idxs]
+                g0 = [torch.from_numpy(g).cuda() for g in grids]
+                gk, gp = [g.clone() for g in g0], [g.clone() for g in g0]
+                before = tl.STACKED_LAUNCHES[name]
+                with forced_shape(tl, shape):
                     getattr(tl, f"grid_{name}")(ix, [gk[k] for k in which])
-                    getattr(tl, f"grid_{name}_plain")(ix, [gp[k] for k in which])
-                    torch.cuda.synchronize()
-                    if tl.STACKED_LAUNCHES[name] != before + 1:
-                        raise AssertionError(f"grid_{name} on stacked grids did not count a stacked launch")
-                    e = max(close(x, y, TOL[name]) for x, y in zip(gk, gp))
-                    unchanged_fails(name, g0[which[w]], gp[which[w]])
-                    out = gk[which[w]]
-                    if not torch.equal(out[-1], out[-2]):
-                        raise AssertionError(f"stacked {name}: the padding lane differs from the lane it copies")
-                    for k in range(len(g0)):
-                        if k != which[w] and not torch.equal(gk[k], g0[k]):
-                            raise AssertionError(f"stacked {name} wrote a grid it only reads")
-                    e_case = max(e_case, e)
-                err[name] = max(err[name], e_case)
-                width = f" bc={bc:3d}" if name in WIDE else ""
-                print(f"check {name:6s}_stacked b={b:3d}{width} B=3,4: max_abs_err={e_case:.3e} "
-                      f"(tol {TOL[name]})")
+                getattr(tl, f"grid_{name}_plain")(ix, [gp[k] for k in which])
+                torch.cuda.synchronize()
+                if tl.STACKED_LAUNCHES[name] != before + 1:
+                    raise AssertionError(f"grid_{name} on stacked grids did not count a stacked launch")
+                e = max(close(x, y, TOL[name]) for x, y in zip(gk, gp))
+                unchanged_fails(name, g0[which[w]], gp[which[w]])
+                out = gk[which[w]]
+                if not torch.equal(out[-1], out[-2]):
+                    raise AssertionError(f"stacked {name}: the padding lane differs from the lane it copies")
+                for k in range(len(g0)):
+                    if k != which[w] and not torch.equal(gk[k], g0[k]):
+                        raise AssertionError(f"stacked {name} wrote a grid it only reads")
+                e_case = max(e_case, e)
+            err[name] = max(err[name], e_case)
+            how = "" if shape is None else f" shape={shape:3d}"
+            print(f"check {name:6s}_stacked {label}{how} B=3,4: max_abs_err={e_case:.3e} (tol {TOL[name]})")
     return err
 
 
@@ -381,19 +446,36 @@ def plan_groups(op, specs):
     return list(plan_schedule(tracker.waves(), tracker.dag()).groups())
 
 
-def bound(name: str, w: int, g, grids):
-    """Least time (ms) for one group: distinct input blocks read once, the
-    written blocks written once, against the kernel's FLOPs at fp32 peak."""
+def arith_route(tl, name: str, tiles, n: int, lanes: int = 1) -> str:
+    """The arithmetic route of one launch of ``n`` tasks of tile shapes
+    ``tiles``: "3xtf32" where GEMMNN runs on the tensor cores (every output
+    tile but the matrix-vector mapping's), else "fp32" (FMAs on the CUDA
+    cores)."""
+    import torch
+
+    if name == "gemmnn" and tl.launch_shape(name, tiles, n, lanes, tl.sm_count(torch.device("cuda")))[0] != 0:
+        return "3xtf32"
+    return "fp32"
+
+
+def bound(tl, name: str, w: int, g, grids, lanes: int = 1):
+    """Least time (ms) for one group on ``lanes`` lanes: distinct input
+    blocks read once, the written blocks written once, against the
+    operations at the peak rate of the kernel's arithmetic route: FLOPs at
+    the fp32 peak, or for 3xTF32 three TF32 products a FLOP at the TF32
+    peak.  Returns (ms, what bounds it, route)."""
     slots = g.segments[0][0]
     reads = set()
     for s, ix in zip(slots, g.idxs):
         reads |= {(s, int(r), int(c)) for r, c in ix}
     tile = [tuple(grids[s].shape[-2:]) for s in slots]
     nbytes = (sum(grids[s].shape[-2] * grids[s].shape[-1] for s, _, _ in reads)
-              + g.size * tile[w][0] * tile[w][1]) * 4
-    flops = g.size * FLOPS[name](tile)
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+              + g.size * tile[w][0] * tile[w][1]) * 4 * lanes
+    flops = g.size * FLOPS[name](tile) * lanes
+    route = arith_route(tl, name, tile, g.size, lanes)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3 if route == "3xtf32" else flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), route
 
 
 def library_call(torch, name: str, stacks):
@@ -420,13 +502,14 @@ def library_call(torch, name: str, stacks):
     return lambda: torch.baddbmm(stacks[2], stacks[0], stacks[1], alpha=-1)
 
 
-def kernel_timing(torch, tl, name: str, groups, grids) -> dict:
+def kernel_timing(torch, tl, name: str, groups, grids, pick=None, label: str = "") -> dict:
     """One kernel at the main path's shapes (its largest single-segment
-    group), every timed call on the same fresh grids: the written blocks
-    are put back before each call, untimed."""
+    group, or the first that ``pick`` accepts), every timed call on the same
+    fresh grids: the written blocks are put back before each call, untimed."""
     from repro_torch.kernels.ref import fp32_matmul
 
-    g = max((g for g in groups if g.op.name == name and len(g.segments) == 1), key=lambda g: g.size)
+    mine = [g for g in groups if g.op.name == name and len(g.segments) == 1]
+    g = next(g for g in mine if pick(g)) if pick else max(mine, key=lambda g: g.size)
     slots = g.segments[0][0]
     wa = tl.GRID_FUSED[name][1]
     w = slots[wa]
@@ -445,18 +528,23 @@ def kernel_timing(torch, tl, name: str, groups, grids) -> dict:
     plain_ms = cuda_ms_fresh(plain, lambda: gp[w].index_put_((wr, wc), fresh), 3)
     with fp32_matmul():
         lib_ms = cuda_ms(lib, 20)  # out of place: its inputs stay fresh
-    bound_ms, bound_by = bound(name, wa, g, grids)
-    shapes = "x".join(f"{r}:{c}" for r, c in (tuple(grids[s].shape[-2:]) for s in slots))
-    print(f"time  {name:6s} tiles={shapes} tasks={g.size:4d}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3e}")
-    return dict(tasks=g.size, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    bound_ms, bound_by, route = bound(tl, name, wa, g, grids)
+    tiles = [tuple(grids[s].shape[-2:]) for s in slots]
+    shapes = "x".join(f"{r}:{c}" for r, c in tiles)
+    print(f"time  {name:6s}{label} tiles={shapes} tasks={g.size:4d}: kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, {route}) "
+          f"max_abs_err={err:.3e}")
+    return dict(tasks=g.size, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by, arith=route, launch=(name, f"{name}{label} tasks={g.size}", kern))
 
 
 def kernel_timings(torch, tl) -> dict:
     """Phase 2b: the Cholesky four at the Cholesky plan's largest groups,
     GETRF/TRSML/TRSMU/GEMMNN at the LU plan's, TRSMUL at the matrix-RHS
-    LU solve plan's."""
+    LU solve plan's; then GEMMNN at the groups where the solves spend its
+    launches: a 4-task group of the matrix-RHS solve plan and the largest
+    q = 1 group of the vector solve plan (``gemmnn_solve4``,
+    ``gemmnn_vector``)."""
     from repro_torch.core import dd_matrix, spd_matrix
     from repro_torch.core.data import to_grid
     from repro_torch.linalg import GETRF, LUSOLVE, POTRF
@@ -475,6 +563,17 @@ def kernel_timings(torch, tl) -> dict:
     for name in ("getrf", "trsml", "trsmu", "gemmnn"):  # TRSMUL is not in run_lu
         out[name] = kernel_timing(torch, tl, name, lu, dd)
     out["trsmul"] = kernel_timing(torch, tl, "trsmul", solve, dd + [rhs])
+    def on_rhs(g):  # slot 1 is the right-hand side: GEMMNN updating it, not the factor
+        return g.segments[0][0][2] == 1
+
+    out["gemmnn_solve4"] = kernel_timing(torch, tl, "gemmnn", solve, dd + [rhs], label=" (solve, 4 tasks)",
+                                         pick=lambda g: on_rhs(g) and g.size == 4)
+    vec = plan_groups(LUSOLVE, [a_spec, ((N, 1), ((P, 1),))])
+    vrhs = to_grid(0.3 * torch.randn(N, 1, generator=torch.Generator().manual_seed(3)).cuda(), b, 1)
+    widest = max(g.size for g in vec if g.op.name == "gemmnn" and len(g.segments) == 1 and on_rhs(g))
+    out["gemmnn_vector"] = kernel_timing(torch, tl, "gemmnn", vec, dd + [vrhs], label=" (vector solve)",
+                                         pick=lambda g: on_rhs(g) and g.size == widest)
+    traced_launches(torch, out, "2b")
     return out
 
 
@@ -575,14 +674,16 @@ def stacked_timing(torch, tl, rng, name: str, groups, grids) -> dict:
     plain_ms = cuda_ms_fresh(plain, restore(gp), 3)
     with fp32_matmul():
         lib_ms = cuda_ms(lib, 20)
-    one_ms, bound_by = bound(name, wa, g, [x[0] for x in grids])
-    bound_ms = LANES * one_ms
-    shapes = "x".join(f"{r}:{c}" for r, c in (tuple(grids[s].shape[-2:]) for s in slots))
+    bound_ms, bound_by, route = bound(tl, name, wa, g, [x[0] for x in grids], LANES)
+    tiles = [tuple(grids[s].shape[-2:]) for s in slots]
+    shapes = "x".join(f"{r}:{c}" for r, c in tiles)
     print(f"time  {name:6s}_stacked B={LANES} tiles={shapes} tasks={g.size:3d}: kernel_ms={ms:.4f} "
           f"{LANES}_unstacked_launches_ms={lanes_ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3e} random_grids_max_abs_err={err_random:.3e}")
-    return dict(tasks=g.size, err=max(err, err_random), ms=ms, unstacked_ms=lanes_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+          f"bound_ms={bound_ms:.4f} ({bound_by}, {route}) max_abs_err={err:.3e} "
+          f"random_grids_max_abs_err={err_random:.3e}")
+    return dict(tasks=g.size, err=max(err, err_random), ms=ms, unstacked_ms=lanes_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, arith=route,
+                launch=(name, f"{name}_stacked B={LANES} tasks={g.size}", kern))
 
 
 def stacked_timings(torch, tl, rng) -> dict:
@@ -608,6 +709,7 @@ def stacked_timings(torch, tl, rng) -> dict:
     for name in ("getrf", "trsml", "trsmu", "gemmnn"):
         out[name] = stacked_timing(torch, tl, rng, name, lu, dd)
     out["trsmul"] = stacked_timing(torch, tl, rng, "trsmul", solve, dd + [rhs])
+    traced_launches(torch, out, "2d")
     return out
 
 
@@ -617,23 +719,60 @@ def stacked_timings(torch, tl, rng) -> dict:
 TASK_BINS = (1, 4, 16, 64, 256, 1024, 4096)  # upper edges of the CTAs-per-launch bins
 
 
-def by_launch_size(prof, path: Path) -> str:
-    """Device time of each kernel split by its launches' CTA counts (tasks
-    times lanes per launch, binned), read from the profiler's trace written
-    to ``path``."""
+def kernel_events(prof, path: Path):
+    """The tile kernels' device events of a profiler run, read from its
+    trace written to ``path``: (kernel name, trace event) pairs."""
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     trace = json.loads(path.read_text())
-    bins = {}
     for ev in trace.get("traceEvents", []) if isinstance(trace, dict) else trace:
-        grid = ev.get("args", {}).get("grid") if ev.get("cat") == "kernel" else None
         m = re.search(r"(\w+)_kernel\b", ev.get("name", ""))
-        if grid is None or not m or m.group(1) not in KERNELS:
+        if ev.get("cat") == "kernel" and m and m.group(1) in KERNELS:
+            yield m.group(1), ev
+
+
+def traced_launches(torch, timings: dict, phase: str) -> None:
+    """What the timed calls of a phase launched, as the profiler recorded
+    it: each entry's ``launch`` (kernel name, label, one call) runs once,
+    all in one profiler session, each call one kernel launch.  Prints a
+    ``launch`` line for each (CTAs of all lanes, threads, registers a thread
+    and shared memory a CTA, static and dynamic) and sets the entry's
+    ``ctas``, None where the trace does not hold it (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = [t.pop("launch") for t in timings.values()]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _, _, run in calls:
+            run()
+            torch.cuda.synchronize()
+    events = sorted(kernel_events(prof, ROOT / "build" / "traces" / f"launches_{phase}.json"),
+                    key=lambda e: e[1].get("ts", 0))
+    matched = [k for k, _ in events] == [name for name, _, _ in calls]
+    if not matched:
+        print(f"launch {phase}: the trace holds tile kernels {[k for k, _ in events]}, not one for each of the "
+              f"{len(calls)} timed calls; CTAs not measured")
+    found = [ev.get("args", {}) for _, ev in events] if matched else [{}] * len(calls)
+    for t, (_, label, _), args in zip(timings.values(), calls, found):
+        t["ctas"] = math.prod(args["grid"]) if "grid" in args else None
+        if t["ctas"] is not None:
+            print(f"launch {label}: ctas={t['ctas']} grid={args['grid']} threads={math.prod(args.get('block', [0]))} "
+                  f"registers={args.get('registers per thread')} smem_bytes={args.get('shared memory')}")
+
+
+def by_launch_size(prof, path: Path) -> str:
+    """Device time of each kernel split by its launches' CTA counts (all
+    lanes' CTAs of a launch, binned), read from the profiler's trace
+    written to ``path``."""
+    bins = {}
+    for name, ev in kernel_events(prof, path):
+        grid = ev.get("args", {}).get("grid")
+        if grid is None:
             continue
         tasks = grid[0] * (grid[1] if len(grid) > 1 else 1)
         hi = next((e for e in TASK_BINS if tasks <= e), tasks)
         lo = max((e + 1 for e in TASK_BINS if e < hi), default=1)
-        key = (m.group(1), lo, hi)
+        key = (name, lo, hi)
         n, us = bins.get(key, (0, 0.0))
         bins[key] = (n + 1, us + ev["dur"])
     if not bins:
@@ -1794,7 +1933,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    reports = _build.build(["tile_linalg", "flash_attention", "flash_attention_sm90", "matmul"])
+    reports = _build.build(["tile_linalg", "tile_lu_sm90", "flash_attention", "flash_attention_sm90", "matmul"])
     print(f"kernel build s={time.perf_counter() - t0:.2f} (built: {sorted(reports) or 'cached'})")
     for name, log in reports.items():
         for line in log.splitlines():
@@ -1802,6 +1941,8 @@ def main() -> int:
                 print("  ptxas:", line.strip())
             if name == "flash_attention_sm90" and ("setmaxnreg" in line or re.search(r"[1-9]\d* bytes spill", line)):
                 raise AssertionError(f"flash_attention_sm90: {line.strip()}")
+            if name == "tile_lu_sm90" and re.search(r"[1-9]\d* bytes spill", line):
+                raise AssertionError(f"tile_lu_sm90: {line.strip()}")
 
     rng = np.random.default_rng(0)
     errs = kernel_checks(torch, tl, rng)
@@ -1819,22 +1960,28 @@ def main() -> int:
         t = times[name]
         if launches[name] == 0:
             raise AssertionError(f"{name} was launched no time on its main path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": max(errs[name], t["err"]),
+        entry = {
+            "name": name, "route": "cuda", "source": f"{CSRC}/{tl.LIBRARY[name]}.cu", "library": tl.LIBRARY[name],
+            "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": max(errs[name], t["err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "tasks": t["tasks"],
-        })
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "tasks": t["tasks"], "ctas": t["ctas"],
+            "arith": t["arith"],
+        }
+        if name == "gemmnn":  # the solves' groups (2b): where GEMMNN spends its launches
+            entry["groups"] = {k: times[k] for k in ("gemmnn_solve4", "gemmnn_vector")}
+            entry["max_abs_err"] = max(entry["max_abs_err"], *(g["err"] for g in entry["groups"].values()))
+        kernels.append(entry)
     for name in KERNELS:
         t = stacked_times[name]
         if stacked_launches[name] == 0:
             raise AssertionError(f"{name}_stacked was launched no time on the serving path")
         kernels.append({
-            "name": f"{name}_stacked", "route": "cuda", "source": SOURCE, "replaces": STACKED_REPLACES,
+            "name": f"{name}_stacked", "route": "cuda", "source": f"{CSRC}/{tl.LIBRARY[name]}.cu",
+            "library": tl.LIBRARY[name], "replaces": STACKED_REPLACES,
             "launches": stacked_launches[name], "max_abs_err": max(stacked_errs[name], t["err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "tasks": t["tasks"], "lanes": LANES,
-            "unstacked_launches_ms": t["unstacked_ms"],
+            "library_ms": t["library_ms"], "tasks": t["tasks"], "lanes": LANES, "ctas": t["ctas"],
+            "arith": t["arith"], "unstacked_launches_ms": t["unstacked_ms"],
         })
     for entry in lm_kernels:
         if entry["launches"] == 0:

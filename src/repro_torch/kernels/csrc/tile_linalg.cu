@@ -1,5 +1,6 @@
-// Hand-written Hopper (sm_90a) kernels for the nine tile bodies of blocked
-// Cholesky and pivot-free LU.
+// Hand-written Hopper (sm_90a) kernels for seven of the nine tile bodies of
+// blocked Cholesky and pivot-free LU (TRSMU and GEMMNN, redesigned, are in
+// tile_lu_sm90.cu).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tile_linalg.py:
 //   potrf_kernel   <- _potrf_tile  / batched_potrf  / grid_potrf
@@ -8,9 +9,7 @@
 //   gemm_kernel    <- _gemm_tile   / batched_gemm   / grid_gemm
 //   getrf_kernel   <- _getrf_tile  / batched_getrf  / grid_getrf
 //   trsml_kernel   <- _trsml_tile  / batched_trsml  / grid_trsml
-//   trsmu_kernel   <- _trsmu_tile  / batched_trsmu  / grid_trsmu
 //   trsmul_kernel  <- _trsmul_tile / batched_trsmul / grid_trsmul
-//   gemmnn_kernel  <- _gemmnn_tile / batched_gemmnn / grid_gemmnn
 // and the fused gather/compute/scatter entry make_grid_fused, in both its
 // forms: every kernel reads its task's blocks straight from the resident
 // (nr, nc, br, bc) grids through (n, 2) int32 block indices and writes the
@@ -19,7 +18,7 @@
 // an (n, 1, br, bc) grid with identity indices.
 //
 // The stacked form (make_grid_fused's kernel_stacked, grid (B, n)) is the
-// same nine kernels under a second grid dimension: the grids are
+// same kernels under a second grid dimension: the grids are
 // (B, nr, nc, br, bc), lane b = blockIdx.y reads and writes its blocks at
 // b * lane_stride elements from the base of each argument's grid, and all
 // B lanes share one index array.  The unstacked form is batch = 1.  A
@@ -42,17 +41,16 @@
 //   and runs the recurrence over shared memory.  At b = 128 this needs
 //   66 KB (POTRF) and 132 KB (TRSM) of dynamic shared memory, above the
 //   48 KB default, so the launcher raises the limit first.
-// - GETRF, TRSML, TRSMU and TRSMUL are the LU family's recurrences, latency
+// - GETRF, TRSML and TRSMUL are the LU family's recurrences, latency
 //   bound for the same reason (one GETRF per panel; at most nr TRSMs of
 //   each kind per group).  GETRF keeps the tile in shared memory and spreads
 //   each step's rank-1 update of the trailing block over all 256 threads.
-//   TRSMU is TRSM with U read by column: one thread per row of B.  TRSML and
-//   TRSMUL are row recurrences whose columns are independent; a right-hand
+//   TRSML and TRSMUL are row recurrences whose columns are independent; a right-hand
 //   side may be a single column (a blocked vector), so each column gets a
 //   team of g lanes (g = 32 for one column, 2 for 128) that split each
 //   row's inner product and reduce it with warp shuffles.
-// - GEMM, SYRK and GEMMNN (C -= A B^T, C -= A A^T, C -= A B; fp32) are the
-//   bulk of the FLOPs.  At b = 128 one task alone moves 4 tiles (256 KB)
+// - GEMM and SYRK (C -= A B^T, C -= A A^T; fp32) are the bulk of the
+//   Cholesky FLOPs.  At b = 128 one task alone moves 4 tiles (256 KB)
 //   for 4.2 MFLOP, 16 FLOP/byte, just below the card's fp32 ridge
 //   (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte); but the tasks of a group
 //   share their A and B blocks, so a large group, each distinct block
@@ -72,7 +70,7 @@
 namespace {
 
 constexpr int kMaxB = 128;     // largest tile edge the kernels accept
-constexpr int kKC = 32;        // K chunk of the GEMM/SYRK/GEMMNN shared-memory stage
+constexpr int kKC = 32;        // K chunk of the GEMM/SYRK shared-memory stage
 constexpr int kThreads = 256;  // threads of the GETRF, TRSML/TRSMUL and GEMM-family CTAs
 constexpr int kMaxBatch = 65535;  // lanes of a stacked launch: gridDim.y's limit
 
@@ -116,16 +114,12 @@ __global__ void potrf_kernel(float* grid, int nc, const int* idx, long long lane
 }
 
 // ---------------------------------------------------------------------------
-// TRSM / TRSMU: X = B inv(L)^T with L lower (_trsm_tile; B is b x b), or
-// X = B inv(U) with U non-unit upper (_trsmu_tile; B is br x b).  Row p of
-// X depends only on row p of B and on the triangle:
-//   TRSM:  x_j = (b_j - sum_{k<j} x_k L[j][k]) / L[j][j]
-//   TRSMU: x_j = (b_j - sum_{k<j} x_k U[k][j]) / U[j][j]
+// TRSM: X = B inv(L)^T with L lower (_trsm_tile; B is b x b).  Row p of X
+// depends only on row p of B and on the triangle:
+//   x_j = (b_j - sum_{k<j} x_k L[j][k]) / L[j][j]
 // so one thread per row runs forward substitution over its row, overwriting
-// B with X in shared memory: TRSMU is TRSM with the triangle read by column.
-// Neither reads the other triangle.
+// B with X in shared memory.  L's upper triangle is never read.
 // ---------------------------------------------------------------------------
-template <bool kByColumn>
 __device__ __forceinline__ void trsm_right_rows(const float* tgrid, int tnc, const int* tidx,
                                                 long long tlane, float* bgrid, int bnc,
                                                 const int* bidx, long long blane, int br, int b) {
@@ -135,21 +129,17 @@ __device__ __forceinline__ void trsm_right_rows(const float* tgrid, int tnc, con
   float* X = smem + b * ld;  // B, then X, row-major, padded
   const float* tt = tgrid + block_offset(tidx, blockIdx.x, tnc, b, b, tlane);
   float* bt = bgrid + block_offset(bidx, blockIdx.x, bnc, br, b, blane);
-  if (kByColumn) {  // B may have br != b rows
-    for (int e = threadIdx.x; e < b * b; e += blockDim.x) T[(e / b) * ld + e % b] = tt[e];
-    for (int e = threadIdx.x; e < br * b; e += blockDim.x) X[(e / b) * ld + e % b] = bt[e];
-  } else {  // square: both staged in one pass, two loads in flight per step
-    for (int e = threadIdx.x; e < b * b; e += blockDim.x) {
-      T[(e / b) * ld + e % b] = tt[e];
-      X[(e / b) * ld + e % b] = bt[e];
-    }
+  // both staged in one pass, two loads in flight per step
+  for (int e = threadIdx.x; e < b * b; e += blockDim.x) {
+    T[(e / b) * ld + e % b] = tt[e];
+    X[(e / b) * ld + e % b] = bt[e];
   }
   __syncthreads();
   const int p = threadIdx.x;
   if (p < br) {
     for (int j = 0; j < b; ++j) {
       float s = 0.f;
-      for (int k = 0; k < j; ++k) s += X[p * ld + k] * (kByColumn ? T[k * ld + j] : T[j * ld + k]);
+      for (int k = 0; k < j; ++k) s += X[p * ld + k] * T[j * ld + k];
       X[p * ld + j] = (X[p * ld + j] - s) / T[j * ld + j];
     }
   }
@@ -159,13 +149,7 @@ __device__ __forceinline__ void trsm_right_rows(const float* tgrid, int tnc, con
 
 __global__ void trsm_kernel(const float* lgrid, int lnc, const int* lidx, long long llane,
                             float* bgrid, int bnc, const int* bidx, long long blane, int b) {
-  trsm_right_rows<false>(lgrid, lnc, lidx, llane, bgrid, bnc, bidx, blane, b, b);
-}
-
-__global__ void trsmu_kernel(const float* ugrid, int unc, const int* uidx, long long ulane,
-                             float* bgrid, int bnc, const int* bidx, long long blane, int br,
-                             int b) {
-  trsm_right_rows<true>(ugrid, unc, uidx, ulane, bgrid, bnc, bidx, blane, br, b);
+  trsm_right_rows(lgrid, lnc, lidx, llane, bgrid, bnc, bidx, blane, b, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -261,12 +245,11 @@ trsmul_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, flo
 }
 
 // ---------------------------------------------------------------------------
-// GEMM / SYRK / GEMMNN: C (m x q) -= A (m x kd) op(B), op(B) = B^T with B
-// (q x kd) row-major (GEMM, SYRK with B = A; square tiles, m == kd == q) or
-// B (kd x q) row-major (GEMMNN).  256 threads as a 16 x 16 grid; thread
-// (tx, ty) owns C[ty + 16 i][tx + 16 j] for i, j < R.
+// GEMM / SYRK: C (m x q) -= A (m x kd) B^T with B (q x kd) row-major (SYRK
+// with B = A; square tiles, m == kd == q).  256 threads as a 16 x 16 grid;
+// thread (tx, ty) owns C[ty + 16 i][tx + 16 j] for i, j < R.
 // ---------------------------------------------------------------------------
-template <int R, bool kTransB>
+template <int R>
 __device__ __forceinline__ void update_tile(const float* A, const float* Bm, float* C, int m,
                                             int kd, int q) {
   __shared__ float As[kKC][kMaxB + 1];
@@ -279,21 +262,11 @@ __device__ __forceinline__ void update_tile(const float* A, const float* Bm, flo
     for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < kd; k0 += kKC) {
     const int kc = min(kKC, kd - k0);
-    if (kTransB) {  // square: A and B staged in one pass
-      for (int e = threadIdx.x; e < m * kc; e += blockDim.x) {
-        const int r = e / kc, kk = e % kc;
-        As[kk][r] = A[r * kd + k0 + kk];
-        Bs[kk][r] = Bm[r * kd + k0 + kk];
-      }
-    } else {  // B's row is contiguous along q
-      for (int e = threadIdx.x; e < m * kc; e += blockDim.x) {
-        const int r = e / kc, kk = e % kc;
-        As[kk][r] = A[r * kd + k0 + kk];
-      }
-      for (int e = threadIdx.x; e < kc * q; e += blockDim.x) {
-        const int kk = e / q, c = e % q;
-        Bs[kk][c] = Bm[(k0 + kk) * q + c];
-      }
+    // square: A and B staged in one pass
+    for (int e = threadIdx.x; e < m * kc; e += blockDim.x) {
+      const int r = e / kc, kk = e % kc;
+      As[kk][r] = A[r * kd + k0 + kk];
+      Bs[kk][r] = Bm[r * kd + k0 + kk];
     }
     __syncthreads();
     for (int kk = 0; kk < kc; ++kk) {
@@ -323,9 +296,9 @@ __global__ void __launch_bounds__(kThreads)
 gemm_kernel(const float* ag, int anc, const int* aidx, long long alane, const float* bg,
             int bnc, const int* bidx, long long blane, float* cg, int cnc, const int* cidx,
             long long clane, int b) {
-  update_tile<R, true>(ag + block_offset(aidx, blockIdx.x, anc, b, b, alane),
-                       bg + block_offset(bidx, blockIdx.x, bnc, b, b, blane),
-                       cg + block_offset(cidx, blockIdx.x, cnc, b, b, clane), b, b, b);
+  update_tile<R>(ag + block_offset(aidx, blockIdx.x, anc, b, b, alane),
+                 bg + block_offset(bidx, blockIdx.x, bnc, b, b, blane),
+                 cg + block_offset(cidx, blockIdx.x, cnc, b, b, clane), b, b, b);
 }
 
 template <int R>
@@ -333,17 +306,7 @@ __global__ void __launch_bounds__(kThreads)
 syrk_kernel(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc,
             const int* cidx, long long clane, int b) {
   const float* a = ag + block_offset(aidx, blockIdx.x, anc, b, b, alane);
-  update_tile<R, true>(a, a, cg + block_offset(cidx, blockIdx.x, cnc, b, b, clane), b, b, b);
-}
-
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-gemmnn_kernel(const float* ag, int anc, const int* aidx, long long alane, const float* bg,
-              int bnc, const int* bidx, long long blane, float* cg, int cnc, const int* cidx,
-              long long clane, int m, int k, int q) {
-  update_tile<R, false>(ag + block_offset(aidx, blockIdx.x, anc, m, k, alane),
-                        bg + block_offset(bidx, blockIdx.x, bnc, k, q, blane),
-                        cg + block_offset(cidx, blockIdx.x, cnc, m, q, clane), m, k, q);
+  update_tile<R>(a, a, cg + block_offset(cidx, blockIdx.x, cnc, b, b, clane), b, b, b);
 }
 
 int row_threads(int b) { return ((b + 31) / 32) * 32; }
@@ -447,24 +410,6 @@ int tile_trsmul(const float* ugrid, int unc, const int* uidx, long long ulane, f
   if (bad_args(n, batch, b) || bad_edge(bc)) return (int)cudaErrorInvalidValue;
   return launch_smem(trsmul_kernel, n, batch, kThreads, padded_bytes(b + bc, b), stream, ugrid,
                      unc, uidx, ulane, bgrid, bnc, bidx, blane, b, bc, team_lanes(bc));
-}
-
-int tile_trsmu(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid,
-               int bnc, const int* bidx, long long blane, int n, int batch, int br, int b,
-               void* stream) {
-  if (bad_args(n, batch, b) || bad_edge(br)) return (int)cudaErrorInvalidValue;
-  return launch_smem(trsmu_kernel, n, batch, row_threads(br), padded_bytes(b + br, b), stream,
-                     ugrid, unc, uidx, ulane, bgrid, bnc, bidx, blane, br, b);
-}
-
-int tile_gemmnn(const float* ag, int anc, const int* aidx, long long alane, const float* bg,
-                int bnc, const int* bidx, long long blane, float* cg, int cnc, const int* cidx,
-                long long clane, int n, int batch, int m, int k, int q, void* stream) {
-  if (bad_args(n, batch, m) || bad_edge(k) || bad_edge(q)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  TILE_DISPATCH(gemmnn_kernel, m > q ? m : q, ag, anc, aidx, alane, bg, bnc, bidx, blane, cg, cnc,
-                cidx, clane, m, k, q)
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,0 +1,551 @@
+// Hand-written Hopper (sm_90a) kernels for two of the LU family's tile
+// bodies, redesigned from the simple one-CTA-per-task kernels of
+// tile_linalg.cu (whose other seven kernels stay there, unchanged).
+//
+// Replaces the Pallas TPU kernels of src/repro/kernels/tile_linalg.py:
+//   trsmu_kernel   <- _trsmu_tile  / batched_trsmu  / grid_trsmu
+//   gemmnn_kernel  <- _gemmnn_tile / batched_gemmnn / grid_gemmnn
+// in the three forms of tile_linalg.cu: the fused grid form (make_grid_fused's
+// kernel: blocks read through (n, 2) int32 indices, the written block updated
+// in place), the stacked form (kernel_stacked: lane blockIdx.y, at a lane
+// stride per argument, all lanes sharing the indices) and the batched form
+// (the grid entry on an (n, 1, r, c) view with identity indices).
+//
+// Tasks of one launch never race (the planner's V3/V4: no task writes a block
+// another task of the launch reads or writes; V5: lanes are disjoint).  Each
+// task's output is cut into pieces that one CTA owns alone, so no CTA writes
+// what another reads or writes: nothing needs atomics, and every result is
+// deterministic (a stacked padding lane equals the lane it copies, bit for
+// bit).  All arguments may point into one grid, so no pointer is __restrict__.
+//
+// TRSMU: X = B inv(U), U (b x b) non-unit upper, B (br x b), in place.  U's
+// strictly-lower part is L's junk of a packed L\U block and is never read.
+// What bounds it on H100: latency.  Row p of X depends only on row p of B, but
+// within a row the columns form the recurrence
+//   x_j = (b_j - sum_{k<j} x_k U[k][j]) / U[j][j],
+// which the simple kernel ran with one thread per row: b (b - 1) / 2 = 8128
+// dependent FMA + shared-load steps at b = 128, on one CTA per task (31 SMs for
+// the LU plan's 31-task group) with 132 KB of shared memory (one CTA an SM).
+// Its bytes (0.0012 ms for that group) bound nothing.  The design:
+// - rows split across CTAs: 16 or 32 rows each, chosen by the wrapper from the
+//   group's size, so the 31-task group runs on 248 CTAs; every CTA reads the
+//   task's U (from L2);
+// - the recurrence blocked by 16 columns.  A half-warp owns a row, lane c the
+//   column J0 + c of block J.  The block is first updated by the columns before
+//   it, X_J -= X_{<J} U_{<J,J} (one independent FMA chain a lane, four columns
+//   of X a shared load), then solved by a right-looking substitution inside the
+//   half-warp: lane j scales by 1 / U[j][j] (read from U), broadcasts by
+//   shuffle, lanes c > j subtract.  The dependent chain falls to 448 FMAs plus
+//   128 shuffle steps.  A row never leaves its half-warp, so after the staging
+//   no CTA barrier runs;
+// - shared memory holds only U's upper panels (column block J, rows
+//   0 .. J0 + 15, packed: 36 KB at b = 128) and the CTA's rows of X (9 or
+//   17 KB), so five or four CTAs share an SM in a stacked launch.
+//
+// GEMMNN: C (m x q) -= A (m x k) B (k x q), fp32 in and out.  What bounds it
+// on H100: bytes for large groups (the LU plan's 961-task group moves 127 MB
+// of distinct blocks, 0.039 ms at 3.35 TB/s, against 0.024 ms for 3 x 4.03
+// GFLOP at the TF32 rate), and filling the card for small ones (the simple
+// kernel ran 4-task groups on 4 CTAs: 128 of 132 SMs idle).
+// The design:
+// - tensor cores at near-fp32 accuracy (3xTF32): each operand x splits into
+//   big = tf32(x) and small = tf32(x - big), rounded as cvt.rna does, and the
+//   product accumulates small*big + big*small + big*big in fp32 with
+//   mma.sync.m16n8k8.  The split keeps about 22 of fp32's 24 mantissa bits
+//   (x - big - small ~ 2^-22 |x|; the dropped small*small term is as small),
+//   so a product is off by ~2^-21 relative against an fp32 FMA's 2^-24: the
+//   float32 reference's 1e-4 at k = 128 holds with room.  One TF32 product
+//   keeps only ~2^-11 relative a term, outside it.  The bound is then 3 x the
+//   FLOPs at the TF32 rate;
+// - each task's output cut into CTA tiles of 64 x 64 (4 warps of 32 x 32) or
+//   32 x 32 (4 warps of 16 x 16): the wrapper takes 64^2 where its tiles still
+//   give every SM a CTA, else 32^2 (the 961-task group: 3844 tiles of 64^2; a
+//   4-task group: 64 of 32^2).  A 128^2 tile (8 warps, 240 registers, one CTA
+//   an SM) was slower than 64^2 at every group size measured;
+// - the accumulator starts from -C, loaded before the first product so that
+//   its latency hides under the staging, and -(-C + A B) is stored: C - A B
+//   in one pass, the signs flipped exactly;
+// - A's rows and B's columns of the tile staged in 32-deep chunks by cp.async
+//   into a ring of 3 slots in shared memory, a commit group a chunk: chunk
+//   c + 2 loads while chunk c computes, and one barrier a chunk both publishes
+//   chunk c and frees chunk c - 1's slot (55 KB for a 64^2 tile; its 165
+//   registers a thread let three such CTAs share an SM, so one CTA's products
+//   overlap another's loads; four spill).  16-byte copies where every row is
+//   16-byte aligned, 4-byte ones otherwise; zero fill masks the ragged edges
+//   (k to a multiple of 8, rows past m, columns past q);
+// - C read and written as float2 pairs (two neighbouring columns of an
+//   accumulator fragment) where the 16-byte path holds, the stores masked;
+// - q < 8 (a blocked vector): no tensor-core tile.  A matrix-vector mapping: a
+//   warp per row of C, its lanes over k in full fp32, reduced by xor shuffles
+//   in a fixed order; 32 rows a CTA.
+//
+// Every entry point returns cudaGetLastError() (0 = launched); the Python
+// wrapper raises on anything else, since a refused launch never runs and a
+// later synchronize would not report it.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kMaxB = 128;        // largest tile edge the kernels accept
+constexpr int kMaxBatch = 65535;  // lanes of a stacked launch: gridDim.y's limit
+
+// Element offset of a task's block: lane blockIdx.y of a stacked grid (lane
+// stride 0 for an unstacked one), block idx[task] of that lane.
+__device__ __forceinline__ long long block_offset(const int* idx, int task, int nc, int br, int bc,
+                                                  long long lane) {
+  const long long r = idx[2 * task], c = idx[2 * task + 1];
+  return blockIdx.y * lane + (r * nc + c) * (long long)br * bc;
+}
+
+// ---------------------------------------------------------------------------
+// TRSMU
+// ---------------------------------------------------------------------------
+constexpr int kW = 16;                         // column block: a half-warp, a lane a column
+constexpr int kTrsmuThreads = 256;
+constexpr int kHalfWarps = kTrsmuThreads / kW;  // rows in flight: one a half-warp
+
+// floats of U's first nblk packed upper panels (panel J is (16 J + 16) x 16)
+__host__ __device__ constexpr int panel_floats(int nblk) { return kW * kW * nblk * (nblk + 1) / 2; }
+
+template <int kRowsPerHalfWarp>
+__global__ void __launch_bounds__(kTrsmuThreads)
+trsmu_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid, int bnc,
+             const int* bidx, long long blane, int br, int b, int ldx) {
+  constexpr int kRows = kHalfWarps * kRowsPerHalfWarp;  // rows of B this CTA solves
+  extern __shared__ __align__(16) float smem[];
+  const int nblk = (b + kW - 1) / kW;
+  float* P = smem;                       // panel J at P + panel_floats(J): p[k * 16 + c] = U[k][16 J + c]
+  float* X = smem + panel_floats(nblk);  // kRows x ldx: the CTA's rows; row kRows stays zero
+  const int splits = (br + kRows - 1) / kRows;
+  const int task = blockIdx.x / splits, r0 = (blockIdx.x % splits) * kRows;
+  const int rows = min(kRows, br - r0);
+  const float* U = ugrid + block_offset(uidx, task, unc, b, b, ulane);
+  float* B = bgrid + block_offset(bidx, task, bnc, br, b, blane) + (long long)r0 * b;
+
+  for (int J = 0; J < nblk; ++J) {
+    float* p = P + panel_floats(J);
+    const int J0 = J * kW;
+    for (int e = threadIdx.x; e < (J0 + kW) * kW; e += kTrsmuThreads) {
+      const int k = e / kW, c = J0 + e % kW;
+      p[e] = k < b && c < b ? U[k * b + c] : 0.f;
+    }
+  }
+  for (int e = threadIdx.x; e < rows * b; e += kTrsmuThreads) X[(e / b) * ldx + e % b] = B[e];
+  for (int e = threadIdx.x; e < ldx; e += kTrsmuThreads) X[kRows * ldx + e] = 0.f;
+  __syncthreads();
+
+  const int hw = threadIdx.x / kW, c = threadIdx.x % kW;
+  // this half-warp's rows; a row past the CTA's last computes on the zero row
+  // and writes nothing, so every shuffle runs on a converged warp
+  const float* xr[kRowsPerHalfWarp];
+  int row[kRowsPerHalfWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerHalfWarp; ++i) {
+    row[i] = hw + kHalfWarps * i;
+    xr[i] = X + (row[i] < rows ? row[i] : kRows) * ldx;
+  }
+  for (int J = 0; J < nblk; ++J) {
+    const int J0 = J * kW, w = min(kW, b - J0);
+    const float* p = P + panel_floats(J);
+    float x[kRowsPerHalfWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerHalfWarp; ++i) x[i] = c < w ? xr[i][J0 + c] : 0.f;
+    // X_J -= X_{<J} U_{<J,J}: four solved columns of the row a shared load
+    for (int k = 0; k < J0; k += 4) {
+      const float u0 = p[k * kW + c], u1 = p[(k + 1) * kW + c];
+      const float u2 = p[(k + 2) * kW + c], u3 = p[(k + 3) * kW + c];
+#pragma unroll
+      for (int i = 0; i < kRowsPerHalfWarp; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(xr[i] + k);
+        x[i] = fmaf(-v.x, u0, x[i]);
+        x[i] = fmaf(-v.y, u1, x[i]);
+        x[i] = fmaf(-v.z, u2, x[i]);
+        x[i] = fmaf(-v.w, u3, x[i]);
+      }
+    }
+    // the diagonal block, right-looking inside the half-warp
+    const float dinv = c < w ? 1.f / p[(J0 + c) * kW + c] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kW; ++j) {
+      if (j < w) {
+        const float u = p[(J0 + j) * kW + c];  // U[J0 + j][J0 + c]
+#pragma unroll
+        for (int i = 0; i < kRowsPerHalfWarp; ++i) {
+          if (c == j) x[i] *= dinv;
+          const float xj = __shfl_sync(0xffffffffu, x[i], j, kW);
+          if (c > j) x[i] = fmaf(-xj, u, x[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerHalfWarp; ++i) {
+      if (row[i] < rows && c < w) {
+        X[row[i] * ldx + J0 + c] = x[i];
+        B[row[i] * b + J0 + c] = x[i];
+      }
+    }
+    __syncwarp();  // the row's new columns, before the next block reads them
+  }
+}
+
+// ---------------------------------------------------------------------------
+// GEMMNN
+// ---------------------------------------------------------------------------
+constexpr int kKC = 32;        // K chunk: one cp.async commit group, one ring slot
+constexpr int kStages = 3;     // ring slots: chunk c + 2 loads while chunk c computes
+// A's row stride in a slot: 4 (mod 8) words, so the fragment loads hit 32
+// distinct banks, and 16-byte aligned rows for cp.async
+constexpr int kLdA = kKC + 4;
+constexpr int kMvRows = 32;    // rows of C a matrix-vector CTA takes
+constexpr int kMvMaxQ = 7;     // widest C the matrix-vector mapping takes
+constexpr int kMvThreads = 256;
+
+// warps of a tile CTA (kWarpsM x kWarpsN) and m16 x n8 fragments of a warp
+template <int kTile>
+struct MmaShape;
+template <>
+struct MmaShape<32> {
+  static constexpr int kWarpsM = 2, kWarpsN = 2, kFragsM = 1, kFragsN = 2;
+};
+template <>
+struct MmaShape<64> {
+  static constexpr int kWarpsM = 2, kWarpsN = 2, kFragsM = 2, kFragsN = 4;
+};
+
+// floats of one ring slot: A's kTile x kKC chunk and B's kKC x kTile one
+// (B's row stride kTile + 8 = 8 (mod 16) words: conflict-free fragment loads)
+__host__ __device__ constexpr int slot_floats(int tile) { return tile * kLdA + kKC * (tile + 8); }
+
+// threads of a GEMMNN CTA; tile 0 is the matrix-vector mapping
+template <int kTile>
+constexpr int kGemmnnThreads = 32 * MmaShape<kTile>::kWarpsM * MmaShape<kTile>::kWarpsN;
+template <>
+constexpr int kGemmnnThreads<0> = kMvThreads;
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+// as cvt.rna.tf32.f32 does: half a TF32 ulp added to the magnitude's bits,
+// the 13 low bits cleared.  Two integer ops at full rate, where cvt runs at
+// the conversion rate; every x this splits is also split by the warps that
+// share its row or column.
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x = big + small + O(2^-22 |x|), both TF32 (a NaN stays NaN in one of them)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a b on one m16n8k8 fragment, TF32 inputs, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// cp.async of 16 or 4 bytes; when !valid nothing is read and dst is zeroed
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+// Stage K rows [k0, k0 + kKC) of the tile's operands into one ring slot:
+// As[r][kk - k0] = A[m0 + r][kk], Bs[kk - k0][c] = B[kk][n0 + c], zero past
+// m, k and q.
+template <int kTile>
+__device__ __forceinline__ void stage_chunk(float* As, float* Bs, const float* A, const float* Bm, int m, int k,
+                                            int q, int m0, int n0, int k0, bool vec) {
+  constexpr int kThreads = kGemmnnThreads<kTile>, lda = kLdA, ldb = kTile + 8;
+  if (vec) {  // k % 4 == q % 4 == 0 and 16-byte aligned blocks: a quad is all in or all out
+    constexpr int qa = kKC / 4, qb = kTile / 4;
+    for (int e = threadIdx.x; e < kTile * qa; e += kThreads) {
+      const int r = e / qa, kk = 4 * (e % qa);
+      const bool ok = m0 + r < m && k0 + kk < k;
+      cp_async16(As + r * lda + kk, ok ? A + (m0 + r) * k + k0 + kk : A, ok);
+    }
+    for (int e = threadIdx.x; e < kKC * qb; e += kThreads) {
+      const int kk = e / qb, c = 4 * (e % qb);
+      const bool ok = k0 + kk < k && n0 + c < q;
+      cp_async16(Bs + kk * ldb + c, ok ? Bm + (k0 + kk) * q + n0 + c : Bm, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTile * kKC; e += kThreads) {
+      const int r = e / kKC, kk = e % kKC;
+      const bool ok = m0 + r < m && k0 + kk < k;
+      cp_async4(As + r * lda + kk, ok ? A + (m0 + r) * k + k0 + kk : A, ok);
+    }
+    for (int e = threadIdx.x; e < kKC * kTile; e += kThreads) {
+      const int kk = e / kTile, c = e % kTile;
+      const bool ok = k0 + kk < k && n0 + c < q;
+      cp_async4(Bs + kk * ldb + c, ok ? Bm + (k0 + kk) * q + n0 + c : Bm, ok);
+    }
+  }
+}
+
+// One kTile x kTile tile of C -= A B on the tensor cores, 3xTF32.
+template <int kTile>
+__device__ __forceinline__ void gemmnn_mma(const float* A, const float* Bm, float* C, int m, int k, int q,
+                                           int piece, bool vec) {
+  using S = MmaShape<kTile>;
+  constexpr int FM = S::kFragsM, FN = S::kFragsN;
+  constexpr int lda = kLdA, ldb = kTile + 8;
+  extern __shared__ __align__(16) float smem[];  // kStages slots: As (kTile x lda), then Bs (kKC x ldb)
+  const int tiles_n = (q + kTile - 1) / kTile;
+  const int m0 = piece / tiles_n * kTile, n0 = piece % tiles_n * kTile;
+  const int nchunks = (k + kKC - 1) / kKC;
+  auto slot = [&](int ch) { return smem + ch % kStages * slot_floats(kTile); };
+  // chunks 0 and 1 in flight before the first wait; every iteration commits
+  // one group (empty past the last chunk), so chunk ch is always the group
+  // before the newest: wait_group 1
+  for (int ch = 0; ch < kStages - 1; ++ch) {
+    if (ch < nchunks) stage_chunk<kTile>(slot(ch), slot(ch) + kTile * lda, A, Bm, m, k, q, m0, n0, ch * kKC, vec);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wm0 = warp % S::kWarpsM * FM * 16, wn0 = warp / S::kWarpsM * FN * 8;
+  // acc[i][j][h] = -C - A B at row wm0 + 16 i + g + 8 (h / 2), column
+  // wn0 + 8 j + 2 t + h % 2
+  float acc[FM][FN][4];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = m0 + wm0 + 16 * i + g + 8 * hh, c = n0 + wn0 + 8 * j + 2 * t;
+        float2 v = make_float2(0.f, 0.f);
+        if (vec) {  // q even: a pair is all in or all out
+          if (r < m && c < q) v = *reinterpret_cast<const float2*>(C + r * q + c);
+        } else {
+          if (r < m && c < q) v.x = C[r * q + c];
+          if (r < m && c + 1 < q) v.y = C[r * q + c + 1];
+        }
+        acc[i][j][2 * hh] = -v.x;
+        acc[i][j][2 * hh + 1] = -v.y;
+      }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncthreads();  // chunk ch has landed, and every warp is done with chunk ch - 1's slot
+    const int next = ch + kStages - 1;  // into the slot chunk ch - 1 left
+    if (next < nchunks) stage_chunk<kTile>(slot(next), slot(next) + kTile * lda, A, Bm, m, k, q, m0, n0, next * kKC, vec);
+    cp_async_commit();
+    const float* As = slot(ch);
+    const float* Bs = As + kTile * lda;
+    const int steps = min(kKC, k - ch * kKC);  // zero fill pads the last chunk to a multiple of 8
+    for (int kk = 0; kk < steps; kk += 8) {
+      uint32_t ab[FM][4], as[FM][4], bb[FN][2], bs[FN][2];
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        const float* a = As + (wm0 + 16 * i + g) * lda + kk + t;
+        split_tf32(a[0], ab[i][0], as[i][0]);
+        split_tf32(a[8 * lda], ab[i][1], as[i][1]);
+        split_tf32(a[4], ab[i][2], as[i][2]);
+        split_tf32(a[8 * lda + 4], ab[i][3], as[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const float* bp = Bs + (kk + t) * ldb + wn0 + 8 * j + g;
+        split_tf32(bp[0], bb[j][0], bs[j][0]);
+        split_tf32(bp[4 * ldb], bb[j][1], bs[j][1]);
+      }
+      // term by term over the fragments: FM x FN independent products in flight
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) mma_tf32(acc[i][j], as[i], bb[j]);
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) mma_tf32(acc[i][j], ab[i], bs[j]);
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) mma_tf32(acc[i][j], ab[i], bb[j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = m0 + wm0 + 16 * i + g + 8 * hh, c = n0 + wn0 + 8 * j + 2 * t;
+        if (vec) {
+          if (r < m && c < q) *reinterpret_cast<float2*>(C + r * q + c) = make_float2(-acc[i][j][2 * hh], -acc[i][j][2 * hh + 1]);
+        } else {
+          if (r < m && c < q) C[r * q + c] = -acc[i][j][2 * hh];
+          if (r < m && c + 1 < q) C[r * q + c + 1] = -acc[i][j][2 * hh + 1];
+        }
+      }
+}
+
+// Rows [32 piece, 32 piece + 32) of C -= A B for q <= kMvMaxQ, in fp32.
+__device__ __forceinline__ void gemmnn_matvec(const float* A, const float* Bm, float* C, int m, int k, int q,
+                                              int piece) {
+  __shared__ float Bs[kMaxB * kMvMaxQ];
+  for (int e = threadIdx.x; e < k * q; e += kMvThreads) Bs[e] = Bm[e];
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int end = min(m, (piece + 1) * kMvRows);
+  for (int r = piece * kMvRows + warp; r < end; r += kMvThreads / 32) {
+    float s[kMvMaxQ];
+#pragma unroll
+    for (int j = 0; j < kMvMaxQ; ++j) s[j] = 0.f;
+    for (int kk = lane; kk < k; kk += 32) {
+      const float a = A[r * k + kk];
+#pragma unroll
+      for (int j = 0; j < kMvMaxQ; ++j)
+        if (j < q) s[j] = fmaf(a, Bs[kk * q + j], s[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kMvMaxQ; ++j) {
+      if (j < q) {
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2) s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
+        if (lane == j) C[r * q + j] -= s[j];
+      }
+    }
+  }
+}
+
+// CTAs one task takes: tiles of C, or 32-row pieces for the matrix-vector mapping
+__host__ __device__ inline int gemmnn_pieces(int tile, int m, int q) {
+  return tile == 0 ? (m + kMvRows - 1) / kMvRows : ((m + tile - 1) / tile) * ((q + tile - 1) / tile);
+}
+
+template <int kTile>
+__global__ void __launch_bounds__(kGemmnnThreads<kTile>)
+gemmnn_kernel(const float* ag, int anc, const int* aidx, long long alane, const float* bg, int bnc,
+              const int* bidx, long long blane, float* cg, int cnc, const int* cidx, long long clane, int m,
+              int k, int q, int vec) {
+  const int pieces = gemmnn_pieces(kTile, m, q);
+  const int task = blockIdx.x / pieces, piece = blockIdx.x % pieces;
+  const float* A = ag + block_offset(aidx, task, anc, m, k, alane);
+  const float* Bm = bg + block_offset(bidx, task, bnc, k, q, blane);
+  float* C = cg + block_offset(cidx, task, cnc, m, q, clane);
+  if constexpr (kTile == 0) {
+    gemmnn_matvec(A, Bm, C, m, k, q, piece);
+  } else {
+    gemmnn_mma<kTile>(A, Bm, C, m, k, q, piece, vec != 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch shapes
+// ---------------------------------------------------------------------------
+bool bad_edge(int e) { return e < 1 || e > kMaxB; }
+
+bool bad_args(int n, int batch, int b) { return n < 1 || batch < 1 || batch > kMaxBatch || bad_edge(b); }
+
+// X's row stride: a multiple of 4 (float4 loads), never of 32 (the two
+// half-warps of a warp read two rows in distinct banks)
+int x_stride(int b) {
+  const int ld = (b + 3) / 4 * 4 + 4;
+  return ld % 32 == 0 ? ld + 4 : ld;
+}
+
+using TrsmuKernel = void (*)(const float*, int, const int*, long long, float*, int, const int*, long long,
+                             int, int, int);
+using GemmnnKernel = void (*)(const float*, int, const int*, long long, const float*, int, const int*,
+                              long long, float*, int, const int*, long long, int, int, int, int);
+
+struct Launch {
+  int ctas, threads, smem;  // CTAs a lane, threads a CTA, dynamic shared memory bytes
+};
+
+// TRSMU's launch for `rows` (16 or 32) rows of B a CTA; false if rows is neither
+bool trsmu_launch(int rows, int n, int br, int b, Launch* out, TrsmuKernel* kernel) {
+  if (rows != 16 && rows != 32) return false;
+  *kernel = rows == 16 ? &trsmu_kernel<1> : &trsmu_kernel<2>;
+  const int nblk = (b + kW - 1) / kW;
+  *out = {n * ((br + rows - 1) / rows), kTrsmuThreads,
+          (panel_floats(nblk) + (rows + 1) * x_stride(b)) * (int)sizeof(float)};
+  return true;
+}
+
+// GEMMNN's launch for output tile `tile` (0: matrix-vector, q <= 7; else
+// 32 or 64); false for any other
+bool gemmnn_launch(int tile, int n, int m, int k, int q, Launch* out, GemmnnKernel* kernel) {
+  GemmnnKernel kern;
+  int threads;
+  switch (tile) {
+    case 0:
+      if (q > kMvMaxQ) return false;
+      kern = &gemmnn_kernel<0>;
+      threads = kGemmnnThreads<0>;
+      break;
+    case 32:
+      kern = &gemmnn_kernel<32>;
+      threads = kGemmnnThreads<32>;
+      break;
+    case 64:
+      kern = &gemmnn_kernel<64>;
+      threads = kGemmnnThreads<64>;
+      break;
+    default:
+      return false;
+  }
+  *kernel = kern;
+  const int smem = tile == 0 ? 0 : kStages * slot_floats(tile) * (int)sizeof(float);
+  *out = {n * gemmnn_pieces(tile, m, q), threads, smem};
+  return true;
+}
+
+bool aligned16(const float* p, long long lane) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0 && lane % 4 == 0;
+}
+
+// Launch `kernel` on n x batch CTAs with `smem` bytes of dynamic shared
+// memory, raising the kernel's limit first (above 48 KB it must be asked for).
+template <typename K, typename... Args>
+int launch_smem(K kernel, int n, int batch, int threads, int smem, void* stream, Args... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(n, batch), threads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry takes, per argument, its grid, the grid's block columns nc, its
+// (n, 2) block indices and its lane stride in elements (the size of one lane
+// of a stacked grid; 0 when batch == 1), then the task count n, the lane count
+// batch, the tile dimensions, the launch shape the wrapper chose and the stream.
+int tile_trsmu(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid, int bnc,
+               const int* bidx, long long blane, int n, int batch, int br, int b, int rows, void* stream) {
+  Launch l;
+  TrsmuKernel kernel;
+  if (bad_args(n, batch, b) || bad_edge(br) || !trsmu_launch(rows, n, br, b, &l, &kernel))
+    return (int)cudaErrorInvalidValue;
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, ugrid, unc, uidx, ulane, bgrid, bnc,
+                     bidx, blane, br, b, x_stride(b));
+}
+
+int tile_gemmnn(const float* ag, int anc, const int* aidx, long long alane, const float* bg, int bnc,
+                const int* bidx, long long blane, float* cg, int cnc, const int* cidx, long long clane, int n,
+                int batch, int m, int k, int q, int tile, void* stream) {
+  Launch l;
+  GemmnnKernel kernel;
+  if (bad_args(n, batch, m) || bad_edge(k) || bad_edge(q) || !gemmnn_launch(tile, n, m, k, q, &l, &kernel))
+    return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(ag, alane) && aligned16(bg, blane) && aligned16(cg, clane) && k % 4 == 0 && q % 4 == 0;
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, ag, anc, aidx, alane, bg, bnc, bidx,
+                     blane, cg, cnc, cidx, clane, m, k, q, vec);
+}
+
+}  // extern "C"

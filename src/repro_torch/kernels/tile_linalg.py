@@ -2,20 +2,24 @@
 versions.
 
 The leaves of the ``"cuda"`` backend (the paper's cuBLAS wrapper analog).
-Nine kernels in ``csrc/tile_linalg.cu`` — POTRF, TRSM, SYRK and GEMM for
-Cholesky; GETRF, TRSML, TRSMU, TRSMUL and GEMMNN for pivot-free LU — each
-serve three forms:
+Nine kernels — POTRF, TRSM, SYRK and GEMM for Cholesky; GETRF, TRSML,
+TRSMU, TRSMUL and GEMMNN for pivot-free LU — each serve three forms.  Seven
+live in ``csrc/tile_linalg.cu`` (one CTA a task); TRSMU and GEMMNN in
+``csrc/tile_lu_sm90.cu``, their own library (``LIBRARY``), which splits a
+task over several CTAs and runs GEMMNN on the tensor cores in 3xTF32; the
+wrapper chooses that split from the group's size (``launch_shape``).  The
+three forms:
 
 - the fused grid form (``grid_*``), the counterpart of the JAX package's
   ``make_grid_fused``: every argument is a resident ``(nr, nc, br, bc)``
   grid plus an ``(n, 2)`` int32 tensor of block indices; the kernel reads
   each task's blocks through them and updates the written argument's grid
-  IN PLACE (one CTA per task; tasks of one call must write distinct blocks
-  that no other task of the call reads, which the planner guarantees);
+  IN PLACE (tasks of one call must write distinct blocks that no other task
+  of the call reads, which the planner guarantees);
 - the stacked grid form, the same call on ``(B, nr, nc, br, bc)`` grids
   (``make_grid_fused``'s ``kernel_stacked``): lane ``b`` of every argument
   is one independent workload, all lanes share the index tensors, and the
-  kernel runs on B x n CTAs;
+  kernel runs the B x n (lane, task) pairs;
 - the batched form (``batched_*``) on ``(n, br, bc)`` stacks, which returns
   a new stack: the wrapper copies the written stack and runs the same
   kernel on it viewed as an ``(n, 1, br, bc)`` grid with identity indices.
@@ -56,6 +60,12 @@ _SIGNATURES = {
 }
 
 MAX_BATCH = 65535  # most lanes of one stacked launch (csrc kMaxBatch, gridDim.y)
+
+# the kernels that cut a task across CTAs (csrc/tile_lu_sm90.cu): their C
+# entries take one launch-shape integer after the tile dimensions
+SPLIT = ("trsmu", "gemmnn")
+# kernel name -> the csrc library that holds its C entry
+LIBRARY = {k: "tile_lu_sm90" if k in SPLIT else "tile_linalg" for k in _SIGNATURES}
 
 # kernel name -> number of launches since the last reset_launches(), of the
 # unstacked forms (4-D grids, batched stacks) and of the stacked grid form
@@ -254,33 +264,65 @@ def _dims(name: str, shapes: Sequence[Tuple[int, int]]) -> Tuple[int, ...]:
     return dims
 
 
+def launch_shape(name: str, shapes: Sequence[Tuple[int, int]], n: int, batch: int, sms: int) -> Tuple[int, ...]:
+    """The launch-shape integers the C entry of ``name`` takes after its tile
+    dimensions, for ``n`` tasks of tile ``shapes`` over ``batch`` lanes on a
+    card of ``sms`` SMs; raises ``ValueError`` as ``_dims`` does.
+
+    TRSMU takes the rows of B one CTA solves: 32, or 16 where 32 would leave
+    SMs without a CTA.  GEMMNN takes its output tile: 0 (the matrix-vector
+    mapping) for q < 8, else 64 (64 x 64 tiles) where those give every SM a
+    CTA, or 32.  The other kernels take none."""
+    dims = _dims(name, shapes)
+    if name == "trsmu":
+        br = dims[0]
+        return (32 if n * batch * -(-br // 32) >= sms else 16,)
+    if name == "gemmnn":
+        m, _, q = dims
+        if q < 8:
+            return (0,)
+        return (64 if n * batch * -(-m // 64) * -(-q // 64) >= sms else 32,)
+    return ()
+
+
 # --------------------------------------------------------------------------
 # Kernel launch
 # --------------------------------------------------------------------------
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C entry tile_<name>(per arg: grid, nc, idx, lane stride; n; batch; dims...; stream)
+# C entry tile_<name>(per arg: grid, nc, idx, lane stride; n; batch; dims...;
+# launch shape (TRSMU, GEMMNN); stream)
 _ARGTYPES = {
-    name: [_VP, _I, _VP, _LL] * arity + [_I] * (2 + n_dims) + [_VP]
+    name: [_VP, _I, _VP, _LL] * arity + [_I] * (2 + n_dims + (name in SPLIT)) + [_VP]
     for name, (arity, n_dims) in _SIGNATURES.items()
 }
 
 
 _FNS: Dict[str, object] = {}
+_SMS: Dict[int, int] = {}  # device index -> its SM count
 
 
 def _kernel_fn(name: str):
-    """The C entry ``tile_<name>``, with its argument types declared (the
+    """The C entry ``tile_<name>``, with its argument types declared (its
     library is built and loaded on first use)."""
     fn = _FNS.get(name)
     if fn is None:
-        lib = _build.load("tile_linalg")
+        lib = _build.load(LIBRARY[name])
         for k, argtypes in _ARGTYPES.items():
-            f = getattr(lib, f"tile_{k}")
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-            _FNS[k] = f
+            if LIBRARY[k] == LIBRARY[name]:
+                f = getattr(lib, f"tile_{k}")
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+                _FNS[k] = f
         fn = _FNS[name]
     return fn
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA ``device``, which ``launch_shape`` takes."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
 
 
 def _lanes(grids: Sequence[torch.Tensor]) -> int:
@@ -340,6 +382,9 @@ def _launch(name: str, idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tenso
     for ix, g in zip(idxs, grids):
         args += [g.data_ptr(), g.shape[-3], ix.data_ptr(), g.stride(0) if stacked else 0]
     batch = grids[0].shape[0] if stacked else 1
+    if name in SPLIT:
+        shapes = [tuple(g.shape[-2:]) for g in grids]
+        dims += launch_shape(name, shapes, n, batch, sm_count(grids[0].device))
     stream = torch.cuda.current_stream(grids[0].device).cuda_stream
     with torch.cuda.device(grids[0].device):
         err = _kernel_fn(name)(*args, n, batch, *dims, stream)

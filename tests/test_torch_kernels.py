@@ -140,23 +140,27 @@ def test_kernel_sources_note_what_they_replace():
     on the card, and one C entry per kernel that reports launch errors."""
     from repro_torch.kernels import _build
 
-    src = (_build.CSRC / "tile_linalg.cu").read_text()
+    # each kernel's C entry lives in the source of its library
+    srcs = {lib: (_build.CSRC / f"{lib}.cu").read_text() for lib in set(tl.LIBRARY.values())}
     for name in ARITY:
+        src = srcs[tl.LIBRARY[name]]
         assert f"_{name}_tile" in src and f"{name}_kernel" in src
         assert f"int tile_{name}(" in src
-    assert src.count("int tile_") == len(tl.LAUNCHES)  # one C entry per kernel
+    # one C entry per kernel
+    assert sum(src.count("int tile_") for src in srcs.values()) == len(tl.LAUNCHES)
 
-    def returns(head):
+    def returns(src, head):
         start = src.index(head)
         return re.findall(r"return ([^;]*);", src[start : src.index("\n}\n", start)])
 
-    # launch_smem raises the shared-memory limit, launches and reports
-    assert returns("int launch_smem(") == ["(int)err", "(int)cudaGetLastError()"]
+    for src in srcs.values():
+        # launch_smem raises the shared-memory limit, launches and reports
+        assert returns(src, "int launch_smem(") == ["(int)err", "(int)cudaGetLastError()"]
+        assert "bound" in src and "sm_90a" in src
     for name in tl.LAUNCHES:
-        *early, last = returns(f"int tile_{name}(")
+        *early, last = returns(srcs[tl.LIBRARY[name]], f"int tile_{name}(")
         assert early == ["(int)cudaErrorInvalidValue"], name  # bad arguments
         assert last == "(int)cudaGetLastError()" or last.startswith("launch_smem("), name
-    assert "bound" in src and "sm_90a" in src
 
 
 def test_tile_edge_limit_is_named():

@@ -217,8 +217,9 @@ def test_shape_contracts_are_checked(name, shapes):
 def test_lu_kernel_sources_note_what_they_replace():
     from repro_torch.kernels import _build
 
-    src = (_build.CSRC / "tile_linalg.cu").read_text()
     for name in ARITY:
+        src = (_build.CSRC / f"{tl.LIBRARY[name]}.cu").read_text()
         assert f"_{name}_tile" in src and f"{name}_kernel(" in src
         assert f"int tile_{name}(" in src
-    assert "__shfl_xor_sync" in src  # TRSML/TRSMUL split a row across a team
+    # TRSML/TRSMUL split a row across a team
+    assert "__shfl_xor_sync" in (_build.CSRC / f"{tl.LIBRARY['trsml']}.cu").read_text()

@@ -1,0 +1,219 @@
+"""The redesigned TRSMU and GEMMNN kernels (``csrc/tile_lu_sm90.cu``) on the
+CPU: emulations of their arithmetic against the JAX package's Pallas
+kernels (interpret mode) on the same numpy inputs, the wrapper's choice of
+launch shape, and the source's notes.  The CUDA kernels themselves run only
+on the card: chip_smoke.py holds them against the plain versions.
+
+Tolerances are tests/test_kernels.py's: GEMMNN 1e-4, TRSMU 2e-3 (atol =
+rtol), the same as chip_smoke.py's ``TOL``."""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.data import dd_matrix
+from repro.kernels import tile_linalg as jtl
+from repro_torch.kernels import _build
+from repro_torch.kernels import tile_linalg as tl
+
+GEMMNN_TOL, TRSMU_TOL = 1e-4, 2e-3
+
+
+def tf32(x: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32``: the float32 mantissa rounded to 10 bits, to
+    nearest with ties away from zero (the low 13 bits cleared)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def gemmnn_tf32(a, b, c, terms: int) -> np.ndarray:
+    """The kernel's C - A B on the tensor cores: each operand splits into
+    big = tf32(x) and small = tf32(x - big); the accumulator starts from -C
+    and per 8-deep step takes small*big, big*small and big*big (``terms`` =
+    3) or big*big alone (1) in float32; the result is its negation.
+    Products of TF32 values are exact in float32."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ab, bb = tf32(a), tf32(b)
+    as_, bs = tf32(a - ab), tf32(b - bb)
+    acc = -np.asarray(c, np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        k = slice(k0, k0 + 8)
+        if terms == 3:
+            acc = acc + as_[:, k] @ bb[k]
+            acc = acc + ab[:, k] @ bs[k]
+        acc = acc + ab[:, k] @ bb[k]
+    return -acc
+
+
+def _tiles(kind: str):
+    """(A, B, C) at 128^3: dd_matrix tiles (the LU's diagonally dominant
+    inputs) or 0.3-scale Gaussian ones (chip_smoke.py's check grids)."""
+    if kind == "dd":
+        return [np.asarray(dd_matrix(128, seed=s)) for s in (1, 2, 3)]
+    rng = np.random.default_rng(7)
+    return [rng.standard_normal((128, 128)).astype(np.float32) * 0.3 for _ in range(3)]
+
+
+def _within(got, want, tol) -> bool:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return bool((np.abs(got - want) <= tol + tol * np.abs(want)).all())
+
+
+@pytest.mark.parametrize("kind", ["dd", "randn"])
+def test_3xtf32_gemmnn_holds_the_fp32_tolerance_and_1xtf32_does_not(kind):
+    a, b, c = _tiles(kind)
+    want = np.asarray(jtl.batched_gemmnn(*(jnp.asarray(x[None]) for x in (a, b, c)), interpret=True))[0]
+    three = gemmnn_tf32(a, b, c, terms=3)
+    np.testing.assert_allclose(three, want, rtol=GEMMNN_TOL, atol=GEMMNN_TOL)
+    assert not _within(gemmnn_tf32(a, b, c, terms=1), want, GEMMNN_TOL)  # why three terms
+
+
+def test_tf32_split_is_round_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0**-10)  # a TF32 ulp at 1
+    x = np.array([one + ulp / 2, one + ulp / 4, -(one + ulp / 2), one + 3 * ulp / 2], np.float32)
+    np.testing.assert_array_equal(tf32(x), [one + ulp, one, -(one + ulp), one + 2 * ulp])
+    y = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    big = tf32(y)
+    assert not (big.view(np.uint32) & np.uint32(0x1FFF)).any()
+    rest = y - big
+    assert np.abs(rest - tf32(rest)).max() <= 2.0**-22 * np.abs(y).max()
+
+
+def trsmu_blocked(u: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
+    """The kernel's order for X = B inv(U): column blocks of ``width``; each
+    block first takes X_J -= X_{<J} U_{<J,J}, then a right-looking
+    substitution inside the block (scale column j by 1 / U[j, j], subtract it
+    from the block's later columns).  Reads only U's upper triangle."""
+    u, x = u.float(), b.float().clone()
+    n = u.shape[-1]
+    for j0 in range(0, n, width):
+        j1 = min(j0 + width, n)
+        x[..., j0:j1] -= x[..., :j0] @ u[..., :j0, j0:j1]
+        for j in range(j0, j1):
+            x[..., j] *= 1.0 / u[..., j, j, None]
+            x[..., j + 1 : j1] -= x[..., j, None] * u[..., j, None, j + 1 : j1]
+    return x
+
+
+def _packed(rng, n, b):
+    """Packed L\\U of column-diagonally-dominant tiles (chip_smoke.py's
+    ``packed_lu_tiles``): the strictly-lower part is L's junk."""
+    m = rng.standard_normal((n, b, b))
+    m /= np.abs(m).sum(axis=1, keepdims=True) * 1.5
+    m[:, np.arange(b), np.arange(b)] = 1.0 + rng.uniform(0.0, 1.0, (n, b))
+    for k in range(b):
+        m[:, k + 1 :, k] /= m[:, k, k, None]
+        m[:, k + 1 :, k + 1 :] -= m[:, k + 1 :, k, None] * m[:, k, None, k + 1 :]
+    return m.astype(np.float32)
+
+
+@pytest.mark.parametrize("width", [16, 32])
+@pytest.mark.parametrize("br,b", [(1, 40), (5, 24), (40, 40), (24, 33)])
+def test_blocked_trsmu_order_matches_pallas(width, br, b):
+    rng = np.random.default_rng(br * 131 + b)
+    u = _packed(rng, 2, b)
+    rhs = rng.standard_normal((2, br, b)).astype(np.float32) * 0.3
+    want = np.asarray(jtl.batched_trsmu(jnp.asarray(u), jnp.asarray(rhs), interpret=True))
+    got = trsmu_blocked(torch.from_numpy(u), torch.from_numpy(rhs), width)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TRSMU_TOL, atol=TRSMU_TOL)
+    # the strictly-lower junk is never read
+    junk = torch.from_numpy(u) + torch.tril(torch.full((b, b), 7.0), -1)
+    torch.testing.assert_close(trsmu_blocked(junk, torch.from_numpy(rhs), width), got, rtol=0, atol=0)
+
+
+SQ = [(128, 128)] * 3
+H100_SMS = 132
+
+
+def ctas(name, tiles, n, lanes, shape):
+    """CTAs a launch of ``n`` tasks over ``lanes`` lanes makes at launch shape
+    ``shape``: TRSMU's row pieces of B, GEMMNN's output tiles (32 rows a
+    matrix-vector CTA)."""
+    m = tiles[-1][0]
+    if name == "trsmu":
+        return n * lanes * -(-m // shape)
+    q = tiles[-1][1]
+    return n * lanes * (-(-m // 32) if shape == 0 else -(-m // shape) * -(-q // shape))
+
+
+def test_small_gemmnn_groups_fill_the_card():
+    """A 4-task 128^3 group (the LU solve's) runs on >= 64 CTAs of 32^2; 64^2
+    tiles only where they give every SM a CTA (the LU plan's 961-task group:
+    3844 of them)."""
+    for n, lanes, shape, want in ((4, 1, 32, 64), (31, 1, 32, 496), (33, 1, 64, 132), (961, 1, 64, 3844),
+                                  (49, 64, 64, 12544)):  # the last: the served 49 x 64 lanes
+        assert tl.launch_shape("gemmnn", SQ, n, lanes, H100_SMS) == (shape,)
+        assert ctas("gemmnn", SQ, n, lanes, shape) == want
+    assert tl.launch_shape("gemmnn", SQ, 33, 1, 200) == (32,)  # a card with more SMs
+
+
+@pytest.mark.parametrize("q", [1, 3, 7])
+def test_narrow_gemmnn_takes_the_matrix_vector_mapping(q):
+    tiles = [(128, 128), (128, q), (128, q)]
+    assert tl.launch_shape("gemmnn", tiles, 31, 1, H100_SMS) == (0,)
+    assert ctas("gemmnn", tiles, 31, 1, 0) == 31 * 4  # 32 rows a CTA
+    assert tl.launch_shape("gemmnn", [(128, 128), (128, 8), (128, 8)], 31, 1, H100_SMS) != (0,)
+
+
+def test_trsmu_splits_rows_across_ctas():
+    tiles = [(128, 128), (128, 128)]
+    assert tl.launch_shape("trsmu", tiles, 31, 1, H100_SMS) == (16,)
+    assert ctas("trsmu", tiles, 31, 1, 16) == 248
+    assert tl.launch_shape("trsmu", tiles, 7, 64, H100_SMS) == (32,)  # the served 7 x 64 lanes
+    assert ctas("trsmu", tiles, 7, 64, 32) == 1792
+
+
+@pytest.mark.parametrize("n,lanes", [(1, 1), (4, 1), (31, 1), (961, 1), (3, 64), (200, 3)])
+@pytest.mark.parametrize("edge", [1, 8, 40, 96, 128])
+def test_launch_shapes_are_ones_the_c_launchers_take(n, lanes, edge):
+    (rows,) = tl.launch_shape("trsmu", [(96, 96), (edge, 96)], n, lanes, H100_SMS)
+    assert rows in (16, 32)
+    for q in (1, 7, 8, edge):
+        tiles = [(edge, 96), (96, q), (edge, q)]
+        (tile,) = tl.launch_shape("gemmnn", tiles, n, lanes, H100_SMS)
+        assert tile in (32, 64) or (tile == 0 and q < 8)
+        assert ctas("gemmnn", tiles, n, lanes, tile) >= n * lanes
+
+
+@pytest.mark.parametrize("edge", [0, 129])
+def test_launch_shape_refuses_edges_outside_the_limit(edge):
+    with pytest.raises(ValueError, match="limit"):
+        tl.launch_shape("trsmu", [(8, 8), (edge, 8)], 4, 1, H100_SMS)
+    with pytest.raises(ValueError, match="limit"):
+        tl.launch_shape("gemmnn", [(8, 8), (8, edge), (8, edge)], 4, 1, H100_SMS)
+    with pytest.raises(ValueError, match="limit"):
+        tl.grid_gemmnn([torch.zeros(1, 2, dtype=torch.int32)] * 3,
+                       [torch.zeros((1, 1, 8, 8)), torch.zeros((1, 1, 8, edge)), torch.zeros((1, 1, 8, edge))])
+
+
+def test_lu_sm90_source_notes_what_it_replaces():
+    """The new source names the TPU kernels it replaces and what bounds them,
+    runs GEMMNN as 3xTF32 on the tensor cores with cp.async staging, takes
+    the wrapper's launch shape, and reports launch errors."""
+    src = (_build.CSRC / "tile_lu_sm90.cu").read_text()
+    assert {k for k, lib in tl.LIBRARY.items() if lib == "tile_lu_sm90"} == {"trsmu", "gemmnn"}
+    for name in ("trsmu", "gemmnn"):
+        assert f"_{name}_tile" in src and f"batched_{name}" in src and f"{name}_kernel(" in src
+    for word in ("bound", "sm_90a", "mma.sync.aligned.m16n8k8", "0x1000u) & 0xffffe000u", "cp.async", "__shfl_sync"):
+        assert word in src, word
+    assert "atomic" not in src.replace("atomics", "")  # deterministic: no atomics
+
+    def entry(name):
+        start = src.index(f"int tile_{name}(")
+        return src[start : src.index("\n}\n", start)]
+
+    for name in ("trsmu", "gemmnn"):
+        body = entry(name)
+        *early, last = re.findall(r"return ([^;]*);", body)
+        assert early == ["(int)cudaErrorInvalidValue"] and last.startswith("launch_smem("), name
+        # one ctypes argument a C parameter: grids, nc, idx, lane stride; n, batch, dims, shape, stream
+        params = body[body.index("(") + 1 : body.index(")")].split(",")
+        assert len(params) == len(tl._ARGTYPES[name]), name
+        assert sum("long long" in p for p in params) == tl._SIGNATURES[name][0], name
+    head = src[src.index("int launch_smem("):]
+    assert re.findall(r"return ([^;]*);", head[: head.index("\n}\n")]) == ["(int)err", "(int)cudaGetLastError()"]
+    assert "blockIdx.y * lane" in src and "kMaxBatch = 65535" in src

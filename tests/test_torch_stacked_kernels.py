@@ -137,10 +137,13 @@ def test_stacked_kernel_source_takes_a_lane_dimension():
     stride; CTAs run on (task, lane) with the lane on blockIdx.y."""
     from repro_torch.kernels import _build
 
-    src = (_build.CSRC / "tile_linalg.cu").read_text()
-    assert "kernel_stacked" in src and "blockIdx.y * lane" in src
-    assert src.count("dim3(n, batch)") >= 2 and "kMaxBatch = 65535" in src
+    srcs = {lib: (_build.CSRC / f"{lib}.cu").read_text() for lib in set(tl.LIBRARY.values())}
+    for src in srcs.values():
+        assert "kernel_stacked" in src and "blockIdx.y * lane" in src
+        assert "dim3(n, batch)" in src and "kMaxBatch = 65535" in src
+    assert srcs["tile_linalg"].count("dim3(n, batch)") >= 2
     for name in TOL:
+        src = srcs[tl.LIBRARY[name]]
         head = src[src.index(f"int tile_{name}("): src.index("{", src.index(f"int tile_{name}("))]
         assert head.count("long long") == tl._SIGNATURES[name][0] and "int batch" in head, name
     assert tl.MAX_BATCH == 65535
