@@ -10,8 +10,8 @@ over 64 lanes), under each output tile the wrapper may choose.
 Each variant is the committed source with code removed, never added:
 
 - ``full``: the kernel as committed;
-- ``no_products``: no mma (the operand splits then go too): staging, C in
-  and out;
+- ``no_products``: no mma and no promotion of the partials (the operand
+  splits then go too): staging, C in and out;
 - ``c_only``: ``no_products`` without the A/B staging: C read and written;
 - ``ab_only``: ``no_products`` without reading C: A/B staged, C written.
 
@@ -32,9 +32,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 MMA_LOOP = re.compile(r"#pragma unroll\n\s*for \(int i = 0; i < FM; \+\+i\)\n#pragma unroll\n\s*for \(int j = 0; j < FN; "
-                      r"\+\+j\) mma_tf32\(acc\[i\]\[j\], \w+\[i\], \w+\[j\]\);\n")
-STAGING = re.compile(r"if \((?:ch|next) < nchunks\) stage_chunk<kTile>\([^;]*;")
-C_READ = re.compile(r"if \(vec\) \{  // q even: a pair is all in or all out\n.*?\n        \}\n", re.S)
+                      r"\+\+j\) mma_tf32(?:<[^>]*>)?\(part\[i\]\[j\], \w+\[i\], \w+\[j\]\);\n")
+PROMOTE = re.compile(r"promote\(acc, part\);")
+STAGING = re.compile(r"if \((?:ch|next) < nchunks\)\s*stage_chunk<kTile, kBT>\([^;]*;")
+C_READ = re.compile(r"if \(vec\) \{(?:  //[^\n]*)?\n\s*if \(r < m && c < q\) cv = [^\n]*\n\s*\} else \{\n[^\n]*\n[^\n]*\n\s*\}\n")
 
 
 def cut(src: str, pattern: re.Pattern, count: int, repl: str = "") -> str:
@@ -45,7 +46,7 @@ def cut(src: str, pattern: re.Pattern, count: int, repl: str = "") -> str:
 
 
 def variants(src: str) -> dict:
-    no_products = cut(src, MMA_LOOP, 3)
+    no_products = cut(cut(src, MMA_LOOP, 3), PROMOTE, 1)
     return {
         "full": src,
         "no_products": no_products,

@@ -1,13 +1,11 @@
-// Hand-written Hopper (sm_90a) kernels for seven of the nine tile bodies of
-// blocked Cholesky and pivot-free LU (TRSMU and GEMMNN, redesigned, are in
-// tile_lu_sm90.cu).
+// Hand-written Hopper (sm_90a) kernels for five of the nine tile bodies of
+// blocked Cholesky and pivot-free LU (GETRF, TRSMU, SYRK and GEMMNN,
+// redesigned, are in tile_lu_sm90.cu).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tile_linalg.py:
 //   potrf_kernel   <- _potrf_tile  / batched_potrf  / grid_potrf
 //   trsm_kernel    <- _trsm_tile   / batched_trsm   / grid_trsm
-//   syrk_kernel    <- _syrk_tile   / batched_syrk   / grid_syrk
 //   gemm_kernel    <- _gemm_tile   / batched_gemm   / grid_gemm
-//   getrf_kernel   <- _getrf_tile  / batched_getrf  / grid_getrf
 //   trsml_kernel   <- _trsml_tile  / batched_trsml  / grid_trsml
 //   trsmul_kernel  <- _trsmul_tile / batched_trsmul / grid_trsmul
 // and the fused gather/compute/scatter entry make_grid_fused, in both its
@@ -23,8 +21,8 @@
 // b * lane_stride elements from the base of each argument's grid, and all
 // B lanes share one index array.  The unstacked form is batch = 1.  A
 // stacked drain's lanes are whole independent workloads, so one launch of
-// B * n CTAs turns the small groups of a single drain (one POTRF or GETRF
-// per panel) into B-wide launches without new bodies.
+// B * n CTAs turns the small groups of a single drain (one POTRF per
+// panel) into B-wide launches without new bodies.
 //
 // One CTA per (lane, task).  Tasks of one launch are independent (the
 // planner's V3/V4 invariants: no task writes a block another task of the
@@ -41,17 +39,14 @@
 //   and runs the recurrence over shared memory.  At b = 128 this needs
 //   66 KB (POTRF) and 132 KB (TRSM) of dynamic shared memory, above the
 //   48 KB default, so the launcher raises the limit first.
-// - GETRF, TRSML and TRSMUL are the LU family's recurrences, latency
-//   bound for the same reason (one GETRF per panel; at most nr TRSMs of
-//   each kind per group).  GETRF keeps the tile in shared memory and spreads
-//   each step's rank-1 update of the trailing block over all 256 threads.
-//   TRSML and TRSMUL are row recurrences whose columns are independent; a right-hand
+// - TRSML and TRSMUL are the LU family's triangular solves, latency
+//   bound for the same reason (at most nr of each kind per group).  They
+//   are row recurrences whose columns are independent; a right-hand
 //   side may be a single column (a blocked vector), so each column gets a
 //   team of g lanes (g = 32 for one column, 2 for 128) that split each
 //   row's inner product and reduce it with warp shuffles.
-// - GEMM and SYRK (C -= A B^T, C -= A A^T; fp32) are the bulk of the
-//   Cholesky FLOPs.  At b = 128 one task alone moves 4 tiles (256 KB)
-//   for 4.2 MFLOP, 16 FLOP/byte, just below the card's fp32 ridge
+// - GEMM (C -= A B^T; fp32) is the bulk of the Cholesky FLOPs.  At
+//   b = 128 one task alone moves 4 tiles (256 KB) for 4.2 MFLOP, 16 FLOP/byte, just below the card's fp32 ridge
 //   (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte); but the tasks of a group
 //   share their A and B blocks, so a large group, each distinct block
 //   counted once, is bound by operations.  The kernel stages 32-deep K
@@ -70,8 +65,8 @@
 namespace {
 
 constexpr int kMaxB = 128;     // largest tile edge the kernels accept
-constexpr int kKC = 32;        // K chunk of the GEMM/SYRK shared-memory stage
-constexpr int kThreads = 256;  // threads of the GETRF, TRSML/TRSMUL and GEMM-family CTAs
+constexpr int kKC = 32;        // K chunk of the GEMM shared-memory stage
+constexpr int kThreads = 256;  // threads of the TRSML/TRSMUL and GEMM CTAs
 constexpr int kMaxBatch = 65535;  // lanes of a stacked launch: gridDim.y's limit
 
 // Element offset of this CTA's block: lane blockIdx.y of a stacked grid
@@ -153,34 +148,6 @@ __global__ void trsm_kernel(const float* lgrid, int lnc, const int* lidx, long l
 }
 
 // ---------------------------------------------------------------------------
-// GETRF: pivot-free right-looking LU of one tile, L\U packed (_getrf_tile).
-// Step k scales column k below the pivot, then applies the rank-1 update
-// T[i][j] -= T[i][k] T[k][j] to the trailing (b-k-1)^2 block, a warp per
-// row and its lanes along the row (conflict-free; T[i][k] is a broadcast).
-// Two barriers per step; the tile never leaves shared memory.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-getrf_kernel(float* grid, int nc, const int* idx, long long lane_stride, int b) {
-  extern __shared__ float T[];
-  const int ld = b + 1;
-  float* tile = grid + block_offset(idx, blockIdx.x, nc, b, b, lane_stride);
-  for (int e = threadIdx.x; e < b * b; e += kThreads) T[(e / b) * ld + e % b] = tile[e];
-  __syncthreads();
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int k = 0; k < b; ++k) {
-    const float piv = T[k * ld + k];
-    for (int i = k + 1 + threadIdx.x; i < b; i += kThreads) T[i * ld + k] /= piv;
-    __syncthreads();
-    for (int i = k + 1 + warp; i < b; i += kThreads / 32) {
-      const float l = T[i * ld + k];
-      for (int j = k + 1 + lane; j < b; j += 32) T[i * ld + j] -= l * T[k * ld + j];
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < b * b; e += kThreads) tile[e] = T[(e / b) * ld + e % b];
-}
-
-// ---------------------------------------------------------------------------
 // TRSML / TRSMUL: X = inv(L) B with L unit-lower (_trsml_tile), or
 // X = inv(U) B with U non-unit upper, bottom-up (_trsmul_tile); B is
 // (b, bc).  Row recurrence, columns independent:
@@ -245,8 +212,8 @@ trsmul_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, flo
 }
 
 // ---------------------------------------------------------------------------
-// GEMM / SYRK: C (m x q) -= A (m x kd) B^T with B (q x kd) row-major (SYRK
-// with B = A; square tiles, m == kd == q).  256 threads as a 16 x 16 grid;
+// GEMM: C (m x q) -= A (m x kd) B^T with B (q x kd) row-major (square
+// tiles, m == kd == q).  256 threads as a 16 x 16 grid;
 // thread (tx, ty) owns C[ty + 16 i][tx + 16 j] for i, j < R.
 // ---------------------------------------------------------------------------
 template <int R>
@@ -299,14 +266,6 @@ gemm_kernel(const float* ag, int anc, const int* aidx, long long alane, const fl
   update_tile<R>(ag + block_offset(aidx, blockIdx.x, anc, b, b, alane),
                  bg + block_offset(bidx, blockIdx.x, bnc, b, b, blane),
                  cg + block_offset(cidx, blockIdx.x, cnc, b, b, clane), b, b, b);
-}
-
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-syrk_kernel(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc,
-            const int* cidx, long long clane, int b) {
-  const float* a = ag + block_offset(aidx, blockIdx.x, anc, b, b, alane);
-  update_tile<R>(a, a, cg + block_offset(cidx, blockIdx.x, cnc, b, b, clane), b, b, b);
 }
 
 int row_threads(int b) { return ((b + 31) / 32) * 32; }
@@ -372,14 +331,6 @@ int tile_trsm(const float* lgrid, int lnc, const int* lidx, long long llane, flo
     default: KERNEL<8><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;   \
   }
 
-int tile_syrk(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc,
-              const int* cidx, long long clane, int n, int batch, int b, void* stream) {
-  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  TILE_DISPATCH(syrk_kernel, b, ag, anc, aidx, alane, cg, cnc, cidx, clane, b)
-  return (int)cudaGetLastError();
-}
-
 int tile_gemm(const float* ag, int anc, const int* aidx, long long alane, const float* bg,
               int bnc, const int* bidx, long long blane, float* cg, int cnc, const int* cidx,
               long long clane, int n, int batch, int b, void* stream) {
@@ -387,13 +338,6 @@ int tile_gemm(const float* ag, int anc, const int* aidx, long long alane, const 
   cudaStream_t s = (cudaStream_t)stream;
   TILE_DISPATCH(gemm_kernel, b, ag, anc, aidx, alane, bg, bnc, bidx, blane, cg, cnc, cidx, clane, b)
   return (int)cudaGetLastError();
-}
-
-int tile_getrf(float* grid, int nc, const int* idx, long long lane, int n, int batch, int b,
-               void* stream) {
-  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
-  return launch_smem(getrf_kernel, n, batch, kThreads, padded_bytes(b, b), stream, grid, nc, idx,
-                     lane, b);
 }
 
 int tile_trsml(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid,

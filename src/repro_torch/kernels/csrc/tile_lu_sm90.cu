@@ -1,9 +1,12 @@
-// Hand-written Hopper (sm_90a) kernels for two of the LU family's tile
-// bodies, redesigned from the simple one-CTA-per-task kernels of
-// tile_linalg.cu (whose other seven kernels stay there, unchanged).
+// Hand-written Hopper (sm_90a) kernels for four of the tile bodies of
+// blocked Cholesky and pivot-free LU, redesigned from the simple
+// one-CTA-per-task kernels of tile_linalg.cu (whose other five kernels stay
+// there, unchanged).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tile_linalg.py:
+//   getrf_kernel   <- _getrf_tile  / batched_getrf  / grid_getrf
 //   trsmu_kernel   <- _trsmu_tile  / batched_trsmu  / grid_trsmu
+//   syrk_kernel    <- _syrk_tile   / batched_syrk   / grid_syrk
 //   gemmnn_kernel  <- _gemmnn_tile / batched_gemmnn / grid_gemmnn
 // in the three forms of tile_linalg.cu: the fused grid form (make_grid_fused's
 // kernel: blocks read through (n, 2) int32 indices, the written block updated
@@ -17,6 +20,27 @@
 // what another reads or writes: nothing needs atomics, and every result is
 // deterministic (a stacked padding lane equals the lane it copies, bit for
 // bit).  All arguments may point into one grid, so no pointer is __restrict__.
+//
+// GETRF: pivot-free right-looking LU of one b x b tile, L\U packed in place.
+// What bounds it on H100: latency.  Its bytes (0.00004 ms a tile) and FLOPs
+// (1.4 M) are nothing; its b steps are a dependent chain, each a column
+// division and a rank-1 update of the trailing block.  The simple kernel kept
+// the tile in shared memory: every update a dependent shared load, FMA and
+// store, two CTA barriers a step.  The design:
+// - the tile lives in registers: 512 threads, thread (warp w, lane) holding
+//   rows w + 16 i (i < 8) and columns lane + 32 j (j < 4), so every thread
+//   keeps work as the trailing block shrinks, and a warp holds whole rows;
+// - one CTA barrier a step.  Row k, with the pivot, sits in a shared vector
+//   double-buffered by the step's parity: the warp that owns row k + 1 writes
+//   it into the other buffer right after its update of step k, so a single
+//   barrier both publishes it and retires the buffer step k - 1 read;
+// - column k never leaves its warp: lane i takes row w + 16 i's entry from
+//   the owner lane k % 32 by shuffle, divides it by the pivot (the
+//   reference's division, once a row), and shuffles it back to every lane;
+// - the update a[i][j] -= l[i] u[j] is a branch-free FMA over the registers
+//   that can still change (l and u are zero at and above step k); each 32-step
+//   block of pivots is its own instantiation, so the owner's register column
+//   is a constant and the finished rows and columns drop out.  fp32 FMAs only.
 //
 // TRSMU: X = B inv(U), U (b x b) non-unit upper, B (br x b), in place.  U's
 // strictly-lower part is L's junk of a packed L\U block and is never read.
@@ -62,13 +86,24 @@
 //   give every SM a CTA, else 32^2 (the 961-task group: 3844 tiles of 64^2; a
 //   4-task group: 64 of 32^2).  A 128^2 tile (8 warps, 240 registers, one CTA
 //   an SM) was slower than 64^2 at every group size measured;
-// - the accumulator starts from -C, loaded before the first product so that
-//   its latency hides under the staging, and -(-C + A B) is stored: C - A B
-//   in one pass, the signs flipped exactly;
+// - the sum kept apart from C.  The tensor cores' fp32 accumulation is not
+//   round-to-nearest: an mma aligns its products to the largest addend and
+//   truncates.  Started from -C, every mma of a task dropped the products'
+//   low bits against C's exponent (on the LU's dd blocks a trailing update's
+//   products are ~1e-12 against entries up to ~1.5), and the LU's 31 updates
+//   of a block added the bias up: 28x the fp32 FMA kernel's error on the
+//   LU.  One accumulator over a 128-deep product also truncates 48 times,
+//   which leaves a Gaussian 128^3 tile ~3x torch.matmul's fp32 error; the
+//   split alone stays below it.  (scripts/tf32_error_sources.py measures
+//   each source on the card.)  So each 8-deep step's three mmas start from
+//   zero, their partial (24 products) is added into an fp32 sum with
+//   __fadd_rn, and C - sum is taken once in the epilogue, rounded to
+//   nearest: a tile's error sits below torch.matmul's, and the LU's matches
+//   the fp32 FMA kernel's;
 // - A's rows and B's columns of the tile staged in 32-deep chunks by cp.async
 //   into a ring of 3 slots in shared memory, a commit group a chunk: chunk
 //   c + 2 loads while chunk c computes, and one barrier a chunk both publishes
-//   chunk c and frees chunk c - 1's slot (55 KB for a 64^2 tile; its 165
+//   chunk c and frees chunk c - 1's slot (55 KB for a 64^2 tile; its ~160
 //   registers a thread let three such CTAs share an SM, so one CTA's products
 //   overlap another's loads; four spill).  16-byte copies where every row is
 //   16-byte aligned, 4-byte ones otherwise; zero fill masks the ragged edges
@@ -78,6 +113,16 @@
 // - q < 8 (a blocked vector): no tensor-core tile.  A matrix-vector mapping: a
 //   warp per row of C, its lanes over k in full fp32, reduced by xor shuffles
 //   in a fixed order; 32 rows a CTA.
+//
+// SYRK: C (b x b) -= A A^T, the full square (no mirroring: the same function
+// as the reference).  The simple kernel ran one CTA a task (the Cholesky
+// plan's 31-task group on 31 of 132 SMs) in fp32 FMAs behind synchronous
+// staging.  Now it is GEMMNN's tile with B = A^T: the mma's row.col B operand
+// is A's own rows, staged by the same cp.async path as A (no transpose), and
+// the same output split (launch_shape: the 31-task group as 496 CTAs of
+// 32^2, the served 7 x 64 group as 1792 of 64^2) and accumulation.  What
+// bounds it: like GEMMNN, bytes for large groups, filling the card for
+// small ones.
 //
 // Every entry point returns cudaGetLastError() (0 = launched); the Python
 // wrapper raises on anything else, since a refused launch never runs and a
@@ -215,9 +260,13 @@ struct MmaShape<64> {
   static constexpr int kWarpsM = 2, kWarpsN = 2, kFragsM = 2, kFragsN = 4;
 };
 
-// floats of one ring slot: A's kTile x kKC chunk and B's kKC x kTile one
-// (B's row stride kTile + 8 = 8 (mod 16) words: conflict-free fragment loads)
-__host__ __device__ constexpr int slot_floats(int tile) { return tile * kLdA + kKC * (tile + 8); }
+// floats of one ring slot: A's kTile x kKC chunk, then B's: a kKC x kTile
+// chunk of B (row stride kTile + 8 = 8 (mod 16) words: conflict-free fragment
+// loads), or for SYRK (bt: B = A^T, read from A's rows) a kTile x kKC chunk
+// of rows laid out as A's
+__host__ __device__ constexpr int slot_floats(int tile, bool bt) {
+  return tile * kLdA + (bt ? tile * kLdA : kKC * (tile + 8));
+}
 
 // threads of a GEMMNN CTA; tile 0 is the matrix-vector mapping
 template <int kTile>
@@ -238,12 +287,21 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   small = tf32_rna(x - __uint_as_float(big));
 }
 
-// d += a b on one m16n8k8 fragment, TF32 inputs, fp32 accumulate
+// d += a b on one m16n8k8 fragment, TF32 inputs, fp32 accumulate (kFresh:
+// d = a b, the product alone from a zero accumulator)
+template <bool kFresh = false>
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  if constexpr (kFresh) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%10, %10, %10, %10};"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+  } else {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
 }
 
 // cp.async of 16 or 4 bytes; when !valid nothing is read and dst is zeroed
@@ -262,9 +320,10 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 
 // Stage K rows [k0, k0 + kKC) of the tile's operands into one ring slot:
-// As[r][kk - k0] = A[m0 + r][kk], Bs[kk - k0][c] = B[kk][n0 + c], zero past
-// m, k and q.
-template <int kTile>
+// As[r][kk - k0] = A[m0 + r][kk], and Bs[kk - k0][c] = B[kk][n0 + c] or, for
+// kBT (B = Bt^T with Bt (q x k) row-major: SYRK's A^T), Bs[c][kk - k0] =
+// Bt[n0 + c][kk]; zero past m, k and q.
+template <int kTile, bool kBT>
 __device__ __forceinline__ void stage_chunk(float* As, float* Bs, const float* A, const float* Bm, int m, int k,
                                             int q, int m0, int n0, int k0, bool vec) {
   constexpr int kThreads = kGemmnnThreads<kTile>, lda = kLdA, ldb = kTile + 8;
@@ -275,10 +334,18 @@ __device__ __forceinline__ void stage_chunk(float* As, float* Bs, const float* A
       const bool ok = m0 + r < m && k0 + kk < k;
       cp_async16(As + r * lda + kk, ok ? A + (m0 + r) * k + k0 + kk : A, ok);
     }
-    for (int e = threadIdx.x; e < kKC * qb; e += kThreads) {
-      const int kk = e / qb, c = 4 * (e % qb);
-      const bool ok = k0 + kk < k && n0 + c < q;
-      cp_async16(Bs + kk * ldb + c, ok ? Bm + (k0 + kk) * q + n0 + c : Bm, ok);
+    if constexpr (kBT) {
+      for (int e = threadIdx.x; e < kTile * qa; e += kThreads) {
+        const int r = e / qa, kk = 4 * (e % qa);
+        const bool ok = n0 + r < q && k0 + kk < k;
+        cp_async16(Bs + r * lda + kk, ok ? Bm + (n0 + r) * k + k0 + kk : Bm, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kKC * qb; e += kThreads) {
+        const int kk = e / qb, c = 4 * (e % qb);
+        const bool ok = k0 + kk < k && n0 + c < q;
+        cp_async16(Bs + kk * ldb + c, ok ? Bm + (k0 + kk) * q + n0 + c : Bm, ok);
+      }
     }
   } else {
     for (int e = threadIdx.x; e < kTile * kKC; e += kThreads) {
@@ -286,60 +353,72 @@ __device__ __forceinline__ void stage_chunk(float* As, float* Bs, const float* A
       const bool ok = m0 + r < m && k0 + kk < k;
       cp_async4(As + r * lda + kk, ok ? A + (m0 + r) * k + k0 + kk : A, ok);
     }
-    for (int e = threadIdx.x; e < kKC * kTile; e += kThreads) {
-      const int kk = e / kTile, c = e % kTile;
-      const bool ok = k0 + kk < k && n0 + c < q;
-      cp_async4(Bs + kk * ldb + c, ok ? Bm + (k0 + kk) * q + n0 + c : Bm, ok);
+    if constexpr (kBT) {
+      for (int e = threadIdx.x; e < kTile * kKC; e += kThreads) {
+        const int r = e / kKC, kk = e % kKC;
+        const bool ok = n0 + r < q && k0 + kk < k;
+        cp_async4(Bs + r * lda + kk, ok ? Bm + (n0 + r) * k + k0 + kk : Bm, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kKC * kTile; e += kThreads) {
+        const int kk = e / kTile, c = e % kTile;
+        const bool ok = k0 + kk < k && n0 + c < q;
+        cp_async4(Bs + kk * ldb + c, ok ? Bm + (k0 + kk) * q + n0 + c : Bm, ok);
+      }
     }
   }
 }
 
-// One kTile x kTile tile of C -= A B on the tensor cores, 3xTF32.
-template <int kTile>
-__device__ __forceinline__ void gemmnn_mma(const float* A, const float* Bm, float* C, int m, int k, int q,
-                                           int piece, bool vec) {
-  using S = MmaShape<kTile>;
-  constexpr int FM = S::kFragsM, FN = S::kFragsN;
-  constexpr int lda = kLdA, ldb = kTile + 8;
-  extern __shared__ __align__(16) float smem[];  // kStages slots: As (kTile x lda), then Bs (kKC x ldb)
-  const int tiles_n = (q + kTile - 1) / kTile;
-  const int m0 = piece / tiles_n * kTile, n0 = piece % tiles_n * kTile;
-  const int nchunks = (k + kKC - 1) / kKC;
-  auto slot = [&](int ch) { return smem + ch % kStages * slot_floats(kTile); };
-  // chunks 0 and 1 in flight before the first wait; every iteration commits
-  // one group (empty past the last chunk), so chunk ch is always the group
-  // before the newest: wait_group 1
-  for (int ch = 0; ch < kStages - 1; ++ch) {
-    if (ch < nchunks) stage_chunk<kTile>(slot(ch), slot(ch) + kTile * lda, A, Bm, m, k, q, m0, n0, ch * kKC, vec);
-    cp_async_commit();
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wm0 = warp % S::kWarpsM * FM * 16, wn0 = warp / S::kWarpsM * FN * 8;
-  // acc[i][j][h] = -C - A B at row wm0 + 16 i + g + 8 (h / 2), column
-  // wn0 + 8 j + 2 t + h % 2
-  float acc[FM][FN][4];
+// sum += part, rounded to nearest
+template <int FM, int FN>
+__device__ __forceinline__ void promote(float (&sum)[FM][FN][4], const float (&part)[FM][FN][4]) {
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
     for (int j = 0; j < FN; ++j)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = m0 + wm0 + 16 * i + g + 8 * hh, c = n0 + wn0 + 8 * j + 2 * t;
-        float2 v = make_float2(0.f, 0.f);
-        if (vec) {  // q even: a pair is all in or all out
-          if (r < m && c < q) v = *reinterpret_cast<const float2*>(C + r * q + c);
-        } else {
-          if (r < m && c < q) v.x = C[r * q + c];
-          if (r < m && c + 1 < q) v.y = C[r * q + c + 1];
-        }
-        acc[i][j][2 * hh] = -v.x;
-        acc[i][j][2 * hh + 1] = -v.y;
-      }
+      for (int h = 0; h < 4; ++h) sum[i][j][h] = __fadd_rn(sum[i][j][h], part[i][j][h]);
+}
+
+// One kTile x kTile tile of C -= A B on the tensor cores, 3xTF32 (kBT: B =
+// Bt^T, staged from Bt's rows).
+template <int kTile, bool kBT>
+__device__ __forceinline__ void gemmnn_mma(const float* A, const float* Bm, float* C, int m, int k, int q,
+                                           int piece, bool vec) {
+  using S = MmaShape<kTile>;
+  constexpr int FM = S::kFragsM, FN = S::kFragsN;
+  constexpr int lda = kLdA, ldb = kTile + 8;
+  extern __shared__ __align__(16) float smem[];  // kStages slots: As (kTile x lda), then Bs
+  const int tiles_n = (q + kTile - 1) / kTile;
+  const int m0 = piece / tiles_n * kTile, n0 = piece % tiles_n * kTile;
+  const int nchunks = (k + kKC - 1) / kKC;
+  auto slot = [&](int ch) { return smem + ch % kStages * slot_floats(kTile, kBT); };
+  // chunks 0 and 1 in flight before the first wait; every iteration commits
+  // one group (empty past the last chunk), so chunk ch is always the group
+  // before the newest: wait_group 1
+  for (int ch = 0; ch < kStages - 1; ++ch) {
+    if (ch < nchunks)
+      stage_chunk<kTile, kBT>(slot(ch), slot(ch) + kTile * lda, A, Bm, m, k, q, m0, n0, ch * kKC, vec);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wm0 = warp % S::kWarpsM * FM * 16, wn0 = warp / S::kWarpsM * FN * 8;
+  // fragment (i, j) element h: row wm0 + 16 i + g + 8 (h / 2), column
+  // wn0 + 8 j + 2 t + h % 2 of the tile.  acc holds the fp32 sum of A B so
+  // far; part, the tensor cores' partial of the current 8-deep step
+  float acc[FM][FN][4], part[FM][FN][4];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[i][j][h] = 0.f;
   for (int ch = 0; ch < nchunks; ++ch) {
     asm volatile("cp.async.wait_group 1;" ::: "memory");
     __syncthreads();  // chunk ch has landed, and every warp is done with chunk ch - 1's slot
     const int next = ch + kStages - 1;  // into the slot chunk ch - 1 left
-    if (next < nchunks) stage_chunk<kTile>(slot(next), slot(next) + kTile * lda, A, Bm, m, k, q, m0, n0, next * kKC, vec);
+    if (next < nchunks)
+      stage_chunk<kTile, kBT>(slot(next), slot(next) + kTile * lda, A, Bm, m, k, q, m0, n0, next * kKC, vec);
     cp_async_commit();
     const float* As = slot(ch);
     const float* Bs = As + kTile * lda;
@@ -356,23 +435,27 @@ __device__ __forceinline__ void gemmnn_mma(const float* A, const float* Bm, floa
       }
 #pragma unroll
       for (int j = 0; j < FN; ++j) {
-        const float* bp = Bs + (kk + t) * ldb + wn0 + 8 * j + g;
+        // B[kk + t][col] and B[kk + t + 4][col], col = wn0 + 8 j + g
+        const float* bp = kBT ? Bs + (wn0 + 8 * j + g) * lda + kk + t : Bs + (kk + t) * ldb + wn0 + 8 * j + g;
+        const int step4 = kBT ? 4 : 4 * ldb;
         split_tf32(bp[0], bb[j][0], bs[j][0]);
-        split_tf32(bp[4 * ldb], bb[j][1], bs[j][1]);
+        split_tf32(bp[step4], bb[j][1], bs[j][1]);
       }
-      // term by term over the fragments: FM x FN independent products in flight
+      // term by term over the fragments: FM x FN independent products in
+      // flight; the step's partial starts from its first term
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j) mma_tf32(acc[i][j], as[i], bb[j]);
+        for (int j = 0; j < FN; ++j) mma_tf32<true>(part[i][j], as[i], bb[j]);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j) mma_tf32(acc[i][j], ab[i], bs[j]);
+        for (int j = 0; j < FN; ++j) mma_tf32(part[i][j], ab[i], bs[j]);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j) mma_tf32(acc[i][j], ab[i], bb[j]);
+        for (int j = 0; j < FN; ++j) mma_tf32(part[i][j], ab[i], bb[j]);
+      promote(acc, part);
     }
   }
 #pragma unroll
@@ -382,11 +465,20 @@ __device__ __forceinline__ void gemmnn_mma(const float* A, const float* Bm, floa
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int r = m0 + wm0 + 16 * i + g + 8 * hh, c = n0 + wn0 + 8 * j + 2 * t;
-        if (vec) {
-          if (r < m && c < q) *reinterpret_cast<float2*>(C + r * q + c) = make_float2(-acc[i][j][2 * hh], -acc[i][j][2 * hh + 1]);
+        // C - sum, once, rounded to nearest
+        float2 cv = make_float2(0.f, 0.f);
+        if (vec) {  // q even: a pair is all in or all out
+          if (r < m && c < q) cv = *reinterpret_cast<const float2*>(C + r * q + c);
         } else {
-          if (r < m && c < q) C[r * q + c] = -acc[i][j][2 * hh];
-          if (r < m && c + 1 < q) C[r * q + c + 1] = -acc[i][j][2 * hh + 1];
+          if (r < m && c < q) cv.x = C[r * q + c];
+          if (r < m && c + 1 < q) cv.y = C[r * q + c + 1];
+        }
+        const float2 v = make_float2(__fsub_rn(cv.x, acc[i][j][2 * hh]), __fsub_rn(cv.y, acc[i][j][2 * hh + 1]));
+        if (vec) {
+          if (r < m && c < q) *reinterpret_cast<float2*>(C + r * q + c) = v;
+        } else {
+          if (r < m && c < q) C[r * q + c] = v.x;
+          if (r < m && c + 1 < q) C[r * q + c + 1] = v.y;
         }
       }
 }
@@ -438,8 +530,112 @@ gemmnn_kernel(const float* ag, int anc, const int* aidx, long long alane, const 
   if constexpr (kTile == 0) {
     gemmnn_matvec(A, Bm, C, m, k, q, piece);
   } else {
-    gemmnn_mma<kTile>(A, Bm, C, m, k, q, piece, vec != 0);
+    gemmnn_mma<kTile, false>(A, Bm, C, m, k, q, piece, vec != 0);
   }
+}
+
+// ---------------------------------------------------------------------------
+// SYRK: C (b x b) -= A A^T, the full square, on GEMMNN's tensor-core tile
+// with B = A^T staged from A's own rows
+// ---------------------------------------------------------------------------
+template <int kTile>
+__global__ void __launch_bounds__(kGemmnnThreads<kTile>)
+syrk_kernel(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc, const int* cidx,
+            long long clane, int b, int vec) {
+  const int pieces = gemmnn_pieces(kTile, b, b);
+  const int task = blockIdx.x / pieces, piece = blockIdx.x % pieces;
+  const float* A = ag + block_offset(aidx, task, anc, b, b, alane);
+  float* C = cg + block_offset(cidx, task, cnc, b, b, clane);
+  gemmnn_mma<kTile, true>(A, A, C, b, b, b, piece, vec != 0);
+}
+
+// ---------------------------------------------------------------------------
+// GETRF
+// ---------------------------------------------------------------------------
+constexpr int kGetrfWarps = 16;
+constexpr int kGetrfThreads = 32 * kGetrfWarps;
+constexpr int kGR = kMaxB / kGetrfWarps;  // rows a thread holds: warp + 16 i
+constexpr int kGC = kMaxB / 32;           // columns a thread holds: lane + 32 j
+constexpr unsigned kFull = 0xffffffffu;
+
+// Steps k = 32 kJ .. 32 kJ + kend - 1: the pivots whose column is register
+// column kJ of lane k % 32.  Rows below 32 kJ and columns below 32 kJ are
+// final, so their registers are left alone.  urow[k & 1] holds row k as
+// step k begins; the step publishes row k + 1 into the other buffer.
+template <int kJ>
+__device__ __forceinline__ void getrf_steps(float (&a)[kGR][kGC], float (*urow)[kMaxB], int b, int kend) {
+  constexpr int kFirst = 32 * kJ / kGetrfWarps;  // rows i < kFirst of every warp are final
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int kl = 0; kl < kend; ++kl) {
+    const int k = 32 * kJ + kl;
+    const float* u = urow[k & 1];
+    const float piv = u[k];
+    // column k below the pivot, divided once a row: lane i takes row
+    // w + 16 i's entry from the owner lane, divides it, and hands it back
+    float mine = 0.f;
+#pragma unroll
+    for (int i = kFirst; i < kGR; ++i) {
+      const float v = __shfl_sync(kFull, a[i][kJ], kl);
+      if (lane == i) mine = v;
+    }
+    const float lv = lane < kGR && w + kGetrfWarps * lane > k ? mine / piv : 0.f;
+    float l[kGR], uk[kGC];
+#pragma unroll
+    for (int i = kFirst; i < kGR; ++i) {
+      l[i] = __shfl_sync(kFull, lv, i);
+      if (lane == kl && w + kGetrfWarps * i > k) a[i][kJ] = l[i];
+    }
+#pragma unroll
+    for (int j = kJ; j < kGC; ++j) {
+      const int c = lane + 32 * j;
+      uk[j] = c > k ? u[c] : 0.f;
+    }
+    // a[i][j] -= l[i] u[j] for rows and columns past k (l and u are 0 elsewhere)
+#pragma unroll
+    for (int i = kFirst; i < kGR; ++i)
+#pragma unroll
+      for (int j = kJ; j < kGC; ++j) a[i][j] = fmaf(-l[i], uk[j], a[i][j]);
+    const int k1 = k + 1;
+    if (k1 < b && w == k1 % kGetrfWarps) {
+      const int i1 = k1 / kGetrfWarps;
+#pragma unroll
+      for (int i = kFirst; i < kGR; ++i)
+        if (i == i1)
+#pragma unroll
+          for (int j = 0; j < kGC; ++j) urow[k1 & 1][lane + 32 * j] = a[i][j];
+    }
+    __syncthreads();  // row k + 1 published; every thread done with row k's buffer
+  }
+}
+
+__global__ void __launch_bounds__(kGetrfThreads)
+getrf_kernel(float* grid, int nc, const int* idx, long long lane_stride, int b) {
+  __shared__ float urow[2][kMaxB];
+  float* T = grid + block_offset(idx, blockIdx.x, nc, b, b, lane_stride);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float a[kGR][kGC];  // a[i][j] = T[w + 16 i][lane + 32 j]; zero outside the b x b tile
+#pragma unroll
+  for (int i = 0; i < kGR; ++i)
+#pragma unroll
+    for (int j = 0; j < kGC; ++j) {
+      const int r = w + kGetrfWarps * i, c = lane + 32 * j;
+      a[i][j] = r < b && c < b ? T[r * b + c] : 0.f;
+    }
+  if (w == 0)
+#pragma unroll
+    for (int j = 0; j < kGC; ++j) urow[0][lane + 32 * j] = a[0][j];
+  __syncthreads();
+  getrf_steps<0>(a, urow, b, min(32, b));
+  if (b > 32) getrf_steps<1>(a, urow, b, min(32, b - 32));
+  if (b > 64) getrf_steps<2>(a, urow, b, min(32, b - 64));
+  if (b > 96) getrf_steps<3>(a, urow, b, b - 96);
+#pragma unroll
+  for (int i = 0; i < kGR; ++i)
+#pragma unroll
+    for (int j = 0; j < kGC; ++j) {
+      const int r = w + kGetrfWarps * i, c = lane + 32 * j;
+      if (r < b && c < b) T[r * b + c] = a[i][j];
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -460,6 +656,8 @@ using TrsmuKernel = void (*)(const float*, int, const int*, long long, float*, i
                              int, int, int);
 using GemmnnKernel = void (*)(const float*, int, const int*, long long, const float*, int, const int*,
                               long long, float*, int, const int*, long long, int, int, int, int);
+using SyrkKernel = void (*)(const float*, int, const int*, long long, float*, int, const int*, long long, int,
+                            int);
 
 struct Launch {
   int ctas, threads, smem;  // CTAs a lane, threads a CTA, dynamic shared memory bytes
@@ -498,8 +696,17 @@ bool gemmnn_launch(int tile, int n, int m, int k, int q, Launch* out, GemmnnKern
       return false;
   }
   *kernel = kern;
-  const int smem = tile == 0 ? 0 : kStages * slot_floats(tile) * (int)sizeof(float);
+  const int smem = tile == 0 ? 0 : kStages * slot_floats(tile, false) * (int)sizeof(float);
   *out = {n * gemmnn_pieces(tile, m, q), threads, smem};
+  return true;
+}
+
+// SYRK's launch for output tile `tile` (32 or 64); false for any other
+bool syrk_launch(int tile, int n, int b, Launch* out, SyrkKernel* kernel) {
+  if (tile != 32 && tile != 64) return false;
+  *kernel = tile == 32 ? &syrk_kernel<32> : &syrk_kernel<64>;
+  *out = {n * gemmnn_pieces(tile, b, b), tile == 32 ? kGemmnnThreads<32> : kGemmnnThreads<64>,
+          kStages * slot_floats(tile, true) * (int)sizeof(float)};
   return true;
 }
 
@@ -546,6 +753,21 @@ int tile_gemmnn(const float* ag, int anc, const int* aidx, long long alane, cons
   const int vec = aligned16(ag, alane) && aligned16(bg, blane) && aligned16(cg, clane) && k % 4 == 0 && q % 4 == 0;
   return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, ag, anc, aidx, alane, bg, bnc, bidx,
                      blane, cg, cnc, cidx, clane, m, k, q, vec);
+}
+
+int tile_syrk(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc, const int* cidx,
+              long long clane, int n, int batch, int b, int tile, void* stream) {
+  Launch l;
+  SyrkKernel kernel;
+  if (bad_args(n, batch, b) || !syrk_launch(tile, n, b, &l, &kernel)) return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(ag, alane) && aligned16(cg, clane) && b % 4 == 0;
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, ag, anc, aidx, alane, cg, cnc, cidx, clane,
+                     b, vec);
+}
+
+int tile_getrf(float* grid, int nc, const int* idx, long long lane, int n, int batch, int b, void* stream) {
+  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
+  return launch_smem(getrf_kernel, n, batch, kGetrfThreads, 0, stream, grid, nc, idx, lane, b);
 }
 
 }  // extern "C"

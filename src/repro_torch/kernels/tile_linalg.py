@@ -3,12 +3,12 @@ versions.
 
 The leaves of the ``"cuda"`` backend (the paper's cuBLAS wrapper analog).
 Nine kernels — POTRF, TRSM, SYRK and GEMM for Cholesky; GETRF, TRSML,
-TRSMU, TRSMUL and GEMMNN for pivot-free LU — each serve three forms.  Seven
-live in ``csrc/tile_linalg.cu`` (one CTA a task); TRSMU and GEMMNN in
-``csrc/tile_lu_sm90.cu``, their own library (``LIBRARY``), which splits a
-task over several CTAs and runs GEMMNN on the tensor cores in 3xTF32; the
-wrapper chooses that split from the group's size (``launch_shape``).  The
-three forms:
+TRSMU, TRSMUL and GEMMNN for pivot-free LU — each serve three forms.  Five
+live in ``csrc/tile_linalg.cu`` (one CTA a task); GETRF, TRSMU, SYRK and
+GEMMNN in ``csrc/tile_lu_sm90.cu``, their own library (``LIBRARY``): GETRF
+keeps its tile in registers, and the other three split a task over several
+CTAs, SYRK and GEMMNN on the tensor cores in 3xTF32; the wrapper chooses
+that split from the group's size (``launch_shape``).  The three forms:
 
 - the fused grid form (``grid_*``), the counterpart of the JAX package's
   ``make_grid_fused``: every argument is a resident ``(nr, nc, br, bc)``
@@ -61,11 +61,12 @@ _SIGNATURES = {
 
 MAX_BATCH = 65535  # most lanes of one stacked launch (csrc kMaxBatch, gridDim.y)
 
-# the kernels that cut a task across CTAs (csrc/tile_lu_sm90.cu): their C
-# entries take one launch-shape integer after the tile dimensions
-SPLIT = ("trsmu", "gemmnn")
-# kernel name -> the csrc library that holds its C entry
-LIBRARY = {k: "tile_lu_sm90" if k in SPLIT else "tile_linalg" for k in _SIGNATURES}
+# the kernels that cut a task across CTAs: their C entries take one
+# launch-shape integer after the tile dimensions
+SPLIT = ("trsmu", "syrk", "gemmnn")
+# kernel name -> the csrc library that holds its C entry: the redesigned
+# kernels in csrc/tile_lu_sm90.cu, the simple ones in csrc/tile_linalg.cu
+LIBRARY = {k: "tile_lu_sm90" if k in ("getrf", *SPLIT) else "tile_linalg" for k in _SIGNATURES}
 
 # kernel name -> number of launches since the last reset_launches(), of the
 # unstacked forms (4-D grids, batched stacks) and of the stacked grid form
@@ -270,16 +271,16 @@ def launch_shape(name: str, shapes: Sequence[Tuple[int, int]], n: int, batch: in
     card of ``sms`` SMs; raises ``ValueError`` as ``_dims`` does.
 
     TRSMU takes the rows of B one CTA solves: 32, or 16 where 32 would leave
-    SMs without a CTA.  GEMMNN takes its output tile: 0 (the matrix-vector
-    mapping) for q < 8, else 64 (64 x 64 tiles) where those give every SM a
-    CTA, or 32.  The other kernels take none."""
+    SMs without a CTA.  GEMMNN and SYRK take their output tile: 64 (64 x 64
+    tiles) where those give every SM a CTA, or 32; GEMMNN takes 0 (the
+    matrix-vector mapping) for q < 8.  The other kernels take none."""
     dims = _dims(name, shapes)
     if name == "trsmu":
         br = dims[0]
         return (32 if n * batch * -(-br // 32) >= sms else 16,)
-    if name == "gemmnn":
-        m, _, q = dims
-        if q < 8:
+    if name in ("gemmnn", "syrk"):
+        m, q = (dims[0], dims[2]) if name == "gemmnn" else (dims[0], dims[0])
+        if name == "gemmnn" and q < 8:
             return (0,)
         return (64 if n * batch * -(-m // 64) * -(-q // 64) >= sms else 32,)
     return ()
@@ -290,7 +291,7 @@ def launch_shape(name: str, shapes: Sequence[Tuple[int, int]], n: int, batch: in
 # --------------------------------------------------------------------------
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry tile_<name>(per arg: grid, nc, idx, lane stride; n; batch; dims...;
-# launch shape (TRSMU, GEMMNN); stream)
+# launch shape (SPLIT); stream)
 _ARGTYPES = {
     name: [_VP, _I, _VP, _LL] * arity + [_I] * (2 + n_dims + (name in SPLIT)) + [_VP]
     for name, (arity, n_dims) in _SIGNATURES.items()

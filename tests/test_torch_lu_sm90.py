@@ -1,11 +1,11 @@
-"""The redesigned TRSMU and GEMMNN kernels (``csrc/tile_lu_sm90.cu``) on the
-CPU: emulations of their arithmetic against the JAX package's Pallas
-kernels (interpret mode) on the same numpy inputs, the wrapper's choice of
-launch shape, and the source's notes.  The CUDA kernels themselves run only
+"""The redesigned GETRF, TRSMU, SYRK and GEMMNN kernels
+(``csrc/tile_lu_sm90.cu``) on the CPU: emulations of their arithmetic
+against the JAX package's Pallas kernels (interpret mode) on the same numpy
+inputs, the wrapper's choice of launch shape, and the source's notes.  The CUDA kernels themselves run only
 on the card: chip_smoke.py holds them against the plain versions.
 
-Tolerances are tests/test_kernels.py's: GEMMNN 1e-4, TRSMU 2e-3 (atol =
-rtol), the same as chip_smoke.py's ``TOL``."""
+Tolerances are tests/test_kernels.py's: GEMMNN and SYRK 1e-4, TRSMU 2e-3,
+GETRF 2e-4 (atol = rtol), the same as chip_smoke.py's ``TOL``."""
 
 import re
 
@@ -19,7 +19,8 @@ from repro.kernels import tile_linalg as jtl
 from repro_torch.kernels import _build
 from repro_torch.kernels import tile_linalg as tl
 
-GEMMNN_TOL, TRSMU_TOL = 1e-4, 2e-3
+GEMMNN_TOL, TRSMU_TOL, GETRF_TOL = 1e-4, 2e-3, 2e-4
+TC_RATIO = 2.0  # chip_smoke.py's: a tensor-core tile's error at most twice fp32's
 
 
 def tf32(x: np.ndarray) -> np.ndarray:
@@ -31,21 +32,24 @@ def tf32(x: np.ndarray) -> np.ndarray:
 
 def gemmnn_tf32(a, b, c, terms: int) -> np.ndarray:
     """The kernel's C - A B on the tensor cores: each operand splits into
-    big = tf32(x) and small = tf32(x - big); the accumulator starts from -C
-    and per 8-deep step takes small*big, big*small and big*big (``terms`` =
-    3) or big*big alone (1) in float32; the result is its negation.
+    big = tf32(x) and small = tf32(x - big); every 8-deep step's partial
+    small*big, big*small and big*big (``terms`` = 3) or big*big alone (1)
+    starts from 0 and is added into a float32 sum; C - sum is taken last.
     Products of TF32 values are exact in float32."""
     a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
     ab, bb = tf32(a), tf32(b)
     as_, bs = tf32(a - ab), tf32(b - bb)
-    acc = -np.asarray(c, np.float32)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
     for k0 in range(0, a.shape[1], 8):
         k = slice(k0, k0 + 8)
         if terms == 3:
-            acc = acc + as_[:, k] @ bb[k]
-            acc = acc + ab[:, k] @ bs[k]
-        acc = acc + ab[:, k] @ bb[k]
-    return -acc
+            part = as_[:, k] @ bb[k]
+            part = part + ab[:, k] @ bs[k]
+            part = part + ab[:, k] @ bb[k]
+        else:
+            part = ab[:, k] @ bb[k]
+        acc = acc + part
+    return np.asarray(c, np.float32) - acc
 
 
 def _tiles(kind: str):
@@ -177,6 +181,7 @@ def test_launch_shapes_are_ones_the_c_launchers_take(n, lanes, edge):
         (tile,) = tl.launch_shape("gemmnn", tiles, n, lanes, H100_SMS)
         assert tile in (32, 64) or (tile == 0 and q < 8)
         assert ctas("gemmnn", tiles, n, lanes, tile) >= n * lanes
+    assert tl.launch_shape("syrk", [(edge, edge)] * 2, n, lanes, H100_SMS)[0] in (32, 64)
 
 
 @pytest.mark.parametrize("edge", [0, 129])
@@ -191,12 +196,14 @@ def test_launch_shape_refuses_edges_outside_the_limit(edge):
 
 
 def test_lu_sm90_source_notes_what_it_replaces():
-    """The new source names the TPU kernels it replaces and what bounds them,
-    runs GEMMNN as 3xTF32 on the tensor cores with cp.async staging, takes
-    the wrapper's launch shape, and reports launch errors."""
+    """The redesigned kernels' source names the TPU kernels it replaces and
+    what bounds them, runs SYRK and GEMMNN as 3xTF32 on the tensor cores with
+    cp.async staging, takes the wrapper's launch shape, and reports launch
+    errors."""
     src = (_build.CSRC / "tile_lu_sm90.cu").read_text()
-    assert {k for k, lib in tl.LIBRARY.items() if lib == "tile_lu_sm90"} == {"trsmu", "gemmnn"}
-    for name in ("trsmu", "gemmnn"):
+    sm90 = {"getrf", "trsmu", "syrk", "gemmnn"}
+    assert {k for k, lib in tl.LIBRARY.items() if lib == "tile_lu_sm90"} == sm90
+    for name in sm90:
         assert f"_{name}_tile" in src and f"batched_{name}" in src and f"{name}_kernel(" in src
     for word in ("bound", "sm_90a", "mma.sync.aligned.m16n8k8", "0x1000u) & 0xffffe000u", "cp.async", "__shfl_sync"):
         assert word in src, word
@@ -206,14 +213,95 @@ def test_lu_sm90_source_notes_what_it_replaces():
         start = src.index(f"int tile_{name}(")
         return src[start : src.index("\n}\n", start)]
 
-    for name in ("trsmu", "gemmnn"):
+    for name in sm90:
         body = entry(name)
         *early, last = re.findall(r"return ([^;]*);", body)
         assert early == ["(int)cudaErrorInvalidValue"] and last.startswith("launch_smem("), name
-        # one ctypes argument a C parameter: grids, nc, idx, lane stride; n, batch, dims, shape, stream
+        # one ctypes argument a C parameter: grids, nc, idx, lane stride; n, batch, dims, shape (SPLIT), stream
         params = body[body.index("(") + 1 : body.index(")")].split(",")
         assert len(params) == len(tl._ARGTYPES[name]), name
         assert sum("long long" in p for p in params) == tl._SIGNATURES[name][0], name
     head = src[src.index("int launch_smem("):]
     assert re.findall(r"return ([^;]*);", head[: head.index("\n}\n")]) == ["(int)err", "(int)cudaGetLastError()"]
     assert "blockIdx.y * lane" in src and "kMaxBatch = 65535" in src
+
+
+# --------------------------------------------------------------------------
+# The C3 repair of GEMMNN, and SYRK on GEMMNN's tile
+# --------------------------------------------------------------------------
+def _err64(got, a, b, c) -> float:
+    want = c.astype(np.float64) - a.astype(np.float64) @ b.astype(np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max())
+
+
+@pytest.mark.parametrize("kind", ["dd", "randn"])
+def test_promoted_gemmnn_error_within_twice_fp32s(kind):
+    """Partials promoted every 8-deep step and C subtracted last keep the
+    3xTF32 product within TC_RATIO times the float32 product's error against
+    float64 (chip_smoke.py holds the card's kernel to the same against
+    ``torch.matmul``)."""
+    a, b, c = _tiles(kind)
+    assert _err64(gemmnn_tf32(a, b, c, terms=3), a, b, c) <= TC_RATIO * _err64(c - a @ b, a, b, c)
+
+
+@pytest.mark.parametrize("kind", ["dd", "randn"])
+def test_syrk_route_matches_pallas(kind):
+    """SYRK is GEMMNN's tile with B = A^T: C - A A^T, the full square."""
+    a, _, c = _tiles(kind)
+    got = gemmnn_tf32(a, a.T, c, terms=3)
+    want = np.asarray(jtl.batched_syrk(jnp.asarray(a[None]), jnp.asarray(c[None]), interpret=True))[0]
+    np.testing.assert_allclose(got, want, rtol=GEMMNN_TOL, atol=GEMMNN_TOL)
+    assert _err64(got, a, a.T, c) <= TC_RATIO * _err64(c - a @ a.T, a, a.T, c)
+
+
+def test_syrk_launch_shapes_fill_the_card():
+    sq = [(128, 128)] * 2
+    assert tl.launch_shape("syrk", sq, 31, 1, H100_SMS) == (32,)
+    assert 31 * (128 // 32) ** 2 == 496 >= H100_SMS  # the Cholesky plan's 31-task group
+    assert tl.launch_shape("syrk", sq, 7, 64, H100_SMS) == (64,)  # the served 7 x 64 lanes: 1792 CTAs
+    assert tl.launch_shape("syrk", sq, 33, 1, H100_SMS) == (64,)
+    for b in (1, 7, 8, 40, 128):  # no matrix-vector mapping: a tensor-core tile at every edge
+        assert tl.launch_shape("syrk", [(b, b)] * 2, 4, 1, H100_SMS)[0] in (32, 64)
+    with pytest.raises(ValueError, match="limit"):
+        tl.launch_shape("syrk", [(129, 129)] * 2, 4, 1, H100_SMS)
+
+
+
+# --------------------------------------------------------------------------
+# GETRF: the tile in registers, one rank-1 step a barrier
+# --------------------------------------------------------------------------
+def getrf_steps(a: torch.Tensor, fused: bool) -> torch.Tensor:
+    """The kernel's step order: at step k, column k below the pivot divided
+    by it (the reference's division), then a[i][j] -= l[i] u[j] over rows and
+    columns past k.  ``fused`` rounds that update once, as the kernel's fmaf
+    does (the exact product and difference in float64, rounded to float32);
+    otherwise the product and the difference round separately, as the plain
+    version does."""
+    m = a.float().clone()
+    b = m.shape[-1]
+    for k in range(b):
+        m[..., k + 1 :, k] = m[..., k + 1 :, k] / m[..., k, k, None]
+        l, u = m[..., k + 1 :, k, None], m[..., k, None, k + 1 :]
+        if fused:
+            m[..., k + 1 :, k + 1 :] = (m[..., k + 1 :, k + 1 :].double() - l.double() * u.double()).float()
+        else:
+            m[..., k + 1 :, k + 1 :] = m[..., k + 1 :, k + 1 :] - l * u
+    return m
+
+
+def _dd(rng, n, b):
+    """Column-diagonally-dominant tiles (chip_smoke.py's ``dd_tiles``)."""
+    a = rng.standard_normal((n, b, b)).astype(np.float32)
+    a /= np.abs(a).sum(axis=1, keepdims=True) * 1.5
+    a[:, np.arange(b), np.arange(b)] = 1.0 + rng.uniform(0.0, 1.0, (n, b)).astype(np.float32)
+    return a
+
+
+@pytest.mark.parametrize("b", [8, 32, 33, 96, 120, 128])
+def test_getrf_step_order_matches_pallas_and_plain(b):
+    a = _dd(np.random.default_rng(b), 2, b)
+    want = np.asarray(jtl.batched_getrf(jnp.asarray(a), interpret=True))
+    fused = getrf_steps(torch.from_numpy(a), fused=True)
+    np.testing.assert_allclose(fused.numpy(), want, rtol=GETRF_TOL, atol=GETRF_TOL)
+    # the same order with separate roundings is the plain version, bit for bit
+    assert torch.equal(getrf_steps(torch.from_numpy(a), fused=False), tl.getrf_plain(torch.from_numpy(a)))
