@@ -9,20 +9,20 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    the build of the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` a source, all started together), with each kernel's
    registers and spills; the Hopper flash kernel and the redesigned
-   GETRF/TRSMU/SYRK/GEMMNN (``tile_lu_sm90``) must not spill.
+   GETRF/TRSML/TRSMU/SYRK/GEMM/GEMMNN (``tile_lu_sm90``) must not spill.
 2. Kernels: each of the nine tile kernels — Cholesky's POTRF, TRSM, SYRK,
    GEMM and LU's GETRF, TRSML, TRSMU, TRSMUL, GEMMNN — is held against its
    plain PyTorch version on the card at b = 8 ... 128 (right-hand-side
    widths bc = 1, 8 and b where a kernel takes a non-square operand; GETRF,
-   TRSMU, SYRK and GEMMNN also at the ragged b = 96 and 120, TRSMU and
-   GEMMNN with bc = 1, 3, 40 and b, SYRK at b = 7 and 33, and GEMMNN at
-   m != k), under each launch
-   shape its wrapper may choose (TRSMU's rows a CTA, SYRK's and GEMMNN's
-   output tile), in the fused-grid form (random distinct write blocks on
-   random non-square grids, arguments of one tile shape in one grid, whole
-   grids compared) and in the batched form (2a), where the tensor-core
-   kernels' (SYRK's, GEMMNN's) 128^3 tile error against float64 must also
-   stay within twice ``torch.matmul``'s in fp32 on the same tiles; then in
+   TRSML, TRSMU, SYRK, GEMM and GEMMNN also at the ragged b = 96 and 120,
+   TRSML, TRSMU and GEMMNN with bc = 1, 3, 40 and b, SYRK and GEMM at b = 7
+   and 33, and GEMMNN at m != k), under each launch shape its wrapper may
+   choose (TRSMU's rows and TRSML's columns a CTA, the output tile of
+   SYRK, GEMM and GEMMNN), in the fused-grid form (random distinct write
+   blocks on random non-square grids, arguments of one tile shape in one
+   grid, whole grids compared) and in the batched form (2a), where the
+   tensor-core kernels' (SYRK's, GEMM's, GEMMNN's) 128^3 tile error against
+   float64 must also stay within twice ``torch.matmul``'s in fp32 on the same tiles; then in
    the stacked grid form on (B, nr, nc, br, bc) grids, B = 3 and 4, all
    lanes sharing the indices
    and the last lane a copy of the one before it (2c).  Each is timed at
@@ -30,7 +30,8 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    n = 4096, 32 x 32 plan of Cholesky, of LU, or for TRSMUL of the
    matrix-RHS LU solve, on the resident grids; GEMMNN also at a 4-task
    group of the matrix-RHS solve and the largest q = 1 group of the vector
-   solve) beside its plain version,
+   solve, TRSML at the vector solve's one-task bc = 1 group) beside its
+   plain version,
    one PyTorch library call computing the same group, and the least time
    the card could take (its bound, at the peak rate of the kernel's
    arithmetic route: fp32 FMAs, or 3xTF32 on the tensor cores) (2b); and
@@ -120,20 +121,22 @@ N, P = 4096, 32  # main paths: n x n fp32, P x P partitions -> 128 x 128 tiles
 RHS, RHS_P = 512, 4  # matrix right-hand side of the LU solve: (N, 512) in P x 4 blocks
 TILES = (8, 16, 32, 64, 128)
 # edges that are no power of two, for the redesigned kernels (GETRF's
-# register tile, TRSMU's row split, SYRK's and GEMMNN's output tiles): b, with
-# right-hand-side widths bc where a kernel takes one
+# register tile, TRSML's column and TRSMU's row split, the output tiles of
+# SYRK, GEMM and GEMMNN): b, with right-hand-side widths bc where a kernel
+# takes one
 RAGGED, RAGGED_WIDTHS = (96, 120), (1, 3, 40)
-RAGGED_KERNELS = ("getrf", "trsmu", "syrk", "gemmnn")
-# SYRK at edges that are no multiple of 4: the 4-byte staging of its B = A^T
-# (GEMMNN_SHAPES take GEMMNN's)
-SYRK_EDGES = (7, 33)
+RAGGED_KERNELS = ("getrf", "trsml", "trsmu", "syrk", "gemm", "gemmnn")
+# SYRK and GEMM at edges that are no multiple of 4: the 4-byte staging of
+# their B^T from B's rows (GEMMNN_SHAPES take GEMMNN's)
+BT_EDGES = (7, 33)
 # GEMMNN ((m, k), (k, q)) with m != k, ragged in every dimension
 GEMMNN_SHAPES = (((96, 120), (120, 40)), ((120, 40), (40, 96)), ((33, 128), (128, 1)), ((1, 7), (7, 9)),
                  ((128, 5), (5, 128)))
 # every launch shape each wrapper may choose (tile_linalg.launch_shape), each
 # checked in turn; GEMMNN's 0 (the matrix-vector mapping) only for q < 8
-SHAPES = {"trsmu": (16, 32), "syrk": (32, 64), "gemmnn": (0, 32, 64)}
-TENSOR_CORE = ("syrk", "gemmnn")  # 3xTF32 on the tensor cores (but GEMMNN's matrix-vector mapping)
+SHAPES = {"trsml": (16, 32), "trsmu": (16, 32), "syrk": (32, 64), "gemm": (32, 64), "gemmnn": (0, 32, 64)}
+# 3xTF32 on the tensor cores (but GEMMNN's matrix-vector mapping)
+TENSOR_CORE = ("syrk", "gemm", "gemmnn")
 CHOLESKY = ("potrf", "trsm", "syrk", "gemm")
 LU = ("getrf", "trsml", "trsmu", "trsmul", "gemmnn")
 KERNELS = CHOLESKY + LU
@@ -172,6 +175,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 EXPECTED_LAUNCHES = {"potrf": 32, "trsm": 31, "syrk": 31, "gemm": 30}  # per drain at P = 32
+# 2b's timings of a kernel at the solves' groups, beside its main-path one
+SOLVE_GROUPS = {"gemmnn": ("gemmnn_solve4", "gemmnn_vector"), "trsml": ("trsml_vector",)}
 # the serving path: BatchServer(graph="g2p", max_batch=64) on n = 1024 requests
 # in 8 x 8 partitions (128 x 128 tiles, as on the main paths)
 SN, SP, LANES = 1024, 8, 64
@@ -340,8 +345,8 @@ def grid_case(tl, name: str, rng, shapes, nr: int = 6, nc: int = 7, n: int = 12,
 def check_cases(tl):
     """(name, label, tile shapes) of every 2a/2c case: each kernel at
     b = TILES (right-hand-side widths 1, 8 and b where it takes one), the
-    RAGGED_KERNELS also at the ragged RAGGED (x RAGGED_WIDTHS), SYRK at
-    SYRK_EDGES, and GEMMNN at GEMMNN_SHAPES."""
+    RAGGED_KERNELS also at the ragged RAGGED (x RAGGED_WIDTHS), SYRK and GEMM
+    at BT_EDGES, and GEMMNN at GEMMNN_SHAPES."""
     for b in TILES:
         for name in KERNELS:
             for bc in sorted({1, 8, b}) if name in WIDE else [b]:
@@ -350,8 +355,9 @@ def check_cases(tl):
         for name in RAGGED_KERNELS:
             for bc in sorted({*RAGGED_WIDTHS, b}) if name in WIDE else [b]:
                 yield name, f"b={b:3d}" + (f" bc={bc:3d}" if name in WIDE else ""), tl.tile_shapes(name, b, bc)
-    for b in SYRK_EDGES:
-        yield "syrk", f"b={b:3d}", tl.tile_shapes("syrk", b, b)
+    for b in BT_EDGES:
+        for name in ("syrk", "gemm"):
+            yield name, f"b={b:3d}", tl.tile_shapes(name, b, b)
     for (m, k), (_, q) in GEMMNN_SHAPES:
         yield "gemmnn", f"m={m} k={k} q={q}", [(m, k), (k, q), (m, q)]
 
@@ -440,7 +446,7 @@ def tensor_core_accuracy(torch, tl, rng) -> None:
                                      else rng.standard_normal((n, b, b)).astype(np.float32) * 0.3).cuda()
                     for _ in range(3))
         for name in TENSOR_CORE:
-            args, rhs = ((a, bm, c), bm) if name == "gemmnn" else ((a, c), a.mT)
+            args, rhs = {"syrk": ((a, c), a.mT), "gemm": ((a, bm, c), bm.mT), "gemmnn": ((a, bm, c), bm)}[name]
             want = c.double() - a.double() @ rhs.double()
             with fp32_matmul():
                 lib_err = (c - torch.matmul(a, rhs) - want).abs().max().item()
@@ -520,9 +526,9 @@ def plan_groups(op, specs):
 
 def arith_route(tl, name: str, tiles, n: int, lanes: int = 1) -> str:
     """The arithmetic route of one launch of ``n`` tasks of tile shapes
-    ``tiles``: "3xtf32" where SYRK or GEMMNN runs on the tensor cores (every
-    output tile but GEMMNN's matrix-vector mapping's), else "fp32" (FMAs on
-    the CUDA cores)."""
+    ``tiles``: "3xtf32" where SYRK, GEMM or GEMMNN runs on the tensor cores
+    (every output tile but GEMMNN's matrix-vector mapping's), else "fp32"
+    (FMAs on the CUDA cores)."""
     import torch
 
     if name in TENSOR_CORE and tl.launch_shape(name, tiles, n, lanes, tl.sm_count(torch.device("cuda")))[0] != 0:
@@ -616,7 +622,9 @@ def kernel_timings(torch, tl) -> dict:
     LU solve plan's; then GEMMNN at the groups where the solves spend its
     launches: a 4-task group of the matrix-RHS solve plan and the largest
     q = 1 group of the vector solve plan (``gemmnn_solve4``,
-    ``gemmnn_vector``)."""
+    ``gemmnn_vector``), and TRSML at the vector solve plan's one-task
+    bc = 1 group (``trsml_vector``: 32 of its launches, on the critical
+    path)."""
     from repro_torch.core import dd_matrix, spd_matrix
     from repro_torch.core.data import to_grid
     from repro_torch.linalg import GETRF, LUSOLVE, POTRF
@@ -645,6 +653,8 @@ def kernel_timings(torch, tl) -> dict:
     widest = max(g.size for g in vec if g.op.name == "gemmnn" and len(g.segments) == 1 and on_rhs(g))
     out["gemmnn_vector"] = kernel_timing(torch, tl, "gemmnn", vec, dd + [vrhs], label=" (vector solve)",
                                          pick=lambda g: on_rhs(g) and g.size == widest)
+    out["trsml_vector"] = kernel_timing(torch, tl, "trsml", vec, dd + [vrhs], label=" (vector solve)",
+                                        pick=lambda g: g.segments[0][0][1] == 1 and g.size == 1)
     traced_launches(torch, out, "2b")
     return out
 
@@ -2074,8 +2084,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "tasks": t["tasks"], "ctas": t["ctas"],
             "arith": t["arith"],
         }
-        if name == "gemmnn":  # the solves' groups (2b): where GEMMNN spends its launches
-            entry["groups"] = {k: times[k] for k in ("gemmnn_solve4", "gemmnn_vector")}
+        if name in SOLVE_GROUPS:  # the solves' groups (2b): where a kernel spends its launches
+            entry["groups"] = {k: times[k] for k in SOLVE_GROUPS[name]}
             entry["max_abs_err"] = max(entry["max_abs_err"], *(g["err"] for g in entry["groups"].values()))
         kernels.append(entry)
     for name in KERNELS:

@@ -1,12 +1,10 @@
-// Hand-written Hopper (sm_90a) kernels for five of the nine tile bodies of
-// blocked Cholesky and pivot-free LU (GETRF, TRSMU, SYRK and GEMMNN,
-// redesigned, are in tile_lu_sm90.cu).
+// Hand-written Hopper (sm_90a) kernels for three of the nine tile bodies of
+// blocked Cholesky and pivot-free LU (GETRF, TRSML, TRSMU, SYRK, GEMM and
+// GEMMNN, redesigned, are in tile_lu_sm90.cu).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tile_linalg.py:
 //   potrf_kernel   <- _potrf_tile  / batched_potrf  / grid_potrf
 //   trsm_kernel    <- _trsm_tile   / batched_trsm   / grid_trsm
-//   gemm_kernel    <- _gemm_tile   / batched_gemm   / grid_gemm
-//   trsml_kernel   <- _trsml_tile  / batched_trsml  / grid_trsml
 //   trsmul_kernel  <- _trsmul_tile / batched_trsmul / grid_trsmul
 // and the fused gather/compute/scatter entry make_grid_fused, in both its
 // forms: every kernel reads its task's blocks straight from the resident
@@ -39,22 +37,12 @@
 //   and runs the recurrence over shared memory.  At b = 128 this needs
 //   66 KB (POTRF) and 132 KB (TRSM) of dynamic shared memory, above the
 //   48 KB default, so the launcher raises the limit first.
-// - TRSML and TRSMUL are the LU family's triangular solves, latency
-//   bound for the same reason (at most nr of each kind per group).  They
-//   are row recurrences whose columns are independent; a right-hand
-//   side may be a single column (a blocked vector), so each column gets a
-//   team of g lanes (g = 32 for one column, 2 for 128) that split each
-//   row's inner product and reduce it with warp shuffles.
-// - GEMM (C -= A B^T; fp32) is the bulk of the Cholesky FLOPs.  At
-//   b = 128 one task alone moves 4 tiles (256 KB) for 4.2 MFLOP, 16 FLOP/byte, just below the card's fp32 ridge
-//   (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte); but the tasks of a group
-//   share their A and B blocks, so a large group, each distinct block
-//   counted once, is bound by operations.  The kernel stages 32-deep K
-//   chunks of A and B in shared memory (A transposed, padded) and each of
-//   256 threads keeps an R x R register tile of C (R = ceil(max(m, q) / 16)),
-//   so every shared load feeds R FMAs and a CTA reads each of its input
-//   tiles from device memory once.  FMAs run on the CUDA cores in full
-//   fp32: no TF32, so the results hold the float32 reference's tolerance.
+// - TRSMUL is the LU family's bottom-up triangular solve, latency bound
+//   for the same reason (at most nr a group).  It is a row recurrence whose
+//   columns are independent; a right-hand side may be a single column (a
+//   blocked vector), so each column gets a team of g lanes (g = 32 for one
+//   column, 2 for 128) that split each row's inner product and reduce it
+//   with warp shuffles.
 //
 // Every entry point returns cudaGetLastError() (0 = launched); the Python
 // wrapper raises on anything else, since a refused launch never runs and
@@ -65,8 +53,7 @@
 namespace {
 
 constexpr int kMaxB = 128;     // largest tile edge the kernels accept
-constexpr int kKC = 32;        // K chunk of the GEMM shared-memory stage
-constexpr int kThreads = 256;  // threads of the TRSML/TRSMUL and GEMM CTAs
+constexpr int kThreads = 256;  // threads of a TRSMUL CTA
 constexpr int kMaxBatch = 65535;  // lanes of a stacked launch: gridDim.y's limit
 
 // Element offset of this CTA's block: lane blockIdx.y of a stacked grid
@@ -148,25 +135,20 @@ __global__ void trsm_kernel(const float* lgrid, int lnc, const int* lidx, long l
 }
 
 // ---------------------------------------------------------------------------
-// TRSML / TRSMUL: X = inv(L) B with L unit-lower (_trsml_tile), or
-// X = inv(U) B with U non-unit upper, bottom-up (_trsmul_tile); B is
+// TRSMUL: X = inv(U) B with U non-unit upper, bottom-up (_trsmul_tile); B is
 // (b, bc).  Row recurrence, columns independent:
-//   TRSML:  X[i] = B[i] - sum_{k<i} L[i][k] X[k]
-//   TRSMUL: X[i] = (B[i] - sum_{k>i} U[i][k] X[k]) / U[i][i]
-// so TRSML never reads L's diagonal or upper part and TRSMUL never reads
-// U's strictly-lower part (packed L\U blocks pass unmasked).  Column c
-// belongs to a team of g lanes of one warp (g a power of two, g * bc <=
-// 256): the team splits each row's inner product, reduces it with xor
-// shuffles inside the team, and its first lane writes X[i][c].  Each
-// column is written and read by its own warp only, so a row needs
-// __syncwarp(), not a CTA barrier.  X is held transposed (ld b + 1), so
-// a team's lanes read consecutive addresses.
+//   X[i] = (B[i] - sum_{k>i} U[i][k] X[k]) / U[i][i]
+// so U's strictly-lower part is never read (packed L\U blocks pass
+// unmasked).  Column c belongs to a team of g lanes of one warp (g a power
+// of two, g * bc <= 256): the team splits each row's inner product, reduces
+// it with xor shuffles inside the team, and its first lane writes X[i][c].
+// Each column is written and read by its own warp only, so a row needs
+// __syncwarp(), not a CTA barrier.  X is held transposed (ld b + 1), so a
+// team's lanes read consecutive addresses.
 // ---------------------------------------------------------------------------
-template <bool kUpper>
-__device__ __forceinline__ void trsm_rows(const float* tgrid, int tnc, const int* tidx,
-                                          long long tlane, float* bgrid, int bnc,
-                                          const int* bidx, long long blane, int b, int bc,
-                                          int g) {
+__global__ void __launch_bounds__(kThreads)
+trsmul_kernel(const float* tgrid, int tnc, const int* tidx, long long tlane, float* bgrid,
+              int bnc, const int* bidx, long long blane, int b, int bc, int g) {
   extern __shared__ float smem[];
   const int ld = b + 1;
   float* T = smem;           // the triangle, row-major, padded
@@ -182,90 +164,17 @@ __device__ __forceinline__ void trsm_rows(const float* tgrid, int tnc, const int
   const bool own = c < bc;
   float* x = XT + (own ? c : 0) * ld;
   for (int step = 0; step < b; ++step) {
-    const int i = kUpper ? b - 1 - step : step;
+    const int i = b - 1 - step;
     float s = 0.f;
     if (own) {
-      if (kUpper) {
-        for (int k = i + 1 + sub; k < b; k += g) s += T[i * ld + k] * x[k];
-      } else {
-        for (int k = sub; k < i; k += g) s += T[i * ld + k] * x[k];
-      }
+      for (int k = i + 1 + sub; k < b; k += g) s += T[i * ld + k] * x[k];
     }
     for (int off = g / 2; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (own && sub == 0) x[i] = kUpper ? (x[i] - s) / T[i * ld + i] : x[i] - s;
+    if (own && sub == 0) x[i] = (x[i] - s) / T[i * ld + i];
     __syncwarp();
   }
   __syncthreads();
   for (int e = threadIdx.x; e < b * bc; e += kThreads) bt[e] = XT[(e % bc) * ld + e / bc];
-}
-
-__global__ void __launch_bounds__(kThreads)
-trsml_kernel(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid,
-             int bnc, const int* bidx, long long blane, int b, int bc, int g) {
-  trsm_rows<false>(lgrid, lnc, lidx, llane, bgrid, bnc, bidx, blane, b, bc, g);
-}
-
-__global__ void __launch_bounds__(kThreads)
-trsmul_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid,
-              int bnc, const int* bidx, long long blane, int b, int bc, int g) {
-  trsm_rows<true>(ugrid, unc, uidx, ulane, bgrid, bnc, bidx, blane, b, bc, g);
-}
-
-// ---------------------------------------------------------------------------
-// GEMM: C (m x q) -= A (m x kd) B^T with B (q x kd) row-major (square
-// tiles, m == kd == q).  256 threads as a 16 x 16 grid;
-// thread (tx, ty) owns C[ty + 16 i][tx + 16 j] for i, j < R.
-// ---------------------------------------------------------------------------
-template <int R>
-__device__ __forceinline__ void update_tile(const float* A, const float* Bm, float* C, int m,
-                                            int kd, int q) {
-  __shared__ float As[kKC][kMaxB + 1];
-  __shared__ float Bs[kKC][kMaxB + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < kd; k0 += kKC) {
-    const int kc = min(kKC, kd - k0);
-    // square: A and B staged in one pass
-    for (int e = threadIdx.x; e < m * kc; e += blockDim.x) {
-      const int r = e / kc, kk = e % kc;
-      As[kk][r] = A[r * kd + k0 + kk];
-      Bs[kk][r] = Bm[r * kd + k0 + kk];
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kc; ++kk) {
-      float av[R], bv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < R; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      if (r < m && c < q) C[r * q + c] -= acc[i][j];
-    }
-}
-
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(const float* ag, int anc, const int* aidx, long long alane, const float* bg,
-            int bnc, const int* bidx, long long blane, float* cg, int cnc, const int* cidx,
-            long long clane, int b) {
-  update_tile<R>(ag + block_offset(aidx, blockIdx.x, anc, b, b, alane),
-                 bg + block_offset(bidx, blockIdx.x, bnc, b, b, blane),
-                 cg + block_offset(cidx, blockIdx.x, cnc, b, b, clane), b, b, b);
 }
 
 int row_threads(int b) { return ((b + 31) / 32) * 32; }
@@ -317,35 +226,6 @@ int tile_trsm(const float* lgrid, int lnc, const int* lidx, long long llane, flo
   if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
   return launch_smem(trsm_kernel, n, batch, row_threads(b), padded_bytes(2 * b, b), stream, lgrid,
                      lnc, lidx, llane, bgrid, bnc, bidx, blane, b);
-}
-
-#define TILE_DISPATCH(KERNEL, EDGE, ...)                                          \
-  switch (((EDGE) + 15) / 16) {                                                   \
-    case 1: KERNEL<1><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
-    case 2: KERNEL<2><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
-    case 3: KERNEL<3><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
-    case 4: KERNEL<4><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
-    case 5: KERNEL<5><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
-    case 6: KERNEL<6><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
-    case 7: KERNEL<7><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;    \
-    default: KERNEL<8><<<dim3(n, batch), kThreads, 0, s>>>(__VA_ARGS__); break;   \
-  }
-
-int tile_gemm(const float* ag, int anc, const int* aidx, long long alane, const float* bg,
-              int bnc, const int* bidx, long long blane, float* cg, int cnc, const int* cidx,
-              long long clane, int n, int batch, int b, void* stream) {
-  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  TILE_DISPATCH(gemm_kernel, b, ag, anc, aidx, alane, bg, bnc, bidx, blane, cg, cnc, cidx, clane, b)
-  return (int)cudaGetLastError();
-}
-
-int tile_trsml(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid,
-               int bnc, const int* bidx, long long blane, int n, int batch, int b, int bc,
-               void* stream) {
-  if (bad_args(n, batch, b) || bad_edge(bc)) return (int)cudaErrorInvalidValue;
-  return launch_smem(trsml_kernel, n, batch, kThreads, padded_bytes(b + bc, b), stream, lgrid, lnc,
-                     lidx, llane, bgrid, bnc, bidx, blane, b, bc, team_lanes(bc));
 }
 
 int tile_trsmul(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid,

@@ -1,12 +1,14 @@
-// Hand-written Hopper (sm_90a) kernels for four of the tile bodies of
+// Hand-written Hopper (sm_90a) kernels for six of the nine tile bodies of
 // blocked Cholesky and pivot-free LU, redesigned from the simple
-// one-CTA-per-task kernels of tile_linalg.cu (whose other five kernels stay
+// one-CTA-per-task kernels of tile_linalg.cu (whose other three kernels stay
 // there, unchanged).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tile_linalg.py:
 //   getrf_kernel   <- _getrf_tile  / batched_getrf  / grid_getrf
+//   trsml_kernel   <- _trsml_tile  / batched_trsml  / grid_trsml
 //   trsmu_kernel   <- _trsmu_tile  / batched_trsmu  / grid_trsmu
 //   syrk_kernel    <- _syrk_tile   / batched_syrk   / grid_syrk
+//   gemm_kernel    <- _gemm_tile   / batched_gemm   / grid_gemm
 //   gemmnn_kernel  <- _gemmnn_tile / batched_gemmnn / grid_gemmnn
 // in the three forms of tile_linalg.cu: the fused grid form (make_grid_fused's
 // kernel: blocks read through (n, 2) int32 indices, the written block updated
@@ -124,6 +126,52 @@
 // bounds it: like GEMMNN, bytes for large groups, filling the card for
 // small ones.
 //
+// GEMM: C (b x b) -= A B^T, the Cholesky trailing update, is SYRK with B's
+// own block: the same tile, the same kBT staging (B^T from B's rows), the
+// same split and accumulation.  The simple kernel ran one CTA a task in fp32
+// FMAs behind synchronous staging, the 465-task group at 5.4x its bound;
+// now that group runs as 1860 CTAs of 64^2, a 1-task group as 16 of 32^2.
+// Both share one body (abt_piece); they keep two __global__ names because
+// the profiler's trace tells the kernels apart by name.  Bound: bytes (the
+// group's distinct blocks) for large groups, filling the card for small ones.
+//
+// TRSML: X = inv(L) B, L (b x b) unit lower, B (b x bc), in place.  L's
+// diagonal and upper part are U's junk of a packed L\U block, never used.
+// What bounds it on H100: latency.  It is TRSMU transposed: column c of X
+// depends only on column c of B, but within a column the rows form the
+// recurrence
+//   x_i = b_i - sum_{k<i} L[i][k] x_k,
+// which the simple kernel ran on one CTA a task, a team of lanes a column, b
+// dependent steps each a team dot product and a 5-deep shuffle reduction
+// (the LU plan's 31-task group on 31 of 132 SMs; at bc = 1 one warp did the
+// whole solve).  The design mirrors TRSMU's:
+// - columns split across CTAs: 16 or 32 columns each, chosen by the wrapper
+//   from the group's size: 16 while those CTAs fit on the SMs at once, else
+//   32, which stage L half as often (the 31-task group on 124 CTAs, the
+//   served 7 x 64 group on 1792); every CTA reads the task's L (from L2);
+// - the recurrence blocked by 16 rows.  A half-warp owns a column, lane r the
+//   row I0 + r of block I.  The block is first updated by the rows before
+//   it, X_I -= L_{I,<I} X_{<I} (a float4 of L's row and of X's column a
+//   step, four FMA chains a lane, k mod 4), then solved by a unit-lower
+//   substitution inside the half-warp: lane j hands x_j to the later lanes by
+//   shuffle, lanes r > j take L[I0 + r][I0 + j] x_j; no division.  The
+//   dependent chain falls to 112 FMAs plus 128 shuffle steps;
+// - both sums start from zero and are subtracted once, as the plain version
+//   does.  L's products are small against B's entries on the LU's blocks:
+//   summed into B they lost their low bits, and the solves' errors rose
+//   1.4x (matrix) and 1.7x (vector) over the simple kernel's; apart, they
+//   equal them, for 2-3 % of the time;
+// - at bc < 16 (the vector solve's bc = 1) one half-warp carries that chain
+//   on a 16-column CTA.  A mapping that split each block's update over all
+//   16 half-warps by slices of k (partials reduced through shared memory,
+//   one CTA barrier a block) was slower at bc = 1, 8 and 15 on the card: the
+//   in-block shuffle chain, the staging and the launch take most of the time
+//   there, and it added a reduction and a barrier a block;
+// - shared memory holds only L's lower panels (row block I, columns
+//   0 .. I0 + 15, row-major: 38 KB at b = 128) and the CTA's columns of X,
+//   transposed (9 or 17 KB), so four CTAs share an SM in a stacked launch;
+//   both are staged by cp.async and X is written back coalesced at the end.
+//
 // Every entry point returns cudaGetLastError() (0 = launched); the Python
 // wrapper raises on anything else, since a refused launch never runs and a
 // later synchronize would not report it.
@@ -149,14 +197,14 @@ __device__ __forceinline__ long long block_offset(const int* idx, int task, int 
 // TRSMU
 // ---------------------------------------------------------------------------
 constexpr int kW = 16;                         // column block: a half-warp, a lane a column
-constexpr int kTrsmuThreads = 256;
-constexpr int kHalfWarps = kTrsmuThreads / kW;  // rows in flight: one a half-warp
+constexpr int kSolveThreads = 256;
+constexpr int kHalfWarps = kSolveThreads / kW;  // rows in flight: one a half-warp
 
 // floats of U's first nblk packed upper panels (panel J is (16 J + 16) x 16)
 __host__ __device__ constexpr int panel_floats(int nblk) { return kW * kW * nblk * (nblk + 1) / 2; }
 
 template <int kRowsPerHalfWarp>
-__global__ void __launch_bounds__(kTrsmuThreads)
+__global__ void __launch_bounds__(kSolveThreads)
 trsmu_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid, int bnc,
              const int* bidx, long long blane, int br, int b, int ldx) {
   constexpr int kRows = kHalfWarps * kRowsPerHalfWarp;  // rows of B this CTA solves
@@ -173,13 +221,13 @@ trsmu_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, floa
   for (int J = 0; J < nblk; ++J) {
     float* p = P + panel_floats(J);
     const int J0 = J * kW;
-    for (int e = threadIdx.x; e < (J0 + kW) * kW; e += kTrsmuThreads) {
+    for (int e = threadIdx.x; e < (J0 + kW) * kW; e += kSolveThreads) {
       const int k = e / kW, c = J0 + e % kW;
       p[e] = k < b && c < b ? U[k * b + c] : 0.f;
     }
   }
-  for (int e = threadIdx.x; e < rows * b; e += kTrsmuThreads) X[(e / b) * ldx + e % b] = B[e];
-  for (int e = threadIdx.x; e < ldx; e += kTrsmuThreads) X[kRows * ldx + e] = 0.f;
+  for (int e = threadIdx.x; e < rows * b; e += kSolveThreads) X[(e / b) * ldx + e % b] = B[e];
+  for (int e = threadIdx.x; e < ldx; e += kSolveThreads) X[kRows * ldx + e] = 0.f;
   __syncthreads();
 
   const int hw = threadIdx.x / kW, c = threadIdx.x % kW;
@@ -535,18 +583,179 @@ gemmnn_kernel(const float* ag, int anc, const int* aidx, long long alane, const 
 }
 
 // ---------------------------------------------------------------------------
-// SYRK: C (b x b) -= A A^T, the full square, on GEMMNN's tensor-core tile
-// with B = A^T staged from A's own rows
+// GEMM and SYRK: C (b x b) -= A B^T (SYRK: B = A), the full square, on
+// GEMMNN's tensor-core tile with B^T staged from B's own rows
 // ---------------------------------------------------------------------------
+template <int kTile>
+__device__ __forceinline__ void abt_piece(const float* ag, int anc, const int* aidx, long long alane,
+                                          const float* bg, int bnc, const int* bidx, long long blane, float* cg,
+                                          int cnc, const int* cidx, long long clane, int b, int vec) {
+  const int pieces = gemmnn_pieces(kTile, b, b);
+  const int task = blockIdx.x / pieces, piece = blockIdx.x % pieces;
+  gemmnn_mma<kTile, true>(ag + block_offset(aidx, task, anc, b, b, alane),
+                          bg + block_offset(bidx, task, bnc, b, b, blane),
+                          cg + block_offset(cidx, task, cnc, b, b, clane), b, b, b, piece, vec != 0);
+}
+
+template <int kTile>
+__global__ void __launch_bounds__(kGemmnnThreads<kTile>)
+gemm_kernel(const float* ag, int anc, const int* aidx, long long alane, const float* bg, int bnc, const int* bidx,
+            long long blane, float* cg, int cnc, const int* cidx, long long clane, int b, int vec) {
+  abt_piece<kTile>(ag, anc, aidx, alane, bg, bnc, bidx, blane, cg, cnc, cidx, clane, b, vec);
+}
+
 template <int kTile>
 __global__ void __launch_bounds__(kGemmnnThreads<kTile>)
 syrk_kernel(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc, const int* cidx,
             long long clane, int b, int vec) {
-  const int pieces = gemmnn_pieces(kTile, b, b);
-  const int task = blockIdx.x / pieces, piece = blockIdx.x % pieces;
-  const float* A = ag + block_offset(aidx, task, anc, b, b, alane);
-  float* C = cg + block_offset(cidx, task, cnc, b, b, clane);
-  gemmnn_mma<kTile, true>(A, A, C, b, b, b, piece, vec != 0);
+  abt_piece<kTile>(ag, anc, aidx, alane, ag, anc, aidx, alane, cg, cnc, cidx, clane, b, vec);
+}
+
+// ---------------------------------------------------------------------------
+// TRSML
+// ---------------------------------------------------------------------------
+// L's lower panels: panel I is rows 16 I .. 16 I + 15 of L, columns
+// 0 .. 16 I + 15, row-major at a row stride of 16 I + 20 floats (a multiple of
+// 4 whose quarter is odd: the 16 lanes' float4 reads of one column quad hit
+// distinct banks), at panel_offset(I) = sum_{J<I} 16 (16 J + 20) floats.
+__host__ __device__ constexpr int lpanel_ld(int I) { return kW * I + kW + 4; }
+__host__ __device__ constexpr int lpanel_floats(int nblk) {
+  return kW * (kW * nblk * (nblk - 1) / 2 + (kW + 4) * nblk);
+}
+
+// Stage L's lower panels (the diagonal blocks' upper halves come along,
+// unused) and B's `cols` columns from c0, transposed (X[col * ldx + row]),
+// by cp.async, zero past b; then publish them to the CTA.
+__device__ __forceinline__ void trsml_stage(float* P, float* X, const float* L, const float* B, int b, int bc,
+                                            int c0, int cols, int ldx, bool vec) {
+  const int nblk = (b + kW - 1) / kW;
+  for (int I = 0; I < nblk; ++I) {
+    float* p = P + lpanel_floats(I);
+    const int ld = lpanel_ld(I), r0 = kW * I, w = r0 + kW;
+    if (vec) {  // b % 4 == 0 and a 16-byte aligned block: a quad is all in or all out
+      const int q = w / 4;
+      for (int e = threadIdx.x; e < kW * q; e += kSolveThreads) {
+        const int r = e / q, k = 4 * (e % q);
+        const bool ok = r0 + r < b && k < b;
+        cp_async16(p + r * ld + k, ok ? L + (r0 + r) * b + k : L, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kW * w; e += kSolveThreads) {
+        const int r = e / w, k = e % w;
+        const bool ok = r0 + r < b && k < b;
+        cp_async4(p + r * ld + k, ok ? L + (r0 + r) * b + k : L, ok);
+      }
+    }
+  }
+  for (int e = threadIdx.x; e < b * cols; e += kSolveThreads) {
+    const int row = e / cols, col = e % cols;
+    cp_async4(X + col * ldx + row, B + row * bc + c0 + col, true);
+  }
+  cp_async_commit();
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+}
+
+// Block I's unit-lower substitution inside the half-warp, for each of its kN
+// columns: lane j hands x_j = x - t to the later lanes by shuffle, lanes
+// r > j add L[I0 + r][I0 + j] x_j into t, and x - t is taken last.  d is row
+// I0 + r of L from column I0.
+template <int kN>
+__device__ __forceinline__ void unit_lower_block(float (&x)[kN], const float* d, int r, int w) {
+  float l[kW];
+#pragma unroll
+  for (int q = 0; q < kW / 4; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(d + 4 * q);
+    l[4 * q] = v.x, l[4 * q + 1] = v.y, l[4 * q + 2] = v.z, l[4 * q + 3] = v.w;
+  }
+  float t[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) t[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    if (j < w) {
+#pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        const float xj = __shfl_sync(0xffffffffu, x[i] - t[i], j, kW);
+        if (r > j) t[i] = fmaf(l[j], xj, t[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) x[i] -= t[i];
+}
+
+// The column-split mapping: kColsPerHalfWarp columns a half-warp, 16 or 32
+// a CTA; X + kCols * ldx is a zero column, which a half-warp past the CTA's
+// last column computes on and never writes, so every shuffle runs on a
+// converged warp.  A column never leaves its half-warp: no CTA barrier.
+template <int kColsPerHalfWarp>
+__device__ __forceinline__ void trsml_columns(const float* P, float* X, int b, int cols, int ldx) {
+  constexpr int kCols = kHalfWarps * kColsPerHalfWarp;
+  const int nblk = (b + kW - 1) / kW, hw = threadIdx.x / kW, r = threadIdx.x % kW;
+  float* xc[kColsPerHalfWarp];
+  bool own[kColsPerHalfWarp];
+#pragma unroll
+  for (int i = 0; i < kColsPerHalfWarp; ++i) {
+    const int col = hw + kHalfWarps * i;
+    own[i] = col < cols;
+    xc[i] = X + (own[i] ? col : kCols) * ldx;
+  }
+  for (int I = 0; I < nblk; ++I) {
+    const int I0 = I * kW, w = min(kW, b - I0);
+    const float* lr = P + lpanel_floats(I) + r * lpanel_ld(I);  // row I0 + r of L
+    // X_I -= L_{I,<I} X_{<I}: four solved rows of the column a shared load,
+    // summed from zero in four chains (k mod 4), then subtracted once
+    float x[kColsPerHalfWarp], s[kColsPerHalfWarp][4];
+#pragma unroll
+    for (int i = 0; i < kColsPerHalfWarp; ++i) {
+      x[i] = r < w ? xc[i][I0 + r] : 0.f;
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    }
+    for (int k = 0; k < I0; k += 4) {
+      const float4 l = *reinterpret_cast<const float4*>(lr + k);
+#pragma unroll
+      for (int i = 0; i < kColsPerHalfWarp; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(xc[i] + k);
+        s[i][0] = fmaf(l.x, v.x, s[i][0]);
+        s[i][1] = fmaf(l.y, v.y, s[i][1]);
+        s[i][2] = fmaf(l.z, v.z, s[i][2]);
+        s[i][3] = fmaf(l.w, v.w, s[i][3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kColsPerHalfWarp; ++i) x[i] -= (s[i][0] + s[i][1]) + (s[i][2] + s[i][3]);
+    unit_lower_block(x, lr + I0, r, w);
+#pragma unroll
+    for (int i = 0; i < kColsPerHalfWarp; ++i)
+      if (own[i] && r < w) xc[i][I0 + r] = x[i];
+    __syncwarp();  // the column's new rows, before the next block reads them
+  }
+}
+
+// kColsPerHalfWarp 1 or 2: 16 or 32 columns of B a CTA
+template <int kColsPerHalfWarp>
+__global__ void __launch_bounds__(kSolveThreads)
+trsml_kernel(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid, int bnc,
+             const int* bidx, long long blane, int b, int bc, int ldx, int vec) {
+  constexpr int kCols = kHalfWarps * kColsPerHalfWarp;
+  extern __shared__ __align__(16) float smem[];
+  const int nblk = (b + kW - 1) / kW;
+  const int splits = (bc + kCols - 1) / kCols;
+  const int task = blockIdx.x / splits, c0 = (blockIdx.x % splits) * kCols;
+  const int cols = min(kCols, bc - c0);
+  const float* L = lgrid + block_offset(lidx, task, lnc, b, b, llane);
+  float* B = bgrid + block_offset(bidx, task, bnc, b, bc, blane);
+  float* P = smem;                       // panel I at P + lpanel_floats(I)
+  float* X = smem + lpanel_floats(nblk);  // the CTA's columns of X, then a zero column
+  for (int e = threadIdx.x; e < ldx; e += kSolveThreads) X[kCols * ldx + e] = 0.f;
+  trsml_stage(P, X, L, B, b, bc, c0, cols, ldx, vec != 0);
+  trsml_columns<kColsPerHalfWarp>(P, X, b, cols, ldx);
+  __syncthreads();  // X solved: written back coalesced
+  for (int e = threadIdx.x; e < b * cols; e += kSolveThreads) {
+    const int row = e / cols, col = e % cols;
+    B[row * bc + c0 + col] = X[col * ldx + row];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -645,8 +854,9 @@ bool bad_edge(int e) { return e < 1 || e > kMaxB; }
 
 bool bad_args(int n, int batch, int b) { return n < 1 || batch < 1 || batch > kMaxBatch || bad_edge(b); }
 
-// X's row stride: a multiple of 4 (float4 loads), never of 32 (the two
-// half-warps of a warp read two rows in distinct banks)
+// X's row stride (TRSMU) or column stride (TRSML, X held transposed): a
+// multiple of 4 (float4 loads), never of 32 (the two half-warps of a warp
+// read two rows or columns in distinct banks)
 int x_stride(int b) {
   const int ld = (b + 3) / 4 * 4 + 4;
   return ld % 32 == 0 ? ld + 4 : ld;
@@ -656,8 +866,8 @@ using TrsmuKernel = void (*)(const float*, int, const int*, long long, float*, i
                              int, int, int);
 using GemmnnKernel = void (*)(const float*, int, const int*, long long, const float*, int, const int*,
                               long long, float*, int, const int*, long long, int, int, int, int);
-using SyrkKernel = void (*)(const float*, int, const int*, long long, float*, int, const int*, long long, int,
-                            int);
+using TrsmlKernel = void (*)(const float*, int, const int*, long long, float*, int, const int*, long long,
+                             int, int, int, int);
 
 struct Launch {
   int ctas, threads, smem;  // CTAs a lane, threads a CTA, dynamic shared memory bytes
@@ -668,7 +878,7 @@ bool trsmu_launch(int rows, int n, int br, int b, Launch* out, TrsmuKernel* kern
   if (rows != 16 && rows != 32) return false;
   *kernel = rows == 16 ? &trsmu_kernel<1> : &trsmu_kernel<2>;
   const int nblk = (b + kW - 1) / kW;
-  *out = {n * ((br + rows - 1) / rows), kTrsmuThreads,
+  *out = {n * ((br + rows - 1) / rows), kSolveThreads,
           (panel_floats(nblk) + (rows + 1) * x_stride(b)) * (int)sizeof(float)};
   return true;
 }
@@ -701,10 +911,18 @@ bool gemmnn_launch(int tile, int n, int m, int k, int q, Launch* out, GemmnnKern
   return true;
 }
 
-// SYRK's launch for output tile `tile` (32 or 64); false for any other
-bool syrk_launch(int tile, int n, int b, Launch* out, SyrkKernel* kernel) {
+// TRSML's launch for `cols` (16 or 32) columns of B a CTA; false if cols is neither
+bool trsml_launch(int cols, int n, int b, int bc, Launch* out, TrsmlKernel* kernel) {
+  if (cols != 16 && cols != 32) return false;
+  *kernel = cols == 16 ? &trsml_kernel<1> : &trsml_kernel<2>;
+  *out = {n * ((bc + cols - 1) / cols), kSolveThreads,
+          (lpanel_floats((b + kW - 1) / kW) + (cols + 1) * x_stride(b)) * (int)sizeof(float)};
+  return true;
+}
+
+// SYRK's and GEMM's launch for output tile `tile` (32 or 64); false for any other
+bool abt_launch(int tile, int n, int b, Launch* out) {
   if (tile != 32 && tile != 64) return false;
-  *kernel = tile == 32 ? &syrk_kernel<32> : &syrk_kernel<64>;
   *out = {n * gemmnn_pieces(tile, b, b), tile == 32 ? kGemmnnThreads<32> : kGemmnnThreads<64>,
           kStages * slot_floats(tile, true) * (int)sizeof(float)};
   return true;
@@ -755,14 +973,34 @@ int tile_gemmnn(const float* ag, int anc, const int* aidx, long long alane, cons
                      blane, cg, cnc, cidx, clane, m, k, q, vec);
 }
 
+int tile_trsml(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid, int bnc,
+               const int* bidx, long long blane, int n, int batch, int b, int bc, int cols, void* stream) {
+  Launch l;
+  TrsmlKernel kernel;
+  if (bad_args(n, batch, b) || bad_edge(bc) || !trsml_launch(cols, n, b, bc, &l, &kernel))
+    return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(lgrid, llane) && b % 4 == 0;
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, lgrid, lnc, lidx, llane, bgrid, bnc,
+                     bidx, blane, b, bc, x_stride(b), vec);
+}
+
 int tile_syrk(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc, const int* cidx,
               long long clane, int n, int batch, int b, int tile, void* stream) {
   Launch l;
-  SyrkKernel kernel;
-  if (bad_args(n, batch, b) || !syrk_launch(tile, n, b, &l, &kernel)) return (int)cudaErrorInvalidValue;
+  if (bad_args(n, batch, b) || !abt_launch(tile, n, b, &l)) return (int)cudaErrorInvalidValue;
   const int vec = aligned16(ag, alane) && aligned16(cg, clane) && b % 4 == 0;
-  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, ag, anc, aidx, alane, cg, cnc, cidx, clane,
-                     b, vec);
+  return launch_smem(tile == 32 ? &syrk_kernel<32> : &syrk_kernel<64>, l.ctas, batch, l.threads, l.smem, stream,
+                     ag, anc, aidx, alane, cg, cnc, cidx, clane, b, vec);
+}
+
+int tile_gemm(const float* ag, int anc, const int* aidx, long long alane, const float* bg, int bnc,
+              const int* bidx, long long blane, float* cg, int cnc, const int* cidx, long long clane, int n,
+              int batch, int b, int tile, void* stream) {
+  Launch l;
+  if (bad_args(n, batch, b) || !abt_launch(tile, n, b, &l)) return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(ag, alane) && aligned16(bg, blane) && aligned16(cg, clane) && b % 4 == 0;
+  return launch_smem(tile == 32 ? &gemm_kernel<32> : &gemm_kernel<64>, l.ctas, batch, l.threads, l.smem, stream,
+                     ag, anc, aidx, alane, bg, bnc, bidx, blane, cg, cnc, cidx, clane, b, vec);
 }
 
 int tile_getrf(float* grid, int nc, const int* idx, long long lane, int n, int batch, int b, void* stream) {

@@ -1,11 +1,13 @@
-"""The redesigned GETRF, TRSMU, SYRK and GEMMNN kernels
+"""The redesigned GETRF, TRSML, TRSMU, SYRK, GEMM and GEMMNN kernels
 (``csrc/tile_lu_sm90.cu``) on the CPU: emulations of their arithmetic
 against the JAX package's Pallas kernels (interpret mode) on the same numpy
-inputs, the wrapper's choice of launch shape, and the source's notes.  The CUDA kernels themselves run only
-on the card: chip_smoke.py holds them against the plain versions.
+inputs, the wrapper's choice of launch shape, and the source's notes.  The
+CUDA kernels themselves run only on the card: chip_smoke.py holds them
+against the plain versions.
 
-Tolerances are tests/test_kernels.py's: GEMMNN and SYRK 1e-4, TRSMU 2e-3,
-GETRF 2e-4 (atol = rtol), the same as chip_smoke.py's ``TOL``."""
+Tolerances are tests/test_kernels.py's: GEMMNN, SYRK and GEMM 1e-4, TRSML
+and TRSMU 2e-3, GETRF 2e-4 (atol = rtol), the same as chip_smoke.py's
+``TOL``."""
 
 import re
 
@@ -129,18 +131,52 @@ def test_blocked_trsmu_order_matches_pallas(width, br, b):
     torch.testing.assert_close(trsmu_blocked(junk, torch.from_numpy(rhs), width), got, rtol=0, atol=0)
 
 
+def trsml_blocked(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's order for X = inv(L) B, L unit lower: row blocks of 16;
+    block I first takes X_I -= L_{I,<I} X_{<I}, then a unit-lower
+    substitution inside the block whose products are summed apart (t) and
+    subtracted last (x_j = x - t handed to the block's later rows; no
+    division).  Reads only L's strictly lower triangle."""
+    l, x = l.float(), b.float().clone()
+    n = l.shape[-1]
+    for i0 in range(0, n, 16):
+        i1 = min(i0 + 16, n)
+        x[..., i0:i1, :] -= l[..., i0:i1, :i0] @ x[..., :i0, :]
+        t = torch.zeros_like(x[..., i0:i1, :])
+        for j in range(i0, i1):
+            xj = x[..., j, None, :] - t[..., j - i0, None, :]
+            t[..., j - i0 + 1 :, :] += l[..., j + 1 : i1, j, None] * xj
+        x[..., i0:i1, :] -= t
+    return x
+
+
+@pytest.mark.parametrize("b,bc", [(8, 1), (24, 5), (40, 40), (33, 24), (128, 1), (128, 128)])
+def test_blocked_trsml_order_matches_pallas(b, bc):
+    rng = np.random.default_rng(b * 131 + bc)
+    l = _packed(rng, 2, b)
+    rhs = rng.standard_normal((2, b, bc)).astype(np.float32) * 0.3
+    want = np.asarray(jtl.batched_trsml(jnp.asarray(l), jnp.asarray(rhs), interpret=True))
+    got = trsml_blocked(torch.from_numpy(l), torch.from_numpy(rhs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=TRSMU_TOL, atol=TRSMU_TOL)
+    # the diagonal and the upper junk are never read
+    junk = torch.from_numpy(l) + torch.triu(torch.full((b, b), 7.0))
+    torch.testing.assert_close(trsml_blocked(junk, torch.from_numpy(rhs)), got, rtol=0, atol=0)
+
+
 SQ = [(128, 128)] * 3
 H100_SMS = 132
 
 
 def ctas(name, tiles, n, lanes, shape):
     """CTAs a launch of ``n`` tasks over ``lanes`` lanes makes at launch shape
-    ``shape``: TRSMU's row pieces of B, GEMMNN's output tiles (32 rows a
-    matrix-vector CTA)."""
+    ``shape``: TRSMU's row pieces of B, TRSML's column pieces, the output
+    tiles of GEMMNN (32 rows a matrix-vector CTA), SYRK and GEMM."""
     m = tiles[-1][0]
     if name == "trsmu":
         return n * lanes * -(-m // shape)
     q = tiles[-1][1]
+    if name == "trsml":
+        return n * lanes * -(-q // shape)
     return n * lanes * (-(-m // 32) if shape == 0 else -(-m // shape) * -(-q // shape))
 
 
@@ -163,6 +199,30 @@ def test_narrow_gemmnn_takes_the_matrix_vector_mapping(q):
     assert tl.launch_shape("gemmnn", [(128, 128), (128, 8), (128, 8)], 31, 1, H100_SMS) != (0,)
 
 
+def test_trsml_splits_columns_across_ctas():
+    """16 columns a CTA while those CTAs fit on the SMs at once, else 32 (the
+    LU plan's 31-task group as 124 CTAs, the served 7 x 64 group as 1792)."""
+    tiles = [(128, 128), (128, 128)]
+    for n, lanes, shape, want in ((31, 1, 32, 124), (7, 64, 32, 1792), (1, 1, 16, 8), (16, 1, 16, 128),
+                                  (17, 1, 32, 68), (465, 1, 32, 1860)):
+        assert tl.launch_shape("trsml", tiles, n, lanes, H100_SMS) == (shape,)
+        assert ctas("trsml", tiles, n, lanes, shape) == want
+    # bc <= 16: one CTA a task, 16 columns (32 would leave half its half-warps on the zero column)
+    for n, lanes, bc in ((1, 1, 1), (465, 1, 1), (8, 64, 1), (465, 1, 16)):
+        assert tl.launch_shape("trsml", [(128, 128), (128, bc)], n, lanes, H100_SMS) == (16,)
+        assert ctas("trsml", [(128, 128), (128, bc)], n, lanes, 16) == n * lanes
+    assert tl.launch_shape("trsml", [(128, 128), (128, 17)], 465, 1, H100_SMS) == (32,)
+
+
+def test_gemm_splits_its_output_like_syrk():
+    """The Cholesky plan's 465-task GEMM group as 1860 CTAs of 64^2, the
+    served 21 x 64 group as 5376, a 1-task group as 16 of 32^2."""
+    for n, lanes, shape, want in ((465, 1, 64, 1860), (31, 1, 32, 496), (21, 64, 64, 5376), (1, 1, 32, 16)):
+        assert tl.launch_shape("gemm", SQ, n, lanes, H100_SMS) == (shape,)
+        assert tl.launch_shape("gemm", SQ, n, lanes, H100_SMS) == tl.launch_shape("syrk", SQ[:2], n, lanes, H100_SMS)
+        assert ctas("gemm", SQ, n, lanes, shape) == want
+
+
 def test_trsmu_splits_rows_across_ctas():
     tiles = [(128, 128), (128, 128)]
     assert tl.launch_shape("trsmu", tiles, 31, 1, H100_SMS) == (16,)
@@ -176,12 +236,16 @@ def test_trsmu_splits_rows_across_ctas():
 def test_launch_shapes_are_ones_the_c_launchers_take(n, lanes, edge):
     (rows,) = tl.launch_shape("trsmu", [(96, 96), (edge, 96)], n, lanes, H100_SMS)
     assert rows in (16, 32)
+    (cols,) = tl.launch_shape("trsml", [(96, 96), (96, edge)], n, lanes, H100_SMS)
+    assert cols in (16, 32)
+    assert ctas("trsml", [(96, 96), (96, edge)], n, lanes, cols) >= n * lanes
     for q in (1, 7, 8, edge):
         tiles = [(edge, 96), (96, q), (edge, q)]
         (tile,) = tl.launch_shape("gemmnn", tiles, n, lanes, H100_SMS)
         assert tile in (32, 64) or (tile == 0 and q < 8)
         assert ctas("gemmnn", tiles, n, lanes, tile) >= n * lanes
     assert tl.launch_shape("syrk", [(edge, edge)] * 2, n, lanes, H100_SMS)[0] in (32, 64)
+    assert tl.launch_shape("gemm", [(edge, edge)] * 3, n, lanes, H100_SMS)[0] in (32, 64)
 
 
 @pytest.mark.parametrize("edge", [0, 129])
@@ -197,11 +261,11 @@ def test_launch_shape_refuses_edges_outside_the_limit(edge):
 
 def test_lu_sm90_source_notes_what_it_replaces():
     """The redesigned kernels' source names the TPU kernels it replaces and
-    what bounds them, runs SYRK and GEMMNN as 3xTF32 on the tensor cores with
-    cp.async staging, takes the wrapper's launch shape, and reports launch
-    errors."""
+    what bounds them, runs SYRK, GEMM and GEMMNN as 3xTF32 on the tensor
+    cores with cp.async staging, takes the wrapper's launch shape, and
+    reports launch errors; tile_linalg.cu keeps only the other three."""
     src = (_build.CSRC / "tile_lu_sm90.cu").read_text()
-    sm90 = {"getrf", "trsmu", "syrk", "gemmnn"}
+    sm90 = {"getrf", "trsmu", "syrk", "gemmnn", "trsml", "gemm"}
     assert {k for k, lib in tl.LIBRARY.items() if lib == "tile_lu_sm90"} == sm90
     for name in sm90:
         assert f"_{name}_tile" in src and f"batched_{name}" in src and f"{name}_kernel(" in src
@@ -224,6 +288,9 @@ def test_lu_sm90_source_notes_what_it_replaces():
     head = src[src.index("int launch_smem("):]
     assert re.findall(r"return ([^;]*);", head[: head.index("\n}\n")]) == ["(int)err", "(int)cudaGetLastError()"]
     assert "blockIdx.y * lane" in src and "kMaxBatch = 65535" in src
+    simple = (_build.CSRC / "tile_linalg.cu").read_text()
+    assert set(re.findall(r"int tile_(\w+)\(", simple)) == {"potrf", "trsm", "trsmul"}
+    assert "trsml" not in simple and "gemm" not in simple
 
 
 # --------------------------------------------------------------------------
@@ -244,14 +311,20 @@ def test_promoted_gemmnn_error_within_twice_fp32s(kind):
     assert _err64(gemmnn_tf32(a, b, c, terms=3), a, b, c) <= TC_RATIO * _err64(c - a @ b, a, b, c)
 
 
-@pytest.mark.parametrize("kind", ["dd", "randn"])
-def test_syrk_route_matches_pallas(kind):
-    """SYRK is GEMMNN's tile with B = A^T: C - A A^T, the full square."""
-    a, _, c = _tiles(kind)
-    got = gemmnn_tf32(a, a.T, c, terms=3)
-    want = np.asarray(jtl.batched_syrk(jnp.asarray(a[None]), jnp.asarray(c[None]), interpret=True))[0]
-    np.testing.assert_allclose(got, want, rtol=GEMMNN_TOL, atol=GEMMNN_TOL)
-    assert _err64(got, a, a.T, c) <= TC_RATIO * _err64(c - a @ a.T, a, a.T, c)
+@pytest.mark.parametrize("kind,op", [("dd", "syrk"), ("randn", "syrk"), ("dd", "gemm"), ("randn", "gemm")],
+                         ids=["dd", "randn", "gemm-dd", "gemm-randn"])
+def test_syrk_route_matches_pallas(kind, op):
+    """SYRK and GEMM are GEMMNN's tile with B^T staged from B's rows: C - A
+    A^T and C - A B^T, the full square."""
+    a, b, c = _tiles(kind)
+    if op == "syrk":
+        b = a
+        want = jtl.batched_syrk(jnp.asarray(a[None]), jnp.asarray(c[None]), interpret=True)
+    else:
+        want = jtl.batched_gemm(*(jnp.asarray(x[None]) for x in (a, b, c)), interpret=True)
+    got = gemmnn_tf32(a, b.T, c, terms=3)
+    np.testing.assert_allclose(got, np.asarray(want)[0], rtol=GEMMNN_TOL, atol=GEMMNN_TOL)
+    assert _err64(got, a, b.T, c) <= TC_RATIO * _err64(c - a @ b.T, a, b.T, c)
 
 
 def test_syrk_launch_shapes_fill_the_card():

@@ -141,7 +141,8 @@ def test_stacked_kernel_source_takes_a_lane_dimension():
     for src in srcs.values():
         assert "kernel_stacked" in src and "blockIdx.y * lane" in src
         assert "dim3(n, batch)" in src and "kMaxBatch = 65535" in src
-    assert srcs["tile_linalg"].count("dim3(n, batch)") >= 2
+    for src in srcs.values():  # every launch, on (task, lane)
+        assert src.count("<<<") == src.count("<<<dim3(n, batch)") >= 1
     for name in TOL:
         src = srcs[tl.LIBRARY[name]]
         head = src[src.index(f"int tile_{name}("): src.index("{", src.index(f"int tile_{name}("))]
