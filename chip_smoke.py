@@ -8,16 +8,16 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
 1. Environment: torch/CUDA versions, the card's name and power limit, and
    the build of the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` a source, all started together), with each kernel's
-   registers and spills; the Hopper flash kernel and the redesigned
-   GETRF/TRSML/TRSMU/SYRK/GEMM/GEMMNN (``tile_lu_sm90``) must not spill.
+   registers and spills; the Hopper flash kernel and the eight redesigned
+   tile kernels (``tile_lu_sm90``: all but POTRF) must not spill.
 2. Kernels: each of the nine tile kernels — Cholesky's POTRF, TRSM, SYRK,
    GEMM and LU's GETRF, TRSML, TRSMU, TRSMUL, GEMMNN — is held against its
    plain PyTorch version on the card at b = 8 ... 128 (right-hand-side
-   widths bc = 1, 8 and b where a kernel takes a non-square operand; GETRF,
-   TRSML, TRSMU, SYRK, GEMM and GEMMNN also at the ragged b = 96 and 120,
-   TRSML, TRSMU and GEMMNN with bc = 1, 3, 40 and b, SYRK and GEMM at b = 7
-   and 33, and GEMMNN at m != k), under each launch shape its wrapper may
-   choose (TRSMU's rows and TRSML's columns a CTA, the output tile of
+   widths bc = 1, 8 and b where a kernel takes a non-square operand; all but
+   POTRF also at the ragged b = 96 and 120, TRSML, TRSMU, TRSMUL and GEMMNN
+   with bc = 1, 3, 40 and b, SYRK and GEMM at b = 7 and 33, and GEMMNN at
+   m != k), under each launch shape its wrapper may choose (TRSMU's and
+   TRSM's rows and TRSML's and TRSMUL's columns a CTA, the output tile of
    SYRK, GEMM and GEMMNN), in the fused-grid form (random distinct write
    blocks on random non-square grids, arguments of one tile shape in one
    grid, whole grids compared) and in the batched form (2a), where the
@@ -30,8 +30,8 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    n = 4096, 32 x 32 plan of Cholesky, of LU, or for TRSMUL of the
    matrix-RHS LU solve, on the resident grids; GEMMNN also at a 4-task
    group of the matrix-RHS solve and the largest q = 1 group of the vector
-   solve, TRSML at the vector solve's one-task bc = 1 group) beside its
-   plain version,
+   solve, TRSML and TRSMUL at the vector solve's one-task bc = 1 groups,
+   TRSM at the Cholesky plan's one-task group) beside its plain version,
    one PyTorch library call computing the same group, and the least time
    the card could take (its bound, at the peak rate of the kernel's
    arithmetic route: fp32 FMAs, or 3xTF32 on the tensor cores) (2b); and
@@ -121,11 +121,11 @@ N, P = 4096, 32  # main paths: n x n fp32, P x P partitions -> 128 x 128 tiles
 RHS, RHS_P = 512, 4  # matrix right-hand side of the LU solve: (N, 512) in P x 4 blocks
 TILES = (8, 16, 32, 64, 128)
 # edges that are no power of two, for the redesigned kernels (GETRF's
-# register tile, TRSML's column and TRSMU's row split, the output tiles of
-# SYRK, GEMM and GEMMNN): b, with right-hand-side widths bc where a kernel
-# takes one
+# register tile, the triangular solves' row and column splits and 16-row
+# blocks, the output tiles of SYRK, GEMM and GEMMNN): b, with right-hand-side
+# widths bc where a kernel takes one
 RAGGED, RAGGED_WIDTHS = (96, 120), (1, 3, 40)
-RAGGED_KERNELS = ("getrf", "trsml", "trsmu", "syrk", "gemm", "gemmnn")
+RAGGED_KERNELS = ("getrf", "trsml", "trsmu", "trsmul", "trsm", "syrk", "gemm", "gemmnn")
 # SYRK and GEMM at edges that are no multiple of 4: the 4-byte staging of
 # their B^T from B's rows (GEMMNN_SHAPES take GEMMNN's)
 BT_EDGES = (7, 33)
@@ -134,7 +134,8 @@ GEMMNN_SHAPES = (((96, 120), (120, 40)), ((120, 40), (40, 96)), ((33, 128), (128
                  ((128, 5), (5, 128)))
 # every launch shape each wrapper may choose (tile_linalg.launch_shape), each
 # checked in turn; GEMMNN's 0 (the matrix-vector mapping) only for q < 8
-SHAPES = {"trsml": (16, 32), "trsmu": (16, 32), "syrk": (32, 64), "gemm": (32, 64), "gemmnn": (0, 32, 64)}
+SHAPES = {"trsml": (16, 32), "trsmu": (16, 32), "trsm": (16, 32), "trsmul": (16, 32), "syrk": (32, 64),
+          "gemm": (32, 64), "gemmnn": (0, 32, 64)}
 # 3xTF32 on the tensor cores (but GEMMNN's matrix-vector mapping)
 TENSOR_CORE = ("syrk", "gemm", "gemmnn")
 CHOLESKY = ("potrf", "trsm", "syrk", "gemm")
@@ -175,8 +176,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 EXPECTED_LAUNCHES = {"potrf": 32, "trsm": 31, "syrk": 31, "gemm": 30}  # per drain at P = 32
-# 2b's timings of a kernel at the solves' groups, beside its main-path one
-SOLVE_GROUPS = {"gemmnn": ("gemmnn_solve4", "gemmnn_vector"), "trsml": ("trsml_vector",)}
+# 2b's timings of a kernel at other groups of the plans (the solves', and
+# TRSM's one-task Cholesky group), beside its main-path one
+SOLVE_GROUPS = {"gemmnn": ("gemmnn_solve4", "gemmnn_vector"), "trsml": ("trsml_vector",),
+                "trsmul": ("trsmul_vector",), "trsm": ("trsm_1task",)}
 # the serving path: BatchServer(graph="g2p", max_batch=64) on n = 1024 requests
 # in 8 x 8 partitions (128 x 128 tiles, as on the main paths)
 SN, SP, LANES = 1024, 8, 64
@@ -622,9 +625,10 @@ def kernel_timings(torch, tl) -> dict:
     LU solve plan's; then GEMMNN at the groups where the solves spend its
     launches: a 4-task group of the matrix-RHS solve plan and the largest
     q = 1 group of the vector solve plan (``gemmnn_solve4``,
-    ``gemmnn_vector``), and TRSML at the vector solve plan's one-task
-    bc = 1 group (``trsml_vector``: 32 of its launches, on the critical
-    path)."""
+    ``gemmnn_vector``), TRSML and TRSMUL at the vector solve plan's one-task
+    bc = 1 groups (``trsml_vector``, ``trsmul_vector``: 32 launches each, on
+    the critical path), and TRSM at the Cholesky plan's one-task group
+    (``trsm_1task``: most of its 31 launches are small groups)."""
     from repro_torch.core import dd_matrix, spd_matrix
     from repro_torch.core.data import to_grid
     from repro_torch.linalg import GETRF, LUSOLVE, POTRF
@@ -655,6 +659,9 @@ def kernel_timings(torch, tl) -> dict:
                                          pick=lambda g: on_rhs(g) and g.size == widest)
     out["trsml_vector"] = kernel_timing(torch, tl, "trsml", vec, dd + [vrhs], label=" (vector solve)",
                                         pick=lambda g: g.segments[0][0][1] == 1 and g.size == 1)
+    out["trsmul_vector"] = kernel_timing(torch, tl, "trsmul", vec, dd + [vrhs], label=" (vector solve)",
+                                         pick=lambda g: g.size == 1)
+    out["trsm_1task"] = kernel_timing(torch, tl, "trsm", chol, spd, label=" (1 task)", pick=lambda g: g.size == 1)
     traced_launches(torch, out, "2b")
     return out
 
@@ -2049,9 +2056,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    reports = _build.build(["tile_linalg", "tile_lu_sm90", "flash_attention", "flash_attention_sm90", "matmul"])
+    sources = ["tile_linalg", "tile_lu_sm90", "flash_attention", "flash_attention_sm90", "matmul"]
+    reports = _build.build(sources)
     print(f"kernel build s={time.perf_counter() - t0:.2f} (built: {sorted(reports) or 'cached'})")
-    for name, log in reports.items():
+    for name in sources:  # every library's compiler report, a cached one's too
+        log = (_build._target(name).parent / "build.log").read_text()
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line or "setmaxnreg" in line:
                 print("  ptxas:", line.strip())

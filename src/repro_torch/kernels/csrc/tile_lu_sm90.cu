@@ -1,12 +1,13 @@
-// Hand-written Hopper (sm_90a) kernels for six of the nine tile bodies of
-// blocked Cholesky and pivot-free LU, redesigned from the simple
-// one-CTA-per-task kernels of tile_linalg.cu (whose other three kernels stay
-// there, unchanged).
+// Hand-written Hopper (sm_90a) kernels for eight of the nine tile bodies of
+// blocked Cholesky and pivot-free LU, redesigned from simple one-CTA-per-task
+// kernels (the ninth, POTRF, is still such a kernel, in tile_linalg.cu).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tile_linalg.py:
 //   getrf_kernel   <- _getrf_tile  / batched_getrf  / grid_getrf
 //   trsml_kernel   <- _trsml_tile  / batched_trsml  / grid_trsml
 //   trsmu_kernel   <- _trsmu_tile  / batched_trsmu  / grid_trsmu
+//   trsmul_kernel  <- _trsmul_tile / batched_trsmul / grid_trsmul
+//   trsm_kernel    <- _trsm_tile   / batched_trsm   / grid_trsm
 //   syrk_kernel    <- _syrk_tile   / batched_syrk   / grid_syrk
 //   gemm_kernel    <- _gemm_tile   / batched_gemm   / grid_gemm
 //   gemmnn_kernel  <- _gemmnn_tile / batched_gemmnn / grid_gemmnn
@@ -171,6 +172,49 @@
 //   0 .. I0 + 15, row-major: 38 KB at b = 128) and the CTA's columns of X,
 //   transposed (9 or 17 KB), so four CTAs share an SM in a stacked launch;
 //   both are staged by cp.async and X is written back coalesced at the end.
+//
+// TRSMUL: X = inv(U) B, U (b x b) non-unit upper, B (b x bc), in place: the LU
+// solve's backward substitution.  U's strictly-lower part is L's junk of a
+// packed L\U block and is never used.  What bounds it on H100: latency, as
+// TRSML (its byte bound is 0.0002 ms for the LU solve's 4-task group).  The
+// simple kernel ran one CTA a task (4 of 132 SMs for that group), a team of
+// lanes a column, 128 dependent steps each a strided team dot product and a
+// shuffle reduction.  It is TRSML run bottom-up with a division a row:
+// - columns split across CTAs by TRSML's rule (the 4-task bc = 128 group on
+//   32 CTAs of 16 columns, a bc = 1 task on one);
+// - 16-row blocks from the last (the ragged one when b % 16 != 0) to the first:
+//   block I first sums U_{I,>I} X_{>I} into t (float4s of U's row and X's
+//   column, four FMA chains from zero), then runs an upper substitution
+//   inside the half-warp from lane 15 down: lane j forms x_j =
+//   (x_j - t_j) / U[j][j], the reference's correctly rounded division (div_rn:
+//   the reciprocal taken once a block, off the chain), and shuffles it to the
+//   lanes above, which add U[r][j] x_j into t;
+// - shared memory holds U's upper panels (row block I, columns 16 I .. b - 1,
+//   row-major at lpanel_ld's bank-safe kind of stride, zero-padded to it) and
+//   the CTA's columns of X transposed, each zero from row b to the next
+//   multiple of 4 (the update's last float4 reads there), all staged by
+//   cp.async.
+//
+// TRSM: X = B inv(L)^T, L (b x b) non-unit lower, B (b x b), in place: the
+// Cholesky panel solve.  L's strict upper triangle is junk and never used.
+// What bounds it on H100: latency (its byte bound is 0.0012 ms for the
+// Cholesky plan's 31-task group).  The simple kernel ran one CTA a task, one
+// thread a row: b (b - 1) / 2 dependent shared-load + FMA steps.  Row p of X
+// solves L x = B[p]^T, so a row is a TRSML column with a division by L's
+// diagonal: TRSMU's row split (16 or 32 rows a CTA by TRSMU's rule: the 31-task
+// group on 248 CTAs of 16, the served 7 x 64 group on 1792 of 32), TRSML's
+// lower panels of L and its blocked forward substitution (lane c of a
+// half-warp reads row J0 + c of L, which is column J0 + c of U = L^T), and
+// the CTA's rows of B staged as they lie by cp.async.
+//
+// TRSM and TRSMUL share one body (diag_block, HalfWarpVectors: a half-warp a
+// right-hand-side vector held contiguously in shared memory).  Each row's
+// products, the block update's and the block's own, go into one sum kept
+// apart from B and subtracted once, as the reference's row dot product is:
+// subtracting the two sums in turn, as TRSML does, raised the LU solve's
+// error 1.09x through TRSMUL.  TRSML keeps its own code: built from the shared
+// body, the same arithmetic took 53 registers, not 50, and ran 3-4 % longer
+// at bc = 1.
 //
 // Every entry point returns cudaGetLastError() (0 = launched); the Python
 // wrapper raises on anything else, since a refused launch never runs and a
@@ -759,6 +803,277 @@ trsml_kernel(const float* lgrid, int lnc, const int* lidx, long long llane, floa
 }
 
 // ---------------------------------------------------------------------------
+// TRSM and TRSMUL: TRSML's mapping, with a division by the diagonal
+// ---------------------------------------------------------------------------
+// U's upper panels: panel I is rows 16 I .. 16 I + 15 of U, columns
+// 16 I .. b - 1, row-major at a row stride of that width (at least 16: the
+// diagonal block) rounded up to 4 with an odd quarter (lpanel_ld's rule),
+// panel after panel; upanel_floats(b, I) floats precede panel I.
+__host__ __device__ constexpr int upanel_ld(int b, int I) {
+  return 4 * (((b - kW * I > kW ? b - kW * I : kW) + 3) / 4 | 1);
+}
+__host__ __device__ constexpr int upanel_floats(int b, int nblk) {
+  int n = 0;
+  for (int I = 0; I < nblk; ++I) n += kW * upanel_ld(b, I);
+  return n;
+}
+
+// cp.async of U's upper panels, whole rows of their stride, zero past b (the
+// diagonal blocks' lower halves come along, unused; no other part of U's
+// strictly-lower triangle is read)
+__device__ __forceinline__ void stage_upanels(float* P, const float* U, int b, bool vec) {
+  const int nblk = (b + kW - 1) / kW;
+  float* p = P;
+  for (int I = 0; I < nblk; ++I) {
+    const int ld = upanel_ld(b, I), r0 = kW * I;
+    if (vec) {  // as trsml_stage
+      const int q = ld / 4;
+      for (int e = threadIdx.x; e < kW * q; e += kSolveThreads) {
+        const int r = e / q, k = 4 * (e % q);
+        const bool ok = r0 + r < b && r0 + k < b;
+        cp_async16(p + r * ld + k, ok ? U + (r0 + r) * b + r0 + k : U, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kW * ld; e += kSolveThreads) {
+        const int r = e / ld, k = e % ld;
+        const bool ok = r0 + r < b && r0 + k < b;
+        cp_async4(p + r * ld + k, ok ? U + (r0 + r) * b + r0 + k : U, ok);
+      }
+    }
+    p += kW * ld;
+  }
+}
+
+// a / d rounded to nearest, given dinv = RN(1 / d): Markstein's correction of
+// the quotient a dinv by its exact residual, which returns IEEE's quotient
+// wherever that is a normal number or zero (a zero's sign aside), in three
+// dependent operations.  The division a / d costs a reciprocal, its
+// refinement and a range check every call, and takes its slow path for a zero
+// dividend, which the zero vectors feed it: on the 128-step chain it made TRSM
+// and TRSMUL 15-30 % slower, and TRSMUL at bc = 1 2.2x (scripts/
+// solve_division.py, which also holds the two to the same bits).
+__device__ __forceinline__ float div_rn(float a, float d, float dinv) {
+  const float q = __fmul_rn(a, dinv);
+  return __fmaf_rn(__fmaf_rn(-d, q, a), dinv, q);
+}
+
+// One 16-row block's substitution inside the half-warp, for each of its kN
+// vectors, as unit_lower_block with a division: lane j hands x_j =
+// (x_j - t_j) / T[j][j] (the reference's division, div_rn) to the lanes that
+// need it by shuffle, and they add T[r][j] x_j into t, a sum kept apart from x
+// that the caller starts.  Lower: j runs down the block, lanes r > j take it;
+// kUpper: j runs up from the block's last row, lanes r < j.  d is lane r's
+// row of the diagonal block (16 floats from the block's first column); w the
+// block's rows.  kHeld keeps that row in 16 registers, as unit_lower_block
+// does, else T[r][j] is read from shared memory at its step, as TRSMU reads U
+// (off the chain).  Each kernel takes the faster on the card: TRSMUL holds it
+// (read a step, it took more registers and ran longer); TRSM reads it (held,
+// it spilled under the 64 registers that four CTAs an SM allow, and without
+// that bound it ran longer).
+template <int kN, bool kUpper, bool kHeld>
+__device__ __forceinline__ void diag_block(float (&x)[kN], float (&t)[kN], const float* d, int r, int w) {
+  float l[kW];
+  if constexpr (kHeld) {
+#pragma unroll
+    for (int q = 0; q < kW / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(d + 4 * q);
+      l[4 * q] = v.x, l[4 * q + 1] = v.y, l[4 * q + 2] = v.z, l[4 * q + 3] = v.w;
+    }
+  }
+  const float dg = r < w ? d[r] : 1.f, dinv = __frcp_rn(dg);
+#pragma unroll
+  for (int s = 0; s < kW; ++s) {
+    const int j = kUpper ? kW - 1 - s : s;
+    if (j < w) {
+      const float lj = kHeld ? l[j] : d[j];
+#pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        const float xj = __shfl_sync(0xffffffffu, div_rn(x[i] - t[i], dg, dinv), j, kW);
+        if (kUpper ? r < j : r > j) t[i] = fmaf(lj, xj, t[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) x[i] = div_rn(x[i] - t[i], dg, dinv);
+}
+
+// The vectors of the half-warp: kPerHalfWarp of them, 16 or 32 a CTA, each
+// contiguous at stride ldx in X (TRSMUL's columns of B held transposed, as
+// TRSML's; TRSM's rows of B); X + kVecs * ldx is a zero vector, which a
+// half-warp past the CTA's last vector computes on and never writes, so every
+// shuffle runs on a converged warp.  A vector never leaves its half-warp: no
+// CTA barrier.
+template <int kPerHalfWarp>
+struct HalfWarpVectors {
+  static constexpr int kVecs = kHalfWarps * kPerHalfWarp;
+  float* v[kPerHalfWarp];
+  bool own[kPerHalfWarp];
+  __device__ __forceinline__ HalfWarpVectors(float* X, int count, int ldx) {
+    const int hw = threadIdx.x / kW;
+#pragma unroll
+    for (int i = 0; i < kPerHalfWarp; ++i) {
+      const int vec = hw + kHalfWarps * i;
+      own[i] = vec < count;
+      v[i] = X + (own[i] ? vec : kVecs) * ldx;
+    }
+  }
+};
+
+// TRSM's forward substitution x = inv(L) x on every vector, by TRSML's 16-row
+// blocks: lane r owns row I0 + r of block I, which first sums L_{I,<I} x_{<I}
+// (a float4 of L's row and of x a step, four FMA chains a lane, k mod 4, from
+// zero), then runs diag_block from that sum.
+template <int kPerHalfWarp>
+__device__ __forceinline__ void lower_vectors(const float* P, float* X, int b, int count, int ldx) {
+  const HalfWarpVectors<kPerHalfWarp> hv(X, count, ldx);
+  const int nblk = (b + kW - 1) / kW, r = threadIdx.x % kW;
+  for (int I = 0; I < nblk; ++I) {
+    const int I0 = I * kW, w = min(kW, b - I0);
+    const float* lr = P + lpanel_floats(I) + r * lpanel_ld(I);  // row I0 + r of L
+    float x[kPerHalfWarp], t[kPerHalfWarp], s[kPerHalfWarp][4];
+#pragma unroll
+    for (int i = 0; i < kPerHalfWarp; ++i) {
+      x[i] = r < w ? hv.v[i][I0 + r] : 0.f;
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    }
+    for (int k = 0; k < I0; k += 4) {
+      const float4 l = *reinterpret_cast<const float4*>(lr + k);
+#pragma unroll
+      for (int i = 0; i < kPerHalfWarp; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(hv.v[i] + k);
+        s[i][0] = fmaf(l.x, v.x, s[i][0]);
+        s[i][1] = fmaf(l.y, v.y, s[i][1]);
+        s[i][2] = fmaf(l.z, v.z, s[i][2]);
+        s[i][3] = fmaf(l.w, v.w, s[i][3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPerHalfWarp; ++i) t[i] = (s[i][0] + s[i][1]) + (s[i][2] + s[i][3]);
+    diag_block<kPerHalfWarp, false, false>(x, t, lr + I0, r, w);
+#pragma unroll
+    for (int i = 0; i < kPerHalfWarp; ++i)
+      if (hv.own[i] && r < w) hv.v[i][I0 + r] = x[i];
+    __syncwarp();  // the vector's new rows, before the next block reads them
+  }
+}
+
+// TRSMUL's back substitution x = inv(U) x on every vector, by 16-row blocks
+// from the last (the ragged one when b % 16 != 0) to the first: block I first
+// sums U_{I,>I} x_{>I} (as lower_vectors, over rows I0 + 16 .. b - 1; the
+// panels' and X's zero padding to a multiple of 4 close the last quad), then
+// runs diag_block upward from that sum.
+template <int kPerHalfWarp>
+__device__ __forceinline__ void upper_vectors(const float* P, float* X, int b, int count, int ldx) {
+  const HalfWarpVectors<kPerHalfWarp> hv(X, count, ldx);
+  const int nblk = (b + kW - 1) / kW, r = threadIdx.x % kW;
+  int off = upanel_floats(b, nblk);
+  for (int I = nblk - 1; I >= 0; --I) {
+    const int I0 = I * kW, w = min(kW, b - I0), ld = upanel_ld(b, I);
+    off -= kW * ld;
+    const float* ur = P + off + r * ld;  // row I0 + r of U, from column I0
+    float x[kPerHalfWarp], t[kPerHalfWarp], s[kPerHalfWarp][4];
+#pragma unroll
+    for (int i = 0; i < kPerHalfWarp; ++i) {
+      x[i] = r < w ? hv.v[i][I0 + r] : 0.f;
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    }
+    for (int k = kW; k < b - I0; k += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(ur + k);
+#pragma unroll
+      for (int i = 0; i < kPerHalfWarp; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(hv.v[i] + I0 + k);
+        s[i][0] = fmaf(u.x, v.x, s[i][0]);
+        s[i][1] = fmaf(u.y, v.y, s[i][1]);
+        s[i][2] = fmaf(u.z, v.z, s[i][2]);
+        s[i][3] = fmaf(u.w, v.w, s[i][3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPerHalfWarp; ++i) t[i] = (s[i][0] + s[i][1]) + (s[i][2] + s[i][3]);
+    diag_block<kPerHalfWarp, true, true>(x, t, ur, r, w);
+#pragma unroll
+    for (int i = 0; i < kPerHalfWarp; ++i)
+      if (hv.own[i] && r < w) hv.v[i][I0 + r] = x[i];
+    __syncwarp();
+  }
+}
+
+// TRSMUL: columns c0 .. c0 + cols - 1 of the CTA's task (kColsPerHalfWarp 1
+// or 2: 16 or 32 columns a CTA), held transposed as TRSML holds them, then the
+// zero column; each column is zero from row b to the next multiple of 4, which
+// the update's last quad reads.
+template <int kColsPerHalfWarp>
+__global__ void __launch_bounds__(kSolveThreads)
+trsmul_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid, int bnc,
+              const int* bidx, long long blane, int b, int bc, int ldx, int vec) {
+  constexpr int kCols = kHalfWarps * kColsPerHalfWarp;
+  extern __shared__ __align__(16) float smem[];
+  const int nblk = (b + kW - 1) / kW;
+  const int splits = (bc + kCols - 1) / kCols;
+  const int task = blockIdx.x / splits, c0 = (blockIdx.x % splits) * kCols;
+  const int cols = min(kCols, bc - c0);
+  const float* U = ugrid + block_offset(uidx, task, unc, b, b, ulane);
+  float* B = bgrid + block_offset(bidx, task, bnc, b, bc, blane);
+  float* P = smem;                            // U's upper panels
+  float* X = smem + upanel_floats(b, nblk);  // the CTA's columns of X, then a zero column
+  const int pad = (b + 3) / 4 * 4 - b;
+  for (int e = threadIdx.x; e < ldx; e += kSolveThreads) X[kCols * ldx + e] = 0.f;
+  for (int e = threadIdx.x; e < kCols * pad; e += kSolveThreads) X[e / pad * ldx + b + e % pad] = 0.f;
+  stage_upanels(P, U, b, vec != 0);
+  for (int e = threadIdx.x; e < b * cols; e += kSolveThreads) {
+    const int row = e / cols, col = e % cols;
+    cp_async4(X + col * ldx + row, B + row * bc + c0 + col, true);
+  }
+  cp_async_commit();
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+  upper_vectors<kColsPerHalfWarp>(P, X, b, cols, ldx);
+  __syncthreads();  // X solved: written back coalesced
+  for (int e = threadIdx.x; e < b * cols; e += kSolveThreads) {
+    const int row = e / cols, col = e % cols;
+    B[row * bc + c0 + col] = X[col * ldx + row];
+  }
+}
+
+// TRSM: X = B inv(L)^T, L non-unit lower, B (b x b): row p of X solves
+// L x = B[p]^T, so rows r0 .. r0 + rows - 1 of B (kRowsPerHalfWarp 1 or 2: 16
+// or 32 a CTA) are staged as they lie, then the zero row, and each is TRSML's
+// forward substitution with a division by L's diagonal.  At most 64 registers
+// a thread, so four CTAs of 32 rows share an SM in a stacked launch, as their
+// 56 KB of shared memory allow.
+template <int kRowsPerHalfWarp>
+__global__ void __launch_bounds__(kSolveThreads, 4)
+trsm_kernel(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid, int bnc,
+            const int* bidx, long long blane, int b, int ldx, int vec) {
+  constexpr int kRows = kHalfWarps * kRowsPerHalfWarp;
+  extern __shared__ __align__(16) float smem[];
+  const int nblk = (b + kW - 1) / kW;
+  const int splits = (b + kRows - 1) / kRows;
+  const int task = blockIdx.x / splits, r0 = (blockIdx.x % splits) * kRows;
+  const int rows = min(kRows, b - r0);
+  const float* L = lgrid + block_offset(lidx, task, lnc, b, b, llane);
+  float* B = bgrid + block_offset(bidx, task, bnc, b, b, blane) + (long long)r0 * b;
+  float* P = smem;                       // panel I at P + lpanel_floats(I)
+  float* X = smem + lpanel_floats(nblk);  // the CTA's rows of B, then a zero row
+  for (int e = threadIdx.x; e < ldx; e += kSolveThreads) X[kRows * ldx + e] = 0.f;
+  if (vec) {  // b % 4 == 0 and a 16-byte aligned block
+    const int q = b / 4;
+    for (int e = threadIdx.x; e < rows * q; e += kSolveThreads) {
+      const int row = e / q, k = 4 * (e % q);
+      cp_async16(X + row * ldx + k, B + row * b + k, true);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * b; e += kSolveThreads) cp_async4(X + e / b * ldx + e % b, B + e, true);
+  }
+  // L's lower panels as TRSML stages them (no columns); its commit takes the
+  // rows' copies too
+  trsml_stage(P, X, L, nullptr, b, 0, 0, 0, ldx, vec != 0);
+  lower_vectors<kRowsPerHalfWarp>(P, X, b, rows, ldx);
+  __syncthreads();  // X solved: written back coalesced
+  for (int e = threadIdx.x; e < rows * b; e += kSolveThreads) B[e] = X[e / b * ldx + e % b];
+}
+
+// ---------------------------------------------------------------------------
 // GETRF
 // ---------------------------------------------------------------------------
 constexpr int kGetrfWarps = 16;
@@ -854,9 +1169,9 @@ bool bad_edge(int e) { return e < 1 || e > kMaxB; }
 
 bool bad_args(int n, int batch, int b) { return n < 1 || batch < 1 || batch > kMaxBatch || bad_edge(b); }
 
-// X's row stride (TRSMU) or column stride (TRSML, X held transposed): a
-// multiple of 4 (float4 loads), never of 32 (the two half-warps of a warp
-// read two rows or columns in distinct banks)
+// X's row stride (TRSMU, TRSM) or column stride (TRSML, TRSMUL: X held
+// transposed): a multiple of 4 (float4 loads) above b, never of 32 (the two
+// half-warps of a warp read two rows or columns in distinct banks)
 int x_stride(int b) {
   const int ld = (b + 3) / 4 * 4 + 4;
   return ld % 32 == 0 ? ld + 4 : ld;
@@ -911,12 +1226,26 @@ bool gemmnn_launch(int tile, int n, int m, int k, int q, Launch* out, GemmnnKern
   return true;
 }
 
-// TRSML's launch for `cols` (16 or 32) columns of B a CTA; false if cols is neither
-bool trsml_launch(int cols, int n, int b, int bc, Launch* out, TrsmlKernel* kernel) {
+// TRSML's (upper: TRSMUL's) launch for `cols` (16 or 32) columns of B a CTA;
+// false if cols is neither
+bool column_launch(bool upper, int cols, int n, int b, int bc, Launch* out, TrsmlKernel* kernel) {
   if (cols != 16 && cols != 32) return false;
-  *kernel = cols == 16 ? &trsml_kernel<1> : &trsml_kernel<2>;
-  *out = {n * ((bc + cols - 1) / cols), kSolveThreads,
-          (lpanel_floats((b + kW - 1) / kW) + (cols + 1) * x_stride(b)) * (int)sizeof(float)};
+  if (upper) {
+    *kernel = cols == 16 ? &trsmul_kernel<1> : &trsmul_kernel<2>;
+  } else {
+    *kernel = cols == 16 ? &trsml_kernel<1> : &trsml_kernel<2>;
+  }
+  const int nblk = (b + kW - 1) / kW, panels = upper ? upanel_floats(b, nblk) : lpanel_floats(nblk);
+  *out = {n * ((bc + cols - 1) / cols), kSolveThreads, (panels + (cols + 1) * x_stride(b)) * (int)sizeof(float)};
+  return true;
+}
+
+// TRSM's launch for `rows` (16 or 32) rows of B a CTA; false if rows is neither
+bool trsm_launch(int rows, int n, int b, Launch* out, TrsmuKernel* kernel) {
+  if (rows != 16 && rows != 32) return false;
+  *kernel = rows == 16 ? &trsm_kernel<1> : &trsm_kernel<2>;
+  *out = {n * ((b + rows - 1) / rows), kSolveThreads,
+          (lpanel_floats((b + kW - 1) / kW) + (rows + 1) * x_stride(b)) * (int)sizeof(float)};
   return true;
 }
 
@@ -977,11 +1306,32 @@ int tile_trsml(const float* lgrid, int lnc, const int* lidx, long long llane, fl
                const int* bidx, long long blane, int n, int batch, int b, int bc, int cols, void* stream) {
   Launch l;
   TrsmlKernel kernel;
-  if (bad_args(n, batch, b) || bad_edge(bc) || !trsml_launch(cols, n, b, bc, &l, &kernel))
+  if (bad_args(n, batch, b) || bad_edge(bc) || !column_launch(false, cols, n, b, bc, &l, &kernel))
     return (int)cudaErrorInvalidValue;
   const int vec = aligned16(lgrid, llane) && b % 4 == 0;
   return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, lgrid, lnc, lidx, llane, bgrid, bnc,
                      bidx, blane, b, bc, x_stride(b), vec);
+}
+
+int tile_trsmul(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid, int bnc,
+                const int* bidx, long long blane, int n, int batch, int b, int bc, int cols, void* stream) {
+  Launch l;
+  TrsmlKernel kernel;
+  if (bad_args(n, batch, b) || bad_edge(bc) || !column_launch(true, cols, n, b, bc, &l, &kernel))
+    return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(ugrid, ulane) && b % 4 == 0;
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, ugrid, unc, uidx, ulane, bgrid, bnc,
+                     bidx, blane, b, bc, x_stride(b), vec);
+}
+
+int tile_trsm(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid, int bnc,
+              const int* bidx, long long blane, int n, int batch, int b, int rows, void* stream) {
+  Launch l;
+  TrsmuKernel kernel;
+  if (bad_args(n, batch, b) || !trsm_launch(rows, n, b, &l, &kernel)) return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(lgrid, llane) && aligned16(bgrid, blane) && b % 4 == 0;
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, lgrid, lnc, lidx, llane, bgrid, bnc,
+                     bidx, blane, b, x_stride(b), vec);
 }
 
 int tile_syrk(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc, const int* cidx,

@@ -3,13 +3,14 @@ versions.
 
 The leaves of the ``"cuda"`` backend (the paper's cuBLAS wrapper analog).
 Nine kernels — POTRF, TRSM, SYRK and GEMM for Cholesky; GETRF, TRSML,
-TRSMU, TRSMUL and GEMMNN for pivot-free LU — each serve three forms.  POTRF,
-TRSM and TRSMUL live in ``csrc/tile_linalg.cu`` (one CTA a task); GETRF,
-TRSML, TRSMU, SYRK, GEMM and GEMMNN in ``csrc/tile_lu_sm90.cu``, their own
-library (``LIBRARY``): GETRF keeps its tile in registers, and the other
-five split a task over several CTAs, SYRK, GEMM and GEMMNN on the tensor
-cores in 3xTF32; the wrapper chooses that split from the group's size
-(``launch_shape``).  The three forms:
+TRSMU, TRSMUL and GEMMNN for pivot-free LU — each serve three forms.  POTRF
+lives in ``csrc/tile_linalg.cu`` (one CTA a task); the other eight in
+``csrc/tile_lu_sm90.cu``, their own library (``LIBRARY``): GETRF keeps its
+tile in registers, and the other seven split a task over several CTAs, the
+four triangular solves by rows or columns of the right-hand side, SYRK, GEMM
+and GEMMNN by output tiles on the tensor cores in 3xTF32; the wrapper
+chooses that split from the group's size (``launch_shape``).  The three
+forms:
 
 - the fused grid form (``grid_*``), the counterpart of the JAX package's
   ``make_grid_fused``: every argument is a resident ``(nr, nc, br, bc)``
@@ -64,9 +65,9 @@ MAX_BATCH = 65535  # most lanes of one stacked launch (csrc kMaxBatch, gridDim.y
 
 # the kernels that cut a task across CTAs: their C entries take one
 # launch-shape integer after the tile dimensions
-SPLIT = ("trsml", "trsmu", "syrk", "gemm", "gemmnn")
+SPLIT = ("trsm", "trsml", "trsmu", "trsmul", "syrk", "gemm", "gemmnn")
 # kernel name -> the csrc library that holds its C entry: the redesigned
-# kernels in csrc/tile_lu_sm90.cu, the simple ones in csrc/tile_linalg.cu
+# kernels in csrc/tile_lu_sm90.cu, the simple POTRF in csrc/tile_linalg.cu
 LIBRARY = {k: "tile_lu_sm90" if k in ("getrf", *SPLIT) else "tile_linalg" for k in _SIGNATURES}
 
 # kernel name -> number of launches since the last reset_launches(), of the
@@ -271,17 +272,18 @@ def launch_shape(name: str, shapes: Sequence[Tuple[int, int]], n: int, batch: in
     dimensions, for ``n`` tasks of tile ``shapes`` over ``batch`` lanes on a
     card of ``sms`` SMs; raises ``ValueError`` as ``_dims`` does.
 
-    TRSMU takes the rows of B one CTA solves: 32, or 16 where 32 would leave
-    SMs without a CTA.  TRSML takes its columns of B: 16 where bc <= 16 or
-    where CTAs of 16 all fit on the SMs at once, else 32 (which stage L half
-    as often).  GEMMNN, SYRK and GEMM take their output tile: 64 (64 x 64
-    tiles) where those give every SM a CTA, or 32; GEMMNN takes 0 (the
-    matrix-vector mapping) for q < 8.  The other kernels take none."""
+    TRSMU and TRSM take the rows of B one CTA solves: 32, or 16 where 32
+    would leave SMs without a CTA.  TRSML and TRSMUL take their columns of B:
+    16 where bc <= 16 or where CTAs of 16 all fit on the SMs at once, else 32
+    (which stage the triangle half as often).  GEMMNN, SYRK and GEMM take
+    their output tile: 64 (64 x 64 tiles) where those give every SM a CTA, or
+    32; GEMMNN takes 0 (the matrix-vector mapping) for q < 8.  GETRF and
+    POTRF take none."""
     dims = _dims(name, shapes)
-    if name == "trsmu":
+    if name in ("trsmu", "trsm"):
         br = dims[0]
         return (32 if n * batch * -(-br // 32) >= sms else 16,)
-    if name == "trsml":
+    if name in ("trsml", "trsmul"):
         bc = dims[1]
         return (32 if bc > 16 and n * batch * -(-bc // 16) > sms else 16,)
     if name in ("gemmnn", "syrk", "gemm"):

@@ -221,6 +221,7 @@ def test_lu_kernel_sources_note_what_they_replace():
         src = (_build.CSRC / f"{tl.LIBRARY[name]}.cu").read_text()
         assert f"_{name}_tile" in src and f"{name}_kernel(" in src
         assert f"int tile_{name}(" in src
-    # TRSMUL splits a row across a team of lanes; TRSML keeps a column in a half-warp
-    assert "__shfl_xor_sync" in (_build.CSRC / f"{tl.LIBRARY['trsmul']}.cu").read_text()
+    # TRSMUL and TRSML keep a column in a half-warp; TRSMUL's lane j hands on its quotient
+    src = (_build.CSRC / f"{tl.LIBRARY['trsmul']}.cu").read_text()
+    assert "__shfl_sync(0xffffffffu, div_rn(x[i] - t[i], dg, dinv), j, kW)" in src
     assert "__shfl_sync(0xffffffffu, x[i], j, kW)" in (_build.CSRC / f"{tl.LIBRARY['trsml']}.cu").read_text()

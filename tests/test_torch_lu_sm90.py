@@ -1,13 +1,13 @@
-"""The redesigned GETRF, TRSML, TRSMU, SYRK, GEMM and GEMMNN kernels
-(``csrc/tile_lu_sm90.cu``) on the CPU: emulations of their arithmetic
-against the JAX package's Pallas kernels (interpret mode) on the same numpy
-inputs, the wrapper's choice of launch shape, and the source's notes.  The
-CUDA kernels themselves run only on the card: chip_smoke.py holds them
-against the plain versions.
+"""The redesigned GETRF, TRSML, TRSMU, TRSMUL, TRSM, SYRK, GEMM and GEMMNN
+kernels (``csrc/tile_lu_sm90.cu``) on the CPU: emulations of their
+arithmetic against the JAX package's Pallas kernels (interpret mode) on the
+same numpy inputs, the wrapper's choice of launch shape, and the source's
+notes.  The CUDA kernels themselves run only on the card: chip_smoke.py
+holds them against the plain versions.
 
-Tolerances are tests/test_kernels.py's: GEMMNN, SYRK and GEMM 1e-4, TRSML
-and TRSMU 2e-3, GETRF 2e-4 (atol = rtol), the same as chip_smoke.py's
-``TOL``."""
+Tolerances are tests/test_kernels.py's: GEMMNN, SYRK and GEMM 1e-4, the
+four triangular solves 2e-3, GETRF 2e-4 (atol = rtol), the same as
+chip_smoke.py's ``TOL``."""
 
 import re
 
@@ -163,19 +163,89 @@ def test_blocked_trsml_order_matches_pallas(b, bc):
     torch.testing.assert_close(trsml_blocked(junk, torch.from_numpy(rhs)), got, rtol=0, atol=0)
 
 
+def trsmul_blocked(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's order for X = inv(U) B, U non-unit upper: row blocks of 16
+    from the last (the ragged one) to the first; block I first sums
+    U_{I,>I} X_{>I} into t, then runs an upper substitution inside the block
+    from its last row up, adding the block's own products into t: x_j =
+    (x_j - t_j) / U[j, j], one subtraction and a division, handed to the
+    block's earlier rows.  Reads only U's upper triangle."""
+    u, x = u.float(), b.float().clone()
+    n = u.shape[-1]
+    for i0 in reversed(range(0, n, 16)):
+        i1 = min(i0 + 16, n)
+        t = u[..., i0:i1, i1:] @ x[..., i1:, :]
+        for j in reversed(range(i0, i1)):
+            x[..., j, :] = (x[..., j, :] - t[..., j - i0, :]) / u[..., j, j, None]
+            t[..., : j - i0, :] += u[..., i0:j, j, None] * x[..., j, None, :]
+    return x
+
+
+@pytest.mark.parametrize("b,bc", [(8, 1), (24, 5), (33, 24), (40, 40), (128, 1), (128, 128)])
+def test_blocked_trsmul_order_matches_pallas(b, bc):
+    rng = np.random.default_rng(b * 137 + bc)
+    u = _packed(rng, 2, b)
+    rhs = rng.standard_normal((2, b, bc)).astype(np.float32) * 0.3
+    want = np.asarray(jtl.batched_trsmul(jnp.asarray(u), jnp.asarray(rhs), interpret=True))
+    got = trsmul_blocked(torch.from_numpy(u), torch.from_numpy(rhs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=TRSMU_TOL, atol=TRSMU_TOL)
+    # the strictly-lower junk (L of a packed L\U block) is never read
+    junk = torch.from_numpy(u) + torch.tril(torch.full((b, b), 7.0), -1)
+    torch.testing.assert_close(trsmul_blocked(junk, torch.from_numpy(rhs)), got, rtol=0, atol=0)
+
+
+def trsm_blocked(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's order for X = B inv(L)^T, L non-unit lower: row p of X
+    solves L x = B[p]^T by TRSML's column blocks of 16; block J first sums
+    X_{<J} L_{J,<J}^T into t, then runs a right-looking substitution inside
+    the block, adding the block's own products into t: x_j = (x_j - t_j) /
+    L[j, j], one subtraction and a division, handed to the block's later
+    columns.  Reads only L's lower triangle."""
+    l, x = l.float(), b.float().clone()
+    n = l.shape[-1]
+    for j0 in range(0, n, 16):
+        j1 = min(j0 + 16, n)
+        t = x[..., :, :j0] @ l[..., j0:j1, :j0].mT
+        for j in range(j0, j1):
+            x[..., :, j] = (x[..., :, j] - t[..., :, j - j0]) / l[..., j, j, None]
+            t[..., :, j - j0 + 1 :] += x[..., :, j, None] * l[..., None, j + 1 : j1, j]
+    return x
+
+
+def _chol(rng, n, b):
+    """Cholesky factors of SPD tiles (chip_smoke.py's ``lower_with_junk``
+    before its junk), computed in float64."""
+    m = rng.standard_normal((n, b, b)) / np.sqrt(b)
+    return np.linalg.cholesky(m @ m.transpose(0, 2, 1) + 2.0 * np.eye(b)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b", [8, 24, 33, 40, 128])
+def test_blocked_trsm_order_matches_pallas(b):
+    rng = np.random.default_rng(b * 139)
+    low = _chol(rng, 2, b)
+    rhs = rng.standard_normal((2, b, b)).astype(np.float32) * 0.3
+    want = np.asarray(jtl.batched_trsm(jnp.asarray(low), jnp.asarray(rhs), interpret=True))
+    got = trsm_blocked(torch.from_numpy(low), torch.from_numpy(rhs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=TRSMU_TOL, atol=TRSMU_TOL)
+    # junk in the strict upper triangle is never read
+    junk = torch.from_numpy(low) + torch.triu(torch.full((b, b), 7.0), 1)
+    torch.testing.assert_close(trsm_blocked(junk, torch.from_numpy(rhs)), got, rtol=0, atol=0)
+
+
 SQ = [(128, 128)] * 3
 H100_SMS = 132
 
 
 def ctas(name, tiles, n, lanes, shape):
     """CTAs a launch of ``n`` tasks over ``lanes`` lanes makes at launch shape
-    ``shape``: TRSMU's row pieces of B, TRSML's column pieces, the output
-    tiles of GEMMNN (32 rows a matrix-vector CTA), SYRK and GEMM."""
+    ``shape``: TRSMU's and TRSM's row pieces of B, TRSML's and TRSMUL's
+    column pieces, the output tiles of GEMMNN (32 rows a matrix-vector CTA),
+    SYRK and GEMM."""
     m = tiles[-1][0]
-    if name == "trsmu":
+    if name in ("trsmu", "trsm"):
         return n * lanes * -(-m // shape)
     q = tiles[-1][1]
-    if name == "trsml":
+    if name in ("trsml", "trsmul"):
         return n * lanes * -(-q // shape)
     return n * lanes * (-(-m // 32) if shape == 0 else -(-m // shape) * -(-q // shape))
 
@@ -214,6 +284,29 @@ def test_trsml_splits_columns_across_ctas():
     assert tl.launch_shape("trsml", [(128, 128), (128, 17)], 465, 1, H100_SMS) == (32,)
 
 
+def test_trsmul_splits_columns_across_ctas():
+    """TRSMUL takes TRSML's rule: the LU solve's 4-task bc = 128 group as 32
+    CTAs of 16 columns, a vector solve's bc = 1 task as one CTA, the served
+    1 x 64 bc = 1 group as 64."""
+    wide, vector = [(128, 128), (128, 128)], [(128, 128), (128, 1)]
+    for tiles, n, lanes, shape, want in ((wide, 4, 1, 16, 32), (vector, 1, 1, 16, 1), (vector, 1, 64, 16, 64),
+                                         (wide, 31, 1, 32, 124), (wide, 7, 64, 32, 1792)):
+        assert tl.launch_shape("trsmul", tiles, n, lanes, H100_SMS) == (shape,)
+        assert tl.launch_shape("trsmul", tiles, n, lanes, H100_SMS) == tl.launch_shape("trsml", tiles, n, lanes,
+                                                                                       H100_SMS)
+        assert ctas("trsmul", tiles, n, lanes, shape) == want
+
+
+def test_trsm_splits_rows_across_ctas():
+    """TRSM takes TRSMU's rule: the Cholesky plan's 31-task group as 248 CTAs
+    of 16 rows, a 1-task group as 8, the served 7 x 64 group as 1792 of 32."""
+    for n, lanes, shape, want in ((31, 1, 16, 248), (1, 1, 16, 8), (7, 64, 32, 1792), (33, 1, 32, 132)):
+        assert tl.launch_shape("trsm", SQ[:2], n, lanes, H100_SMS) == (shape,)
+        assert tl.launch_shape("trsm", SQ[:2], n, lanes, H100_SMS) == tl.launch_shape("trsmu", SQ[:2], n, lanes,
+                                                                                     H100_SMS)
+        assert ctas("trsm", SQ[:2], n, lanes, shape) == want
+
+
 def test_gemm_splits_its_output_like_syrk():
     """The Cholesky plan's 465-task GEMM group as 1860 CTAs of 64^2, the
     served 21 x 64 group as 5376, a 1-task group as 16 of 32^2."""
@@ -236,9 +329,13 @@ def test_trsmu_splits_rows_across_ctas():
 def test_launch_shapes_are_ones_the_c_launchers_take(n, lanes, edge):
     (rows,) = tl.launch_shape("trsmu", [(96, 96), (edge, 96)], n, lanes, H100_SMS)
     assert rows in (16, 32)
-    (cols,) = tl.launch_shape("trsml", [(96, 96), (96, edge)], n, lanes, H100_SMS)
-    assert cols in (16, 32)
-    assert ctas("trsml", [(96, 96), (96, edge)], n, lanes, cols) >= n * lanes
+    for name in ("trsml", "trsmul"):
+        (cols,) = tl.launch_shape(name, [(96, 96), (96, edge)], n, lanes, H100_SMS)
+        assert cols in (16, 32)
+        assert ctas(name, [(96, 96), (96, edge)], n, lanes, cols) >= n * lanes
+    (rows,) = tl.launch_shape("trsm", [(edge, edge)] * 2, n, lanes, H100_SMS)
+    assert rows in (16, 32)
+    assert ctas("trsm", [(edge, edge)] * 2, n, lanes, rows) >= n * lanes
     for q in (1, 7, 8, edge):
         tiles = [(edge, 96), (96, q), (edge, q)]
         (tile,) = tl.launch_shape("gemmnn", tiles, n, lanes, H100_SMS)
@@ -263,9 +360,9 @@ def test_lu_sm90_source_notes_what_it_replaces():
     """The redesigned kernels' source names the TPU kernels it replaces and
     what bounds them, runs SYRK, GEMM and GEMMNN as 3xTF32 on the tensor
     cores with cp.async staging, takes the wrapper's launch shape, and
-    reports launch errors; tile_linalg.cu keeps only the other three."""
+    reports launch errors; tile_linalg.cu keeps only POTRF."""
     src = (_build.CSRC / "tile_lu_sm90.cu").read_text()
-    sm90 = {"getrf", "trsmu", "syrk", "gemmnn", "trsml", "gemm"}
+    sm90 = {"getrf", "trsmu", "syrk", "gemmnn", "trsml", "gemm", "trsm", "trsmul"}
     assert {k for k, lib in tl.LIBRARY.items() if lib == "tile_lu_sm90"} == sm90
     for name in sm90:
         assert f"_{name}_tile" in src and f"batched_{name}" in src and f"{name}_kernel(" in src
@@ -289,8 +386,8 @@ def test_lu_sm90_source_notes_what_it_replaces():
     assert re.findall(r"return ([^;]*);", head[: head.index("\n}\n")]) == ["(int)err", "(int)cudaGetLastError()"]
     assert "blockIdx.y * lane" in src and "kMaxBatch = 65535" in src
     simple = (_build.CSRC / "tile_linalg.cu").read_text()
-    assert set(re.findall(r"int tile_(\w+)\(", simple)) == {"potrf", "trsm", "trsmul"}
-    assert "trsml" not in simple and "gemm" not in simple
+    assert set(re.findall(r"int tile_(\w+)\(", simple)) == {"potrf"}
+    assert "trsm" not in simple and "gemm" not in simple
 
 
 # --------------------------------------------------------------------------
