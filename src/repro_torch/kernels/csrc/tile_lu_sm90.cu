@@ -1,8 +1,9 @@
-// Hand-written Hopper (sm_90a) kernels for eight of the nine tile bodies of
-// blocked Cholesky and pivot-free LU, redesigned from simple one-CTA-per-task
-// kernels (the ninth, POTRF, is still such a kernel, in tile_linalg.cu).
+// Hand-written Hopper (sm_90a) kernels for the nine tile bodies of blocked
+// Cholesky and pivot-free LU, each redesigned from a simple one-CTA-per-task
+// kernel.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/tile_linalg.py:
+//   potrf_kernel   <- _potrf_tile  / batched_potrf  / grid_potrf
 //   getrf_kernel   <- _getrf_tile  / batched_getrf  / grid_getrf
 //   trsml_kernel   <- _trsml_tile  / batched_trsml  / grid_trsml
 //   trsmu_kernel   <- _trsmu_tile  / batched_trsmu  / grid_trsmu
@@ -11,7 +12,7 @@
 //   syrk_kernel    <- _syrk_tile   / batched_syrk   / grid_syrk
 //   gemm_kernel    <- _gemm_tile   / batched_gemm   / grid_gemm
 //   gemmnn_kernel  <- _gemmnn_tile / batched_gemmnn / grid_gemmnn
-// in the three forms of tile_linalg.cu: the fused grid form (make_grid_fused's
+// in three forms: the fused grid form (make_grid_fused's
 // kernel: blocks read through (n, 2) int32 indices, the written block updated
 // in place), the stacked form (kernel_stacked: lane blockIdx.y, at a lane
 // stride per argument, all lanes sharing the indices) and the batched form
@@ -44,6 +45,40 @@
 //   that can still change (l and u are zero at and above step k); each 32-step
 //   block of pivots is its own instantiation, so the owner's register column
 //   is a constant and the finished rows and columns drop out.  fp32 FMAs only.
+//
+// POTRF: lower Cholesky factor of one b x b tile, zeros above the diagonal,
+// in place.  What bounds it on H100: latency, as GETRF (its bytes take
+// 0.00004 ms a tile); b dependent steps, each a square root and a division on
+// the chain.  The simple kernel kept the tile in shared memory, one thread a
+// row: a dependent shared-memory dot product and two CTA barriers a step.
+// The design is GETRF's, with the reference's left-looking arithmetic
+// (_potrf_tile forms s = L L[j] and takes (a[:, j] - s) / d_j once):
+// - the tile in registers, GETRF's mapping (512 threads; rows w + 16 i,
+//   columns lane + 32 j), as A's transpose: it is staged through shared memory
+//   (row stride b | 1, odd, so the transposed reads are conflict-free), and
+//   the warp that owns row r holds column r of A, the lower triangle the
+//   reference reads;
+// - the sums apart from A: s[i][j] += l_i l_j by fmaf over the full square
+//   in a second register array, and c = a - s taken once, when a column is
+//   published (subtracting in turn raised the triangular solves' errors:
+//   TRSML below).
+//   fmaf(l_i, l_j, s) equals fmaf(l_j, l_i, s), so s is exactly symmetric
+//   and row k + 1 of s is column k + 1;
+// - one CTA barrier a step.  After its update of step k, the warp that owns
+//   row k + 1 forms c along it, takes d = __fsqrt_rn(c_{k+1}) (the pivot by
+//   shuffle from its lane) and l = c / d below the pivot with div_rn (IEEE's
+//   quotient; a / d takes a slow path on the zero dividends), and writes l
+//   (d at the pivot, 0 above) into a shared vector double-buffered by the
+//   step's parity, in two orders, so that every thread reads its 8 rows' and
+//   4 columns' l as three float4s (scripts/matmul_potrf_variants.py times the
+//   one-order vector and twelve scalar loads against it): the square root
+//   and the division sit on the chain once a step, in one warp;
+// - column k of L takes the registers of column k of A's transpose, which no
+//   later step reads; each 32-step block of pivots is its own instantiation,
+//   as GETRF's, so finished rows and columns drop out of the update.  Zero
+//   padding outside a ragged b gives l = 0 there (every pivot lies inside b),
+//   and a non-SPD tile gives NaN from its first negative pivot on, as the
+//   reference does.
 //
 // TRSMU: X = B inv(U), U (b x b) non-unit upper, B (br x b), in place.  U's
 // strictly-lower part is L's junk of a packed L\U block and is never read.
@@ -1163,6 +1198,117 @@ getrf_kernel(float* grid, int nc, const int* idx, long long lane_stride, int b) 
 }
 
 // ---------------------------------------------------------------------------
+// POTRF
+// ---------------------------------------------------------------------------
+// A published column l of L, in the two orders its readers take it as
+// float4s: lane-major (l[lane + 32 j] at 4 lane + j: a thread's columns) and
+// row-major (l[w + 16 i] at kMaxB + 8 w + i: a warp's rows)
+constexpr int kLFloats = 2 * kMaxB;
+
+// Row k1 of s's owner (warp k1 % 16, register row k1 / 16) publishes column k1
+// of L: c = a - s along its row (the columns of A - L L^T, s being symmetric),
+// d = sqrt(c[k1]), and l = c / d below the pivot, d at it, 0 above, into lcol.
+// Register columns j < kJ (columns below 32 kJ) are final and published as 0.
+template <int kJ>
+__device__ __forceinline__ void potrf_publish(const float (&a)[kGR][kGC], const float (&s)[kGR][kGC],
+                                              float* lcol, int b, int k1) {
+  constexpr int kFirst = 32 * kJ / kGetrfWarps;
+  const int lane = threadIdx.x % 32, i1 = k1 / kGetrfWarps;
+  float c[kGC];
+#pragma unroll
+  for (int j = 0; j < kGC; ++j) c[j] = 0.f;
+#pragma unroll
+  for (int i = kFirst; i < kGR; ++i)
+    if (i == i1)
+#pragma unroll
+      for (int j = kJ; j < kGC; ++j) c[j] = a[i][j] - s[i][j];
+  float cp = 0.f;
+#pragma unroll
+  for (int j = kJ; j < kGC; ++j)
+    if (j == k1 / 32) cp = c[j];
+  const float d = __fsqrt_rn(__shfl_sync(kFull, cp, k1 % 32)), dinv = __frcp_rn(d);
+  float l[kGC];
+#pragma unroll
+  for (int j = 0; j < kGC; ++j) {
+    const int col = lane + 32 * j;
+    l[j] = j >= kJ && col > k1 && col < b ? div_rn(c[j], d, dinv) : (col == k1 ? d : 0.f);
+    lcol[kMaxB + 8 * (col % kGetrfWarps) + col / kGetrfWarps] = l[j];
+  }
+  *reinterpret_cast<float4*>(lcol + 4 * lane) = make_float4(l[0], l[1], l[2], l[3]);
+}
+
+// Steps k = 32 kJ .. 32 kJ + kend - 1.  lcol[k & 1] holds column k of L as
+// step k begins; the step publishes column k + 1 into the other buffer.
+// Rows and columns below 32 kJ are final, so their registers are left alone.
+template <int kJ>
+__device__ __forceinline__ void potrf_steps(float (&a)[kGR][kGC], float (&s)[kGR][kGC], float (*lcol)[kLFloats],
+                                            int b, int kend) {
+  constexpr int kFirst = 32 * kJ / kGetrfWarps;  // rows i < kFirst of every warp are final
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int kl = 0; kl < kend; ++kl) {
+    const int k = 32 * kJ + kl;
+    // this thread's rows' and columns' l: three float4 loads
+    const float* l = lcol[k & 1];
+    const float4 r0 = *reinterpret_cast<const float4*>(l + kMaxB + 8 * w);
+    const float4 r1 = *reinterpret_cast<const float4*>(l + kMaxB + 8 * w + 4);
+    const float4 c0 = *reinterpret_cast<const float4*>(l + 4 * lane);
+    const float li[kGR] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+    const float lj[kGC] = {c0.x, c0.y, c0.z, c0.w};
+    // column k of L takes the registers of column k of A's transpose, which
+    // no later step reads
+    if (lane == kl)
+#pragma unroll
+      for (int i = kFirst; i < kGR; ++i) a[i][kJ] = li[i];
+    // s += l l^T over rows and columns past 32 kJ (l is 0 above step k)
+#pragma unroll
+    for (int i = kFirst; i < kGR; ++i)
+#pragma unroll
+      for (int j = kJ; j < kGC; ++j) s[i][j] = fmaf(li[i], lj[j], s[i][j]);
+    const int k1 = k + 1;
+    if (k1 < b && w == k1 % kGetrfWarps) potrf_publish<kJ>(a, s, lcol[k1 & 1], b, k1);
+    __syncthreads();  // column k + 1 published; every thread done with column k's buffer
+  }
+}
+
+__global__ void __launch_bounds__(kGetrfThreads)
+potrf_kernel(float* grid, int nc, const int* idx, long long lane_stride, int b) {
+  extern __shared__ float S[];  // the tile, row stride b | 1 (odd: conflict-free column reads)
+  __shared__ __align__(16) float lcol[2][kLFloats];
+  float* T = grid + block_offset(idx, blockIdx.x, nc, b, b, lane_stride);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, ld = b | 1;
+  for (int r = w; r < b; r += kGetrfWarps)
+    for (int c = lane; c < b; c += 32) S[r * ld + c] = T[r * b + c];
+  __syncthreads();
+  // a[i][j] = T[lane + 32 j][w + 16 i]: A's transpose, so the warp that owns
+  // row r holds column r of A (the reference reads A's lower triangle); s[i][j]
+  // = sum over finished columns m of L[w + 16 i][m] L[lane + 32 j][m]; zero
+  // outside the b x b tile
+  float a[kGR][kGC], s[kGR][kGC];
+#pragma unroll
+  for (int i = 0; i < kGR; ++i)
+#pragma unroll
+    for (int j = 0; j < kGC; ++j) {
+      const int r = w + kGetrfWarps * i, c = lane + 32 * j;
+      a[i][j] = r < b && c < b ? S[c * ld + r] : 0.f;
+      s[i][j] = 0.f;
+    }
+  if (w == 0) potrf_publish<0>(a, s, lcol[0], b, 0);
+  __syncthreads();
+  potrf_steps<0>(a, s, lcol, b, min(32, b));
+  if (b > 32) potrf_steps<1>(a, s, lcol, b, min(32, b - 32));
+  if (b > 64) potrf_steps<2>(a, s, lcol, b, min(32, b - 64));
+  if (b > 96) potrf_steps<3>(a, s, lcol, b, b - 96);
+  // a[i][j] now holds L[w + 16 i][lane + 32 j] on and below the diagonal
+#pragma unroll
+  for (int i = 0; i < kGR; ++i)
+#pragma unroll
+    for (int j = 0; j < kGC; ++j) {
+      const int r = w + kGetrfWarps * i, c = lane + 32 * j;
+      if (r < b && c < b) T[r * b + c] = c <= r ? a[i][j] : 0.f;
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Launch shapes
 // ---------------------------------------------------------------------------
 bool bad_edge(int e) { return e < 1 || e > kMaxB; }
@@ -1356,6 +1502,12 @@ int tile_gemm(const float* ag, int anc, const int* aidx, long long alane, const 
 int tile_getrf(float* grid, int nc, const int* idx, long long lane, int n, int batch, int b, void* stream) {
   if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
   return launch_smem(getrf_kernel, n, batch, kGetrfThreads, 0, stream, grid, nc, idx, lane, b);
+}
+
+int tile_potrf(float* grid, int nc, const int* idx, long long lane, int n, int batch, int b, void* stream) {
+  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
+  return launch_smem(potrf_kernel, n, batch, kGetrfThreads, b * (b | 1) * (int)sizeof(float), stream, grid, nc,
+                     idx, lane, b);
 }
 
 }  // extern "C"

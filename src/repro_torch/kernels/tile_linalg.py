@@ -3,14 +3,13 @@ versions.
 
 The leaves of the ``"cuda"`` backend (the paper's cuBLAS wrapper analog).
 Nine kernels — POTRF, TRSM, SYRK and GEMM for Cholesky; GETRF, TRSML,
-TRSMU, TRSMUL and GEMMNN for pivot-free LU — each serve three forms.  POTRF
-lives in ``csrc/tile_linalg.cu`` (one CTA a task); the other eight in
-``csrc/tile_lu_sm90.cu``, their own library (``LIBRARY``): GETRF keeps its
-tile in registers, and the other seven split a task over several CTAs, the
-four triangular solves by rows or columns of the right-hand side, SYRK, GEMM
-and GEMMNN by output tiles on the tensor cores in 3xTF32; the wrapper
-chooses that split from the group's size (``launch_shape``).  The three
-forms:
+TRSMU, TRSMUL and GEMMNN for pivot-free LU — each serve three forms.  All
+nine live in ``csrc/tile_lu_sm90.cu``, one library (``LIBRARY``): POTRF and
+GETRF keep their tile in registers, and the other seven split a task over
+several CTAs, the four triangular solves by rows or columns of the
+right-hand side, SYRK, GEMM and GEMMNN by output tiles on the tensor cores
+in 3xTF32; the wrapper chooses that split from the group's size
+(``launch_shape``).  The three forms:
 
 - the fused grid form (``grid_*``), the counterpart of the JAX package's
   ``make_grid_fused``: every argument is a resident ``(nr, nc, br, bc)``
@@ -39,8 +38,10 @@ for tensors on a CUDA device — there is no fallback between the two.
 ``LAUNCHES`` counts unstacked kernel launches per kernel, ``STACKED_LAUNCHES``
 stacked ones.
 
-``matmul`` (``csrc/matmul.cu``) is the standalone tiled product C = A B,
-with ``MATMUL_LAUNCHES``; no drain calls it.
+``matmul`` (``csrc/matmul.cu``) is the standalone product C = A B on three
+routes that ``matmul_route`` picks by shape: bf16 on ``wgmma`` fed by TMA,
+fp32 in 3xTF32 on ``mma.sync``, and the simple kernel for the bf16 shapes
+TMA cannot read; ``MATMUL_LAUNCHES`` counts each route.  No drain calls it.
 """
 
 from __future__ import annotations
@@ -66,9 +67,8 @@ MAX_BATCH = 65535  # most lanes of one stacked launch (csrc kMaxBatch, gridDim.y
 # the kernels that cut a task across CTAs: their C entries take one
 # launch-shape integer after the tile dimensions
 SPLIT = ("trsm", "trsml", "trsmu", "trsmul", "syrk", "gemm", "gemmnn")
-# kernel name -> the csrc library that holds its C entry: the redesigned
-# kernels in csrc/tile_lu_sm90.cu, the simple POTRF in csrc/tile_linalg.cu
-LIBRARY = {k: "tile_lu_sm90" if k in ("getrf", *SPLIT) else "tile_linalg" for k in _SIGNATURES}
+# kernel name -> the csrc library that holds its C entry (csrc/tile_lu_sm90.cu)
+LIBRARY = {k: "tile_lu_sm90" for k in _SIGNATURES}
 
 # kernel name -> number of launches since the last reset_launches(), of the
 # unstacked forms (4-D grids, batched stacks) and of the stacked grid form
@@ -474,38 +474,66 @@ GRID_FUSED = {
 
 
 # --------------------------------------------------------------------------
-# General tiled matmul (``csrc/matmul.cu``, replacing the JAX package's
+# General matmul (``csrc/matmul.cu``, replacing the JAX package's
 # ``_matmul_kernel`` / ``matmul``): standalone, on no drain path.  Its own
 # source, so that editing it rebuilds nothing of the nine tile kernels.
 # --------------------------------------------------------------------------
-MATMUL_LAUNCHES: Dict[str, int] = {"matmul": 0}
+WGMMA, TF32X3, SIMPLE = "wgmma", "tf32x3", "simple"
+# route -> launches since the last reset_launches()
+MATMUL_LAUNCHES: Dict[str, int] = {WGMMA: 0, TF32X3: 0, SIMPLE: 0}
 
 
 matmul_plain = ref.matmul  # C = A B in float32, cast to A's dtype
 
 
-_MATMUL_FNS: Dict[torch.dtype, object] = {}
+def matmul_route(dtype: torch.dtype, m: int, k: int, n: int, aligned: bool) -> str:
+    """The kernel a call on the card takes: ``WGMMA`` for bfloat16 that TMA
+    can read (k and n multiples of 8, 16-byte ``aligned`` bases), ``TF32X3``
+    for float32 at any shape, ``SIMPLE`` for the other bfloat16 shapes."""
+    if dtype == torch.float32:
+        return TF32X3
+    if k % 8 == 0 and n % 8 == 0 and aligned:
+        return WGMMA
+    return SIMPLE
 
 
-def _matmul_fn(dtype: torch.dtype):
-    fn = _MATMUL_FNS.get(dtype)
+_MATMUL_FNS: Dict[str, object] = {}
+
+
+def _matmul_fn(route: str):
+    fn = _MATMUL_FNS.get(route)
     if fn is None:
         lib = _build.load("matmul")
-        for dt, sym in ((torch.float32, "matmul_f32"), (torch.bfloat16, "matmul_bf16")):
-            f = getattr(lib, sym)
+        for name in (WGMMA, TF32X3, SIMPLE):
+            f = getattr(lib, f"matmul_{name}")
             f.argtypes = [_VP, _VP, _VP, _I, _I, _I, _VP]
             f.restype = ctypes.c_int
-            _MATMUL_FNS[dt] = f
-        fn = _MATMUL_FNS[dtype]
+            _MATMUL_FNS[name] = f
+        fn = _MATMUL_FNS[route]
     return fn
+
+
+def _matmul_launch(route: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One launch of ``route``'s kernel on checked contiguous CUDA tensors;
+    raises on a failed launch."""
+    (m, k), n = a.shape, b.shape[1]
+    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = _matmul_fn(route)(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
+    if err != 0:
+        raise RuntimeError(f"matmul ({route} kernel) launch failed: error {err} (a CUDA error code; 10000 + a "
+                           f"CUresult: a TMA tensor map was refused; 20000: no tensor-map encoder)")
+    MATMUL_LAUNCHES[route] += 1
+    return c
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128, bk: int = 128) -> torch.Tensor:
     """C = A B with a float32 accumulator, in A's dtype (float32 or
     bfloat16).  The blocks keep the JAX kernel's divisibility contract
     (each dimension a multiple of its block, clipped to the dimension);
-    the CUDA kernel tiles on its own and masks its edges.  CUDA kernel on
-    the card, plain version on the CPU."""
+    the CUDA kernels tile on their own and mask their edges.  On the card
+    the route ``matmul_route`` names; plain version on the CPU."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul needs (m, k) @ (k, n), got {tuple(a.shape)} @ {tuple(b.shape)}")
     (m, k), n = a.shape, b.shape[1]
@@ -519,11 +547,5 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128, bk
     if a.device != b.device or a.device.type != "cuda":
         raise ValueError(f"a and b must lie on one CUDA device, got {a.device}, {b.device}")
     a, b = a.contiguous(), b.contiguous()
-    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        err = _matmul_fn(a.dtype)(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
-    if err != 0:
-        raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
-    MATMUL_LAUNCHES["matmul"] += 1
-    return c
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    return _matmul_launch(matmul_route(a.dtype, m, k, n, aligned), a, b)

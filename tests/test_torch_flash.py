@@ -144,4 +144,9 @@ def test_sources_declare_their_entry_points():
     assert 'extern "C" int flash_attention_f32' in src and 'extern "C" int flash_attention_bf16' in src
     assert "expf(" in src and "__expf(" not in src  # the 2e-5 float32 tolerance
     src = (tl._build.CSRC / "matmul.cu").read_text()
-    assert 'extern "C" int matmul_f32' in src and 'extern "C" int matmul_bf16' in src
+    for route in (tl.WGMMA, tl.TF32X3, tl.SIMPLE):  # one C entry a route of matmul_route
+        assert f'extern "C" int matmul_{route}(' in src, route
+    # bf16 on wgmma fed by TMA, fp32 in 3xTF32 on mma.sync, each with its bound noted
+    for word in ("wgmma.mma_async", "cp.async.bulk.tensor", "mma.sync.aligned.m16n8k8", "0x1000u) & 0xffffe000u",
+                 "__fadd_rn", "bound", "_matmul_kernel"):
+        assert word in src, word

@@ -1,13 +1,13 @@
-"""The redesigned GETRF, TRSML, TRSMU, TRSMUL, TRSM, SYRK, GEMM and GEMMNN
-kernels (``csrc/tile_lu_sm90.cu``) on the CPU: emulations of their
+"""The redesigned POTRF, GETRF, TRSML, TRSMU, TRSMUL, TRSM, SYRK, GEMM and
+GEMMNN kernels (``csrc/tile_lu_sm90.cu``) on the CPU: emulations of their
 arithmetic against the JAX package's Pallas kernels (interpret mode) on the
 same numpy inputs, the wrapper's choice of launch shape, and the source's
 notes.  The CUDA kernels themselves run only on the card: chip_smoke.py
 holds them against the plain versions.
 
 Tolerances are tests/test_kernels.py's: GEMMNN, SYRK and GEMM 1e-4, the
-four triangular solves 2e-3, GETRF 2e-4 (atol = rtol), the same as
-chip_smoke.py's ``TOL``."""
+four triangular solves 2e-3, GETRF and POTRF 2e-4 (atol = rtol), the same
+as chip_smoke.py's ``TOL``."""
 
 import re
 
@@ -21,7 +21,7 @@ from repro.kernels import tile_linalg as jtl
 from repro_torch.kernels import _build
 from repro_torch.kernels import tile_linalg as tl
 
-GEMMNN_TOL, TRSMU_TOL, GETRF_TOL = 1e-4, 2e-3, 2e-4
+GEMMNN_TOL, TRSMU_TOL, GETRF_TOL, POTRF_TOL = 1e-4, 2e-3, 2e-4, 2e-4
 TC_RATIO = 2.0  # chip_smoke.py's: a tensor-core tile's error at most twice fp32's
 
 
@@ -360,10 +360,10 @@ def test_lu_sm90_source_notes_what_it_replaces():
     """The redesigned kernels' source names the TPU kernels it replaces and
     what bounds them, runs SYRK, GEMM and GEMMNN as 3xTF32 on the tensor
     cores with cp.async staging, takes the wrapper's launch shape, and
-    reports launch errors; tile_linalg.cu keeps only POTRF."""
+    reports launch errors; it holds all nine tile kernels."""
     src = (_build.CSRC / "tile_lu_sm90.cu").read_text()
-    sm90 = {"getrf", "trsmu", "syrk", "gemmnn", "trsml", "gemm", "trsm", "trsmul"}
-    assert {k for k, lib in tl.LIBRARY.items() if lib == "tile_lu_sm90"} == sm90
+    sm90 = {"potrf", "getrf", "trsmu", "syrk", "gemmnn", "trsml", "gemm", "trsm", "trsmul"}
+    assert {k for k, lib in tl.LIBRARY.items() if lib == "tile_lu_sm90"} == sm90 == set(tl.LIBRARY)
     for name in sm90:
         assert f"_{name}_tile" in src and f"batched_{name}" in src and f"{name}_kernel(" in src
     for word in ("bound", "sm_90a", "mma.sync.aligned.m16n8k8", "0x1000u) & 0xffffe000u", "cp.async", "__shfl_sync"):
@@ -385,9 +385,8 @@ def test_lu_sm90_source_notes_what_it_replaces():
     head = src[src.index("int launch_smem("):]
     assert re.findall(r"return ([^;]*);", head[: head.index("\n}\n")]) == ["(int)err", "(int)cudaGetLastError()"]
     assert "blockIdx.y * lane" in src and "kMaxBatch = 65535" in src
-    simple = (_build.CSRC / "tile_linalg.cu").read_text()
-    assert set(re.findall(r"int tile_(\w+)\(", simple)) == {"potrf"}
-    assert "trsm" not in simple and "gemm" not in simple
+    assert set(re.findall(r"int tile_(\w+)\(", src)) == sm90
+    assert sorted(p.name for p in _build.CSRC.glob("tile_*.cu")) == ["tile_lu_sm90.cu"]
 
 
 # --------------------------------------------------------------------------
@@ -475,3 +474,56 @@ def test_getrf_step_order_matches_pallas_and_plain(b):
     np.testing.assert_allclose(fused.numpy(), want, rtol=GETRF_TOL, atol=GETRF_TOL)
     # the same order with separate roundings is the plain version, bit for bit
     assert torch.equal(getrf_steps(torch.from_numpy(a), fused=False), tl.getrf_plain(torch.from_numpy(a)))
+
+
+# --------------------------------------------------------------------------
+# POTRF: the tile in registers, left-looking, one column a barrier
+# --------------------------------------------------------------------------
+def potrf_steps(a: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic: s[i][j] accumulates l_i l_j over the finished
+    columns by fused multiply-add (the exact product and sum in float64,
+    rounded to float32), kept apart from A; column k of L is c = a[:, k] -
+    s[:, k] taken once (A's lower triangle: s is symmetric), d = sqrt(c[k])
+    and l = c / d below the pivot (IEEE square root and division), 0 above."""
+    a = a.float()
+    b = a.shape[-1]
+    idx = torch.arange(b)
+    s = torch.zeros_like(a)
+    L = torch.zeros_like(a)
+    for k in range(b):
+        c = a[..., :, k] - s[..., :, k]
+        d = torch.sqrt(c[..., k])
+        col = torch.where(idx > k, c / d[..., None], 0.0)
+        col[..., k] = d
+        L[..., :, k] = col
+        s = (s.double() + col.double()[..., :, None] * col.double()[..., None, :]).float()
+    return L
+
+
+def _spd(rng, n, b):
+    """SPD tiles (chip_smoke.py's ``spd_tiles``)."""
+    m = rng.standard_normal((n, b, b)).astype(np.float32) / np.float32(np.sqrt(b))
+    return m @ m.transpose(0, 2, 1) + 2.0 * np.eye(b, dtype=np.float32)
+
+
+@pytest.mark.parametrize("b", [8, 32, 33, 96, 120, 128])
+def test_potrf_step_order_matches_pallas_and_plain(b):
+    a = _spd(np.random.default_rng(b), 2, b)
+    want = np.asarray(jtl.batched_potrf(jnp.asarray(a), interpret=True))
+    got = potrf_steps(torch.from_numpy(a))
+    np.testing.assert_allclose(got.numpy(), want, rtol=POTRF_TOL, atol=POTRF_TOL)
+    torch.testing.assert_close(got, tl.potrf_plain(torch.from_numpy(a)), rtol=POTRF_TOL, atol=POTRF_TOL)
+    assert not torch.triu(got, 1).any()  # zeros above the diagonal, written
+
+
+def test_potrf_steps_give_nan_where_the_reference_does():
+    """A tile that is not SPD: the first negative pivot's column and every
+    later one turn NaN, zeros stay above the diagonal, as in the Pallas
+    kernel (the card's kernel must not hang or give finite garbage)."""
+    a = _spd(np.random.default_rng(5), 1, 16)
+    a[0, 6, 6] = -4.0
+    want = np.asarray(jtl.batched_potrf(jnp.asarray(a), interpret=True))
+    got = potrf_steps(torch.from_numpy(a)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[0, 6, 6]) and np.isfinite(got[0, :, :6]).all()
+    assert (got[0][np.triu_indices(16, 1)] == 0).all()
