@@ -46,20 +46,29 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    call runs under the profiler, and its trace gives what was launched:
    CTAs, threads, registers and shared memory a CTA (``launch`` lines).
 3. Cholesky main path: blocked Cholesky of a 4096 x 4096 fp32 SPD matrix on
-   graph g2p with 32 x 32 partitions (128 x 128 tiles), drained twice
-   (first drain, then a drain-memo replay), checked against float64
-   ``torch.linalg.cholesky`` (and within ACCURACY's limit, printed beside
-   earlier measurements) and the structural counters; kernel launch
-   counters are zeroed right before each drain and read right after.  Then
-   g2 at the same size and g1 at n = 256 through ``run_cholesky``.
+   graph g2p with 32 x 32 partitions (128 x 128 tiles), drained three
+   times: the first drain (which captures the launch list into a CUDA
+   graph), a drain-memo replay on another seed's matrix (a replay that
+   skipped copying its inputs in would fail its error check) and one on the
+   first drain's matrix, each checked against float64
+   ``torch.linalg.cholesky`` (the seed-0 drains within ACCURACY's limit,
+   printed beside earlier measurements) and the structural counters, each
+   required to have run a captured graph, whose result is held bit for bit
+   against the same launch list run eagerly on the same inputs; kernel
+   launch counters are zeroed right before each drain and read right after.
+   Each drain prints its host dispatch and wall, and the device's idle
+   share of a traced replay.  Then the same three drains on g2 (library
+   leaves, also captured; held against the eager list within the drain's
+   tolerance), a profiled replay with its host functions (cProfile), and g1
+   at n = 256 through ``run_cholesky``.
 4. LU main paths, on a 4096 x 4096 column-diagonally-dominant matrix with
-   32 x 32 partitions, each g2p drain between zeroed and read counters:
-   ``run_lu``'s drain twice (packed factor against a float64 pivot-free LU),
-   ``run_lu_solve``'s drain with b (4096, 512) in 32 x 4 blocks twice and
+   32 x 32 partitions, each drain as in phase 3: ``run_lu``'s g2p drain
+   three times (packed factor against a float64 pivot-free LU),
+   ``run_lu_solve``'s with b (4096, 512) in 32 x 4 blocks three times and
    with a vector b once (solution against float64 ``torch.linalg.solve``;
-   each error within its ACCURACY limit, printed beside earlier values),
-   a profiled replay of the matrix-RHS drain, then the same solve on g2
-   and ``run_inv`` on g1 at n = 256.
+   each seed-0 error within its ACCURACY limit, printed beside earlier
+   values), the matrix solve twice on g2, a profiled replay of the
+   matrix-RHS drain, then ``run_inv`` on g1 at n = 256.
 5. Serving: ``BatchServer(graph="g2p", max_batch=64)``; each tick queues 64
    ``lu_solve`` (vector b), 16 ``lu`` and 16 ``cholesky`` requests of
    n = 1024 in 8 x 8 partitions, three signature buckets of one stacked
@@ -70,12 +79,15 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    results within 2e-4 (factors) and 1e-3 (solutions) of float64, and
    factors whose componentwise backward error stays within fp32's bound
    for blocked LU and Cholesky, |LU - A| <= gamma_n |L||U| (the LU factors'
-   also within ACCURACY's limit).  Then a
-   profiled repeat tick, the same tick on g2, the 64 solves as sequential
-   ``run_lu_solve`` replays and as one batched library call, and two fault
-   rounds (``check_finite=True``, no retries): a NaN request fails alone
-   with ``NumericalError``; an in-flight fault on one request bisects and
-   fails it alone with ``InflightError``.
+   also within ACCURACY's limit); every tick's drains must each run a
+   captured graph, none bisected.  Then a
+   profiled repeat tick and one under cProfile, the same tick on g2, the
+   64 solves as sequential ``run_lu_solve`` replays and as one batched
+   library call, and two fault rounds (``check_finite=True``, no
+   retries): a NaN request fails alone with ``NumericalError``; an
+   in-flight fault on one request bisects and fails it alone with
+   ``InflightError``.  Last, a probe: a g2 leaf that synchronizes the host
+   must make its capture raise ``CaptureError`` naming the operation.
 
 6. LM inference (after freeing the earlier phases' memory): flash
    attention against its plain version, float32 and bfloat16, at
@@ -903,26 +915,12 @@ def tile_kernel(name: str) -> str:
     return m.group(1) if m and m.group(1) in KERNELS else "other"
 
 
-def profiled(torch, label: str, run, classify=tile_kernel, expect=None) -> bool:
-    """Where one run's time goes: device time by kernel from torch.profiler
-    (grouped by ``classify`` of the kernel's name), the union of
-    device-busy intervals, the idle share of the device span (first kernel
-    start to last kernel end), and the host's dispatch time (``run()``
-    returning) beside the wall time (the card done).  ``run`` returns a
-    string of its own counters to print.  With ``expect`` (kernel -> the
-    launches the run makes), returns False, after printing nothing but that,
-    when the trace holds other counts: the profiler lost device events."""
+def device_busy(prof, classify=tile_kernel):
+    """(busy us, span us, {group: (events, us)}) of a profiler session's
+    device events, the warm-up kernel left out: busy is the union of the
+    events' intervals, span the first start to the last end."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        warm_up(torch)
-        t0 = time.perf_counter()
-        info = run()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by = [], {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA or WARMUP_KERNEL in ev.name:
@@ -933,12 +931,7 @@ def profiled(torch, label: str, run, classify=tile_kernel, expect=None) -> bool:
         n, us = by.get(name, (0, 0.0))
         by[name] = (n + 1, us + tr.elapsed_us())
     if not spans:
-        print(f"{label} profile: no device events recorded (wall_ms={wall_ms:.3f}); device time not measured")
-        return False
-    got = {k: by.get(k, (0, 0.0))[0] for k in expect or {}}
-    if got != (expect or {}):
-        print(f"{label} profile: the trace holds launches {got}, not {expect}: device events lost")
-        return False
+        return 0.0, 0.0, by
     spans.sort()
     busy, (cs, ce) = 0.0, spans[0]
     for s0, e0 in spans[1:]:
@@ -947,7 +940,36 @@ def profiled(torch, label: str, run, classify=tile_kernel, expect=None) -> bool:
         else:
             ce = max(ce, e0)
     busy += ce - cs
-    span = max(e for _, e in spans) - spans[0][0]
+    return busy, max(e for _, e in spans) - spans[0][0], by
+
+
+def profiled(torch, label: str, run, classify=tile_kernel, expect=None) -> bool:
+    """Where one run's time goes: device time by kernel from torch.profiler
+    (grouped by ``classify`` of the kernel's name), the union of
+    device-busy intervals, the idle share of the device span (first kernel
+    start to last kernel end), and the host's dispatch time (``run()``
+    returning) beside the wall time (the card done).  ``run`` returns a
+    string of its own counters to print.  With ``expect`` (kernel -> the
+    launches the run makes), returns False, after printing nothing but that,
+    when the trace holds other counts: the profiler lost device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warm_up(torch)
+        t0 = time.perf_counter()
+        info = run()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, span, by = device_busy(prof, classify)
+    if not by:
+        print(f"{label} profile: no device events recorded (wall_ms={wall_ms:.3f}); device time not measured")
+        return False
+    got = {k: by.get(k, (0, 0.0))[0] for k in expect or {}}
+    if got != (expect or {}):
+        print(f"{label} profile: the trace holds launches {got}, not {expect}: device events lost")
+        return False
     parts = " ".join(f"{k}={v[1] / 1e3:.3f}ms/{v[0]}" for k, v in sorted(by.items()))
     print(f"{label} profile (profiler on): {info} wall_ms={wall_ms:.3f} host_dispatch_ms={host_ms:.3f} "
           f"device_span_ms={span / 1e3:.3f} device_busy_ms={busy / 1e3:.3f} "
@@ -959,6 +981,25 @@ def profiled(torch, label: str, run, classify=tile_kernel, expect=None) -> bool:
     print(f"{label} host ops by self time (profiler on): "
           + " ".join(f"{e.key}={e.self_cpu_time_total / 1e3:.3f}ms/{e.count}" for e in host))
     return True
+
+
+def host_functions(label: str, run, top: int = 10) -> None:
+    """Where one run's host time goes by Python function: cProfile's own
+    time of the ``top`` functions (the profiler inflates it; the shares are
+    what is read)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    t0 = time.perf_counter()
+    run()
+    total = time.perf_counter() - t0
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:top]
+    print(f"{label} host functions by own time (cProfile on, run {total * 1e3:.3f} ms): "
+          + " ".join(f"{Path(f).name}:{line}({fn})={tt * 1e3:.3f}ms/{nc}"
+                     for (f, line, fn), (_, nc, tt, _, _) in rows))
 
 
 def replay_breakdown(torch, label: str, submit, expect: dict) -> None:
@@ -978,18 +1019,68 @@ def replay_breakdown(torch, label: str, submit, expect: dict) -> None:
             return f"memo_hits={d.stats['memo_hits']}"
 
         if profiled(torch, f"{label} replay", run, expect=expect):
+            d = Dispatcher(graph="g2p")
+            submit(d)
+            host_functions(f"{label} replay", d.run)
+            d.executor.sync()
             return
     print(f"{label} replay: {TRACE_ATTEMPTS} profiler traces all lost device events; device time not measured")
 
 
-def drain_checked(torch, tl, label: str, submit, want: tuple, want_launches: dict, error, tol: float,
-                  flops: float):
-    """Drain one g2p program between zeroed and read kernel counters; check
-    its structural counters, its kernel launches and its error.  Returns the
-    launch counts and the error."""
+def captured_vs_eager(torch, tl, d, inputs, exact: bool, tol: float) -> float:
+    """The dispatcher's last launch list run eagerly (no graph) on ``inputs``
+    (its roots, in slot order) in grid form, held against the captured run's
+    result grids: bit for bit where ``exact`` (the hand-written kernels fix
+    their reduction order), else within ``tol``.  Returns the largest
+    difference; the eager run's launches are left out of the counters."""
+    from repro_torch.core.data import to_grid
+
+    prog = d.executor.last_program
+    if prog is None or not prog.captured:
+        raise AssertionError("the drain did not run a captured graph")
+    grids = [to_grid(x, *g.shape[-2:]) for x, g in zip(inputs, prog.grids)]
+    counts = [dict(c) for c in tl.COUNTERS]
+    prog.fn(grids, prog.idxs)
+    for c, saved in zip(tl.COUNTERS, counts):
+        c.update(saved)
+    diff = max((e.double() - g.double()).abs().max().item() for e, g in zip(grids, prog.grids))
+    if (exact and not all(torch.equal(e, g) for e, g in zip(grids, prog.grids))) or not diff <= tol:
+        raise AssertionError(f"captured result differs from the eager launch list by {diff:.3e} "
+                             f"({'bit for bit' if exact else f'tolerance {tol}'})")
+    return diff
+
+
+def replay_idle(torch, graph: str, submit) -> tuple:
+    """(device busy ms, device span ms) of one more drain of ``submit``'s
+    program on a fresh dispatcher (a memo replay), in a profiler session
+    that traces the card only: the idle share of a drain's device span,
+    read apart from its host timing (the tracer slows a graph launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.core import Dispatcher
 
-    d = Dispatcher(graph="g2p")
+    d = Dispatcher(graph=graph)
+    submit(d)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warm_up(torch)
+        d.run()
+        d.executor.sync()
+    busy, span, _ = device_busy(prof)
+    return busy / 1e3, span / 1e3
+
+
+def drain_checked(torch, tl, label: str, graph: str, submit, inputs, want: tuple, want_launches: dict, error,
+                  tol: float, flops: float):
+    """Drain one program on ``graph`` between zeroed and read kernel
+    counters; check its structural counters, its kernel launches and its
+    error, and hold its captured result against the eager launch list on
+    the same ``inputs``.  Prints whether it ran a captured graph, its host
+    dispatch and wall, and the device's idle share of a replay's span
+    (``replay_idle``).  Returns the launch counts and the error."""
+    from repro_torch.core import Dispatcher
+
+    d = Dispatcher(graph=graph)
     datas = submit(d)
     torch.cuda.synchronize()
     tl.reset_launches()
@@ -1000,66 +1091,75 @@ def drain_checked(torch, tl, label: str, submit, want: tuple, want_launches: dic
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in tl.LAUNCHES.items() if v}
     err = error(*datas)
+    diff = captured_vs_eager(torch, tl, d, inputs, graph == "g2p", tol)
+    busy, span = replay_idle(torch, graph, submit)
     st = d.executor.stats
     print(f"{label} drain: leaves={leaves} groups={st['groups']} prefusion={st['groups_prefusion']} "
           f"slots={st['slots']} compiles={st.get('compiles', 0)} launches={st['launches']} "
-          f"memo_hits={d.stats['memo_hits']} kernel_launches={counts} wall_s={wall:.4f} "
-          f"host_dispatch_s={t_host:.4f} gflops={flops / wall / 1e9:.1f} max_abs_err_vs_f64={err:.3e}")
+          f"memo_hits={d.stats['memo_hits']} graph={'captured' if st.get('graph_replays') else 'eager'} "
+          f"kernel_launches={counts} wall_ms={wall * 1e3:.3f} host_dispatch_ms={t_host * 1e3:.3f} "
+          f"gflops={flops / wall / 1e9:.1f} max_abs_err_vs_f64={err:.3e} captured_vs_eager_max_diff={diff:.3e}; "
+          f"a replay traced: device_busy_ms={busy:.3f} device_span_ms={span:.3f} "
+          f"idle_share_of_span={1 - busy / span if span else float('nan'):.3f}")
     if err > tol:
         raise AssertionError(f"{label} drain error {err:.3e} > {tol}")
     got = (leaves, st["groups"], st["groups_prefusion"], st["slots"], st.get("compiles", 0),
-           st["launches"], d.stats["memo_hits"])
-    if got != want:
-        raise AssertionError(f"{label} counters {got} != {want}")
+           st["launches"], d.stats["memo_hits"], st.get("graph_replays", 0))
+    if got != want + (1,):
+        raise AssertionError(f"{label} counters (with graph replays) {got} != {want + (1,)}")
     if counts != want_launches:
         raise AssertionError(f"{label} kernel launches {counts} != {want_launches}")
     return counts, err
 
 
+# each path's first drain (seed 0), a replay on fresh inputs (seed 1: a
+# replay that skipped its copy-in fails its error check) and a replay on the
+# first drain's inputs (its error is the one ACCURACY holds)
+DRAINS = (("first ", 0), ("replay", 1), ("replay", 0))
+
+
 def main_path(torch, tl) -> dict:
-    """Phase 3: the Cholesky g2p drain twice (first drain, memo replay), then g2/g1."""
+    """Phase 3: the Cholesky drains on g2p then g2 (DRAINS), then g1."""
     from repro_torch.core import GData, spd_matrix
     from repro_torch.core.data import from_grid
     from repro_torch.core.executors import clear_compile_cache, drain_memo_stats
     from repro_torch.linalg import run_cholesky, utp_cholesky
 
-    a = spd_matrix(N, seed=0)
-    ref = torch.linalg.cholesky(a.double())
+    mats = {seed: spd_matrix(N, seed=seed) for seed in (0, 1)}
+    refs = {seed: torch.linalg.cholesky(a.double()) for seed, a in mats.items()}
+    a = mats[0]
     clear_compile_cache()
     launches = {k: 0 for k in tl.LAUNCHES}
 
-    def submit(d):
-        A = GData(a.shape, partitions=((P, P),), value=a)
-        utp_cholesky(d, A)
-        return (A,)
+    def submitter(seed):
+        def submit(d):
+            A = GData(a.shape, partitions=((P, P),), value=mats[seed])
+            utp_cholesky(d, A)
+            return (A,)
 
-    def error(A):
-        return (torch.tril(from_grid(A.grid)).double() - ref).abs().max().item()
+        return submit
 
-    for drain in ("first", "replay"):
-        first = drain == "first"
-        want = (5984, 124, 124, 94, int(first), 1, int(not first))
-        counts, err = drain_checked(torch, tl, f"g2p {drain:6s}", submit, want, EXPECTED_LAUNCHES, error, 2e-4,
-                                    N**3 / 3)
-        accuracy_held("cholesky", err)
-        for k, v in counts.items():
-            launches[k] += v
+    def error(seed):
+        return lambda A: (torch.tril(from_grid(A.grid)).double() - refs[seed]).abs().max().item()
+
+    for graph, want_launches in (("g2p", EXPECTED_LAUNCHES), ("g2", {})):
+        for drain, seed in DRAINS:
+            first = drain == "first "
+            want = (5984, 124, 124, 94, int(first), 1, int(not first))
+            counts, err = drain_checked(torch, tl, f"{graph:3s} cholesky {drain} seed={seed}", graph,
+                                        submitter(seed), [mats[seed]], want, want_launches, error(seed), 2e-4,
+                                        N**3 / 3)
+            if graph == "g2p" and seed == 0:
+                accuracy_held("cholesky", err)
+            for k, v in counts.items():
+                launches[k] += v
     print(f"drain memo: {drain_memo_stats()}")
-    replay_breakdown(torch, "cholesky", submit, EXPECTED_LAUNCHES)
+    replay_breakdown(torch, "cholesky", submitter(0), EXPECTED_LAUNCHES)
     replay_ms = cuda_ms(lambda: run_cholesky(a, graph="g2p", partitions=((P, P),)), 3, warmup=1)
-    lib_ms = cuda_ms(lambda: torch.linalg.cholesky(a), 10)
-    print(f"g2p run_cholesky (memo replay, incl. ingest and de-grid) ms={replay_ms:.3f}; "
-          f"library torch.linalg.cholesky ms={lib_ms:.3f}")
-
-    t0 = time.perf_counter()
-    L2 = run_cholesky(a, graph="g2", partitions=((P, P),))
-    torch.cuda.synchronize()
-    t_g2 = time.perf_counter() - t0
-    e2 = (L2.double() - ref).abs().max().item()
     g2_ms = cuda_ms(lambda: run_cholesky(a, graph="g2", partitions=((P, P),)), 3, warmup=1)
-    print(f"g2  n={N}: first wall_s={t_g2:.4f} replay ms={g2_ms:.3f} max_abs_err_vs_f64={e2:.3e}")
-    if e2 > 2e-4:
-        raise AssertionError(f"g2 error {e2:.3e} > 2e-4")
+    lib_ms = cuda_ms(lambda: torch.linalg.cholesky(a), 10)
+    print(f"run_cholesky (memo replay, incl. ingest and de-grid) g2p ms={replay_ms:.3f} g2 ms={g2_ms:.3f}; "
+          f"library torch.linalg.cholesky ms={lib_ms:.3f}")
     a1 = spd_matrix(256, seed=256)
     L1 = run_cholesky(a1, graph="g1", partitions=((4, 4),))
     e1 = (L1.double() - torch.linalg.cholesky(a1.double())).abs().max().item()
@@ -1070,8 +1170,9 @@ def main_path(torch, tl) -> dict:
 
 
 def lu_main_path(torch, tl) -> dict:
-    """Phase 4: run_lu's and run_lu_solve's g2p drains (the first drain and a
-    memo replay; the vector RHS once), a profiled replay, g2 and g1."""
+    """Phase 4: run_lu's and run_lu_solve's g2p drains (DRAINS; the vector
+    RHS first drain only), a profiled replay, the matrix solve's drains on
+    g2, and g1."""
     import numpy as np
 
     from repro_torch.core import GData, dd_matrix
@@ -1079,24 +1180,28 @@ def lu_main_path(torch, tl) -> dict:
     from repro_torch.kernels.ref import fp32_matmul
     from repro_torch.linalg import run_inv, run_lu, run_lu_solve, utp_getrf, utp_lu_solve
 
-    a = dd_matrix(N, seed=0)
-    bm = torch.from_numpy(np.random.default_rng(0).standard_normal((N, RHS)).astype(np.float32)).cuda()
+    mats = {seed: dd_matrix(N, seed=seed) for seed in (0, 1)}
+    rhs = {seed: torch.from_numpy(np.random.default_rng(seed).standard_normal((N, RHS)).astype(np.float32)).cuda()
+           for seed in (0, 1)}
+    a, bm = mats[0], rhs[0]
     bv = bm[:, 0].contiguous()
-    a64 = a.double()
-    ref_lu = torch.linalg.lu_factor_ex(a64, pivot=False).LU  # float64 reference only
-    ref_xm = torch.linalg.solve(a64, bm.double())
-    ref_xv = torch.linalg.solve(a64, bv.double()[:, None])
+    ref_lu = {seed: torch.linalg.lu_factor_ex(m.double(), pivot=False).LU for seed, m in mats.items()}  # float64
+    ref_xm = {seed: torch.linalg.solve(m.double(), rhs[seed].double()) for seed, m in mats.items()}
+    ref_xv = torch.linalg.solve(a.double(), bv.double()[:, None])
     launches = {k: 0 for k in tl.LAUNCHES}
 
-    def lu_submit(d):
-        A = GData(a.shape, partitions=((P, P),), value=a)
-        utp_getrf(d, A)
-        return (A,)
-
-    def solve_submit(rhs, parts):
+    def lu_submit(seed):
         def submit(d):
-            A = GData(a.shape, partitions=((P, P),), value=a)
-            B = GData(tuple(rhs.shape), partitions=parts, value=rhs)
+            A = GData(a.shape, partitions=((P, P),), value=mats[seed])
+            utp_getrf(d, A)
+            return (A,)
+
+        return submit
+
+    def solve_submit(seed, b, parts):
+        def submit(d):
+            A = GData(a.shape, partitions=((P, P),), value=mats[seed])
+            B = GData(tuple(b.shape), partitions=parts, value=b)
             utp_lu_solve(d, A, B)
             return (B,)
 
@@ -1108,23 +1213,29 @@ def lu_main_path(torch, tl) -> dict:
     lu_launches = {"getrf": 32, "trsml": 31, "trsmu": 31, "gemmnn": 31}
     solve_launches = {"getrf": 32, "trsml": 32, "trsmu": 31, "trsmul": 32, "gemmnn": 527}
     vec_launches = {"getrf": 32, "trsml": 63, "trsmu": 31, "trsmul": 32, "gemmnn": 558}
-    matrix = solve_submit(bm, ((P, RHS_P),))
-    runs = [
-        ("g2p run_lu first ", lu_submit, (11440, 125, 125, 94, 1, 1, 0), lu_launches, grid_error(ref_lu), 2e-4,
-         2 * N**3 / 3),
-        ("g2p run_lu replay", lu_submit, (11440, 125, 125, 94, 0, 1, 1), lu_launches, grid_error(ref_lu), 2e-4,
-         2 * N**3 / 3),
-        (f"g2p lu_solve b=({N},{RHS}) first ", matrix, (15664, 654, 716, 623, 1, 1, 0), solve_launches,
-         grid_error(ref_xm), 1e-3, 2 * N**3 / 3 + 2 * N * N * RHS),
-        (f"g2p lu_solve b=({N},{RHS}) replay", matrix, (15664, 654, 716, 623, 0, 1, 1), solve_launches,
-         grid_error(ref_xm), 1e-3, 2 * N**3 / 3 + 2 * N * N * RHS),
-        (f"g2p lu_solve b=({N},) first", solve_submit(bv[:, None], ((P, 1),)), (12496, 716, 716, 623, 1, 1, 0),
-         vec_launches, grid_error(ref_xv), 1e-3, 2 * N**3 / 3 + 2 * N * N),
-    ]
-    for (label, submit, want, want_launches, error, tol, flops), kind in zip(runs, ("run_lu", "run_lu", "lu_solve",
-                                                                               "lu_solve", "lu_solve_vector")):
-        counts, err = drain_checked(torch, tl, label, submit, want, want_launches, error, tol, flops)
-        accuracy_held(kind, err)
+    matrix = solve_submit(0, bm, ((P, RHS_P),))
+    solve_flops = 2 * N**3 / 3 + 2 * N * N * RHS
+    runs = []
+    for drain, seed in DRAINS:
+        first = drain == "first "
+        runs.append(("run_lu", f"g2p run_lu {drain} seed={seed}", "g2p", lu_submit(seed), [mats[seed]],
+                     (11440, 125, 125, 94, int(first), 1, int(not first)), lu_launches, grid_error(ref_lu[seed]),
+                     2e-4, 2 * N**3 / 3, seed))
+    for graph, want_launches in (("g2p", solve_launches), ("g2", {})):
+        for drain, seed in DRAINS[: 3 if graph == "g2p" else 2]:
+            first = drain == "first "
+            runs.append(("lu_solve", f"{graph:3s} lu_solve b=({N},{RHS}) {drain} seed={seed}", graph,
+                         solve_submit(seed, rhs[seed], ((P, RHS_P),)), [mats[seed], rhs[seed]],
+                         (15664, 654, 716, 623, int(first), 1, int(not first)), want_launches,
+                         grid_error(ref_xm[seed]), 1e-3, solve_flops, seed))
+        if graph == "g2p":
+            runs.append(("lu_solve_vector", f"g2p lu_solve b=({N},) first  seed=0", "g2p",
+                         solve_submit(0, bv[:, None], ((P, 1),)), [a, bv[:, None]], (12496, 716, 716, 623, 1, 1, 0),
+                         vec_launches, grid_error(ref_xv), 1e-3, 2 * N**3 / 3 + 2 * N * N, 0))
+    for kind, label, graph, submit, inputs, want, want_launches, error, tol, flops, seed in runs:
+        counts, err = drain_checked(torch, tl, label, graph, submit, inputs, want, want_launches, error, tol, flops)
+        if graph == "g2p" and seed == 0:
+            accuracy_held(kind, err)
         for k, v in counts.items():
             launches[k] += v
     replay_breakdown(torch, f"lu_solve b=({N},{RHS})", matrix, solve_launches)
@@ -1141,20 +1252,12 @@ def lu_main_path(torch, tl) -> dict:
     with fp32_matmul():
         lib_lu_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(a, pivot=False), 10)
         lib_solve_ms = cuda_ms(library_solve, 10)
-        e_lib = (library_solve().double() - ref_xm).abs().max().item()
+        e_lib = (library_solve().double() - ref_xm[0]).abs().max().item()
     print(f"g2p run_lu (memo replay, incl. ingest and unpack) ms={lu_ms:.3f}; library lu_factor_ex(pivot=False) "
           f"ms={lib_lu_ms:.3f}")
     print(f"g2p run_lu_solve b=({N},{RHS}) (memo replay, incl. ingest and de-grid) ms={solve_ms:.3f}; library "
           f"lu_factor_ex(pivot=False) + 2 solve_triangular ms={lib_solve_ms:.3f} (its max_abs_err_vs_f64={e_lib:.3e})")
 
-    t0 = time.perf_counter()
-    x2 = run_lu_solve(a, bm, graph="g2", partitions=((P, P),), b_partitions=((P, RHS_P),))
-    torch.cuda.synchronize()
-    t_g2 = time.perf_counter() - t0
-    e2 = (x2.double() - ref_xm).abs().max().item()
-    print(f"g2  lu_solve b=({N},{RHS}): first wall_s={t_g2:.4f} max_abs_err_vs_f64={e2:.3e}")
-    if e2 > 1e-3:
-        raise AssertionError(f"g2 lu_solve error {e2:.3e} > 1e-3")
     a1 = dd_matrix(256, seed=256)
     inv = run_inv(a1, graph="g1", partitions=((4, 4),))
     e1 = (inv.double() @ a1.double() - torch.eye(256, dtype=torch.float64, device=a1.device)).abs().max().item()
@@ -1188,17 +1291,20 @@ def serving_path(torch, tl) -> dict:
     parts = ((SP, SP),)
 
     class Observed(BatchServer):
-        """A BatchServer that keeps each chunk drain's template counters."""
+        """A BatchServer that keeps each chunk drain's template counters and
+        whether it ran a captured graph."""
 
         def __init__(self, **kw):
             super().__init__(**kw)
             self.drained = []
+            self.graphs = []
 
         def _drain_chunk(self, chunk):
             d, h = super()._drain_chunk(chunk)
             st = d.executor.stats
             self.drained.append((kind_of[chunk[0].op.name], len(chunk),
                                  (h.leaves, st["groups"], st["groups_prefusion"], st["slots"])))
+            self.graphs.append(st.get("graph_replays", 0))
             return d, h
 
     rng = np.random.default_rng(5)
@@ -1276,6 +1382,7 @@ def serving_path(torch, tl) -> dict:
         torch.cuda.synchronize()
         tl.reset_launches()
         srv.drained.clear()
+        srv.graphs.clear()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         t0 = time.perf_counter()
@@ -1291,7 +1398,10 @@ def serving_path(torch, tl) -> dict:
               f"memo_hits={rep.memo_hits} bisected={rep.bisected} host_idle_us={rep.host_idle_us:.1f} "
               f"submit_ms={submit_ms:.3f} tick_wall_ms={tick_ms:.3f} card_done_ms={done_ms:.3f} "
               f"event_span_ms={start.elapsed_time(end):.3f} stacked_launches={stacked} "
-              f"unstacked_launches={unstacked}")
+              f"unstacked_launches={unstacked} captured_graph_drains={sum(srv.graphs)}/{len(srv.graphs)}")
+        if not all(srv.graphs) or rep.bisected:
+            raise AssertionError(f"{label}: a drain failed or ran no captured graph ({srv.graphs}, "
+                                 f"bisected={rep.bisected})")
         return rep, futs, stacked
 
     srv = Observed(graph="g2p", max_batch=LANES)
@@ -1330,6 +1440,10 @@ def serving_path(torch, tl) -> dict:
                 f"resolved={rep.resolved}")
 
     profiled(torch, "serve g2p repeat tick", profiled_tick)
+    errors(reqs, futs)
+    reqs = requests(11)
+    futs = submit(srv, reqs)
+    host_functions("serve g2p repeat tick", srv.tick, top=16)
     errors(reqs, futs)
 
     g2 = Observed(graph="g2", max_batch=LANES)
@@ -1387,6 +1501,46 @@ def serving_path(torch, tl) -> dict:
           f"round 2: drain.inflight on request 5 -> {type(err).__name__}, bisected={bisected}, ticks={len(reps)}, "
           f"resolved={sum(r.resolved for r in reps)} max_abs_err={e2['lu_solve']:.3e}")
     return launches
+
+
+def capture_probe(torch) -> None:
+    """Phase 5, last: a leaf that synchronizes the host cannot be captured.
+    The g2 POTRF leaf is swapped for one that calls
+    ``torch.cuda.synchronize()`` (legal in the warm-up run, illegal while
+    the stream captures); the drain must raise ``CaptureError`` naming the
+    operation, and a drain after it must run."""
+    from repro_torch.core import spd_matrix
+    from repro_torch.core.executors import clear_compile_cache
+    from repro_torch.core.executors.captured import CaptureError
+    from repro_torch.kernels import ref as kref
+    from repro_torch.linalg import run_cholesky
+
+    real = kref.potrf
+
+    def syncing_potrf(a):
+        torch.cuda.synchronize()
+        return real(a)
+
+    a = spd_matrix(256, seed=3)
+    clear_compile_cache()
+    kref.potrf = syncing_potrf
+    try:
+        run_cholesky(a, graph="g2", partitions=((4, 4),))
+    except CaptureError as e:
+        raised = e
+    else:
+        raised = None
+    finally:
+        kref.potrf = real
+        clear_compile_cache()
+    if raised is None or "potrf" not in str(raised):
+        raise AssertionError(f"a synchronizing leaf did not make capture raise CaptureError naming it: {raised!r}")
+    L = run_cholesky(a, graph="g2", partitions=((4, 4),))
+    err = (L.double() - torch.linalg.cholesky(a.double())).abs().max().item()
+    print(f"capture probe: a leaf calling torch.cuda.synchronize() -> {type(raised).__name__}: "
+          f"{str(raised).splitlines()[0][:160]}; the next g2 drain's max_abs_err_vs_f64={err:.3e}")
+    if err > 2e-4:
+        raise AssertionError(f"the drain after the capture probe is off by {err:.3e}")
 
 # --------------------------------------------------------------------------
 # Phase 6: the LM inference path
@@ -2174,6 +2328,7 @@ def main() -> int:
     for k, v in lu_main_path(torch, tl).items():
         launches[k] += v
     stacked_launches = serving_path(torch, tl)
+    capture_probe(torch)
     lm_kernels = lm_path(torch, tl, rng)
 
     kernels = []

@@ -60,10 +60,11 @@ def host_to_device(t: torch.Tensor, device: torch.device, dtype=None) -> torch.T
     return t.to(device=device, dtype=dtype, copy=True)
 
 
-def to_grid(a: torch.Tensor, br: int, bc: int) -> torch.Tensor:
-    """(R, C) root layout -> fresh (R//br, C//bc, br, bc) grid-major tensor."""
+def to_grid(a: torch.Tensor, br: int, bc: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(R, C) root layout -> (R//br, C//bc, br, bc) grid-major tensor: fresh,
+    or written into ``out``."""
     r, c = a.shape
-    g = torch.empty((r // br, c // bc, br, bc), dtype=a.dtype, device=a.device)
+    g = torch.empty((r // br, c // bc, br, bc), dtype=a.dtype, device=a.device) if out is None else out
     g.copy_(a.reshape(r // br, br, c // bc, bc).permute(0, 2, 1, 3))
     return g
 
@@ -89,7 +90,7 @@ class StackedEpoch:
     member resolves or re-adopts elsewhere.
     """
 
-    __slots__ = ("grid", "block", "holders")
+    __slots__ = ("grid", "block", "holders", "__weakref__")
 
     def __init__(self, grid: torch.Tensor, block: Tuple[int, int]):
         self.grid = grid  # (B, nr, nc, br, bc), on the drain's device
@@ -97,7 +98,7 @@ class StackedEpoch:
         # live lane holders: an executor may run the next stacked list IN
         # PLACE on this grid only when every holder is re-adopted in that
         # same drain (otherwise it would overwrite a bystander's lane) —
-        # see WaveExecutor._stack_grids
+        # see CapturedProgram.load_stacked
         self.holders = 0
 
     @property
@@ -251,10 +252,12 @@ class GData:
     def enter_grid(self, br: int, bc: int) -> torch.Tensor:
         """Enter (or stay in) the grid-resident epoch with block ``(br, bc)``.
 
-        Executors call this once per dispatcher drain; repeated drains with
-        the same block shape find the grid already resident and pay zero
-        layout traffic.  A different block shape flushes through ``.value``
-        first (root layout is the common interchange format).
+        Repeated calls with the same block shape find the grid already
+        resident and pay zero layout traffic.  A different block shape
+        flushes through ``.value`` first (root layout is the common
+        interchange format).  The wave executors instead copy a datum into
+        their captured programs' static grids (``write_grid``) and hand the
+        result back (``adopt_grid``).
         """
         if self.shape[0] % br or self.shape[1] % bc:
             raise ValueError(
@@ -278,6 +281,31 @@ class GData:
         self._grid_block = (br, bc)
         self._value = None  # grid is now the single authority
         return self._grid
+
+    def write_grid(self, dst: torch.Tensor, br: int, bc: int) -> None:
+        """Copy this datum's bytes into ``dst``, an ``(nr, nc, br, bc)``
+        grid: a lane or resident grid of that block is copied as it is,
+        anything else through root layout (``to_grid``'s permute, straight
+        into ``dst``).  The datum keeps its own storage."""
+        if self._lane is not None and self._lane[0].block == (br, bc):
+            ep, i = self._lane
+            dst.copy_(ep.grid[i])
+        elif self._grid is not None and self._grid_block == (br, bc):
+            dst.copy_(self._grid)
+        else:
+            v = self.value  # flushes any differently-blocked resident grid/lane
+            if v is None:
+                raise ValueError(f"{self.name}: cannot enter grid epoch, no value")
+            to_grid(v, br, bc, out=dst)
+
+    def adopt_grid(self, g4: torch.Tensor, block: Tuple[int, int]) -> None:
+        """Make ``g4`` (already holding this datum's bytes) the resident grid
+        of block ``block``: a captured launch list's static grid, handed to
+        the datum its drain wrote (``src/repro_torch/DESIGN.md``)."""
+        self._drop_lane()
+        self._value = None
+        self._grid = g4
+        self._grid_block = tuple(block)
 
     @property
     def grid(self) -> Optional[torch.Tensor]:

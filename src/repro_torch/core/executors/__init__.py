@@ -1,4 +1,5 @@
 from .base import Executor, group_wave
+from .captured import CapturedProgram, CaptureError
 from .inline import InlineExecutor
 from .jit_wave import (
     CudaExecutor,
@@ -6,11 +7,14 @@ from .jit_wave import (
     clear_compile_cache,
     drain_memo_pressure,
     drain_memo_stats,
+    program_cache_stats,
     set_drain_memo_capacity,
 )
 from .wave_program import SchedulePlan, build_program, plan_schedule
 
 __all__ = [
+    "CaptureError",
+    "CapturedProgram",
     "CudaExecutor",
     "Executor",
     "InlineExecutor",
@@ -22,5 +26,6 @@ __all__ = [
     "drain_memo_stats",
     "group_wave",
     "plan_schedule",
+    "program_cache_stats",
     "set_drain_memo_capacity",
 ]

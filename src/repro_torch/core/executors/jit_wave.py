@@ -7,18 +7,21 @@ launches (DESIGN.md §2).
 
 Primary path (``execute_schedule``): the dispatcher's whole leaf schedule
 plus its exact task DAG is planned by ``plan_schedule`` and run as one
-cached launch list (``build_program``) over grid-resident roots —
+launch list (``build_program``) over grid-resident roots —
 dependency-exact issue slots, same-signature groups fused across former
-wave boundaries (also across roots), one list per drain.  Roots stay in
-``(nr, nc, br, bc)`` layout for the epoch and are updated in place.  A
-"compile" is a launch-list build on a cache miss; a "launch" is one run of
-a list.
+wave boundaries (also across roots), one list per drain.  The list is
+captured once per structural key into a CUDA graph over static grids
+(``captured.CapturedProgram``), the counterpart of the JAX package's
+``jax.jit``: a "compile" is a list built and captured on a cache miss, a
+"launch" one replay of it.
+Roots stay in ``(nr, nc, br, bc)`` layout for the epoch: each run copies
+them into the static grids and hands those back to their handles.
 
 Stacked path (``execute_stacked``, DESIGN.md §7): a homogeneous root
 stream runs ONE list over ``(B, nr, nc, br, bc)`` stacked grids with B
-padded to a pow2 bucket — built lists and the drain memo key depend on the
-bucket, never on the exact request count, and results hand back as lazily
-extracted lanes of a shared ``StackedEpoch``.
+padded to a pow2 bucket — captured lists and the drain memo key depend on
+the bucket, never on the exact request count, and results hand back as
+lazily extracted lanes of a shared ``StackedEpoch``.
 
 Fallback path (``execute_wave``/``_run_group``): per-wave-group launches
 over root-layout tensors, used when the schedule is not grid-uniform
@@ -38,30 +41,33 @@ import torch
 
 from ...analysis.verify import verify_plan
 from ...testing import faults
-from ..data import GData, StackedEpoch, host_to_device
+from ..data import host_to_device
 from ..task import GTask, TaskState
 from ..versioning import InFlightEpoch
 from .base import Executor, group_wave
+from .captured import CapturedProgram
 from .wave_program import SchedulePlan, build_program, plan_schedule
 
 # process-global launch-list cache: keys are purely structural (op names,
 # backend, shapes, dtypes, schedule structure) so every Dispatcher instance
 # reuses the same lists.  Holds both per-group functions ("group", ...) and
-# whole-schedule lists ("waveprog", ...).
+# whole-schedule lists ("waveprog", ...); a list is a small closure, its
+# device state lives in the captured programs below.
 _GROUP_FN_CACHE: Dict[tuple, callable] = {}
 
 
 class DrainMemo:
-    """Bounded LRU drain memo with hit/miss/eviction counters (DESIGN.md §2).
+    """Bounded LRU with hit/miss/eviction counters (DESIGN.md §2): the drain
+    memo, and the cache of captured programs.
 
-    Structural root-task-stream key -> the captured sequence of launch-list
-    executions for a whole dispatcher drain, so a structurally
-    repeated drain skips Python re-splitting/re-versioning and replays the
-    programs directly.  A long-running server sees an unbounded stream of
-    distinct request signatures, so the memo must not grow without bound:
-    entries evict least-recently-used past ``capacity`` (an evicted drain is
-    simply re-captured on its next occurrence — correctness is unaffected).
-    Counters are read through ``drain_memo_stats``.
+    As the drain memo: structural root-task-stream key -> the captured
+    sequence of launch-list executions for a whole dispatcher drain, so a
+    structurally repeated drain skips Python re-splitting/re-versioning and
+    replays the programs directly.  A long-running server sees an unbounded
+    stream of distinct request signatures, so the memo must not grow without
+    bound: entries evict least-recently-used past ``capacity`` (an evicted
+    drain is simply re-captured on its next occurrence — correctness is
+    unaffected).  Counters are read through ``drain_memo_stats``.
     """
 
     def __init__(self, capacity: int = 256):
@@ -146,6 +152,14 @@ class DrainMemo:
 # owned here (not in dispatcher.py) so one clear call drops every cached
 # artifact; counters are process-global like the launch-list cache
 _DRAIN_MEMO = DrainMemo()
+# (launch list, device) -> CapturedProgram.  A list is built once per
+# structural key and stays in _GROUP_FN_CACHE until a clear, which drops
+# these too, so the list stands for its key here (the key itself lists every
+# group, and hashing it on each replay costs host time).  Each program pins
+# a root's worth of static storage and a graph memory pool (64 MiB of grid
+# for n = 4096), so the cache is bounded: a dropped program is captured
+# again on its next drain (``recaptures``).
+_PROGRAMS = DrainMemo(capacity=64)
 
 
 def set_drain_memo_capacity(capacity: int) -> None:
@@ -158,18 +172,27 @@ def drain_memo_stats() -> Dict[str, int]:
     return _DRAIN_MEMO.stats()
 
 
+def program_cache_stats() -> Dict[str, int]:
+    """Entries/capacity/hits/misses/evictions of the captured programs."""
+    return _PROGRAMS.stats()
+
+
 def drain_memo_pressure() -> int:
-    """Shed the LRU half of the global drain memo (DESIGN.md §14).
+    """Shed the LRU half of the global drain memo and of the captured
+    programs (DESIGN.md §14).
 
     The memory-pressure callback: called by the serving layer on a device
-    OOM so resident launch-list state shrinks alongside the batch-cap
-    degradation.  Returns the number of entries shed."""
+    OOM so resident launch-list state (static grids, graph pools) shrinks
+    alongside the batch-cap degradation.  Returns the number of drain-memo
+    entries shed."""
+    _PROGRAMS.shed()
     return _DRAIN_MEMO.shed()
 
 
 def clear_compile_cache() -> None:
-    """Drop all cached launch lists / group fns / drain memos."""
+    """Drop all cached launch lists / captured programs / drain memos."""
     _GROUP_FN_CACHE.clear()
+    _PROGRAMS.clear()
     _DRAIN_MEMO.clear()
 
 
@@ -182,7 +205,9 @@ class ProgramRecord:
     ``idxs`` is the plan's device-resident flat index tensor — replay
     reuses it as-is, no host concatenation or transfer.  ``batch`` is the
     stacked pow2 bucket for batched drains (DESIGN.md §7): replay then
-    resolves each slot to the LIST of member data handles to restack."""
+    resolves each slot to the LIST of member data handles to restack.
+    ``fn`` names the captured program (and recaptures it after an
+    eviction)."""
 
     fn: object  # the launch list
     root_slots: Tuple[int, ...]
@@ -208,6 +233,7 @@ class WaveExecutor(Executor):
         self._capture: Optional[List[ProgramRecord]] = None
         self._capture_ids: Dict[int, int] = {}
         self._capture_ok = True
+        self.last_program: Optional[CapturedProgram] = None  # of the last list run
         # in-flight epoch handles, one per launch list (or fallback group)
         # since the last take (DESIGN.md §12); launches are asynchronous, so
         # nothing here blocks
@@ -270,26 +296,65 @@ class WaveExecutor(Executor):
         """Re-execute a captured list against fresh data handles.
 
         For a stacked record (``rec.batch``) each entry of ``datas`` is the
-        LIST of member handles for that root slot; they are restacked (with
-        pow2 padding) and the per-lane results handed back as lanes of a
-        shared ``StackedEpoch`` (DESIGN.md §7)."""
-        faults.fire("executor.launch", batch=rec.batch, n_tasks=rec.n_tasks, replay=True)
-        faults.fire("launch.oom", batch=rec.batch, n_tasks=rec.n_tasks, replay=True)
-        if rec.batch is not None:
-            grids = self._stack_grids(datas, rec.blocks, rec.batch)
-        else:
-            grids = [d.enter_grid(*blk) for d, blk in zip(datas, rec.blocks)]
-        rec.fn(grids, rec.idxs)
-        self._corrupt_outputs(grids, batch=rec.batch, replay=True)
-        self._note_launch(grids[0].device, "replay" if rec.batch is None else f"replay:stacked{rec.batch}")
-        if rec.batch is not None:
-            self._adopt_stacked(datas, grids, rec.blocks)
+        LIST of member handles for that root slot; they are loaded into the
+        static stacked grids and the per-lane results handed back as lanes
+        of a shared ``StackedEpoch`` (DESIGN.md §7)."""
+        self._launch(rec.fn, rec.idxs, rec.blocks, datas, rec.batch, rec.n_tasks, replay=True)
         self.stats["tasks"] += rec.n_tasks
         self.stats["launches"] += 1
         self.stats["groups"] += rec.n_groups
         self.stats["groups_prefusion"] += rec.n_groups_prefusion
         self.stats["slots"] += rec.n_slots
         return rec.n_tasks
+
+    def _program(self, fn, idxs: torch.Tensor, blocks, slots: Sequence, batch, built: bool) -> CapturedProgram:
+        """The captured program of launch list ``fn`` on ``idxs``'s device,
+        captured on a miss.  The capture of a list this run ``built``
+        belongs to its compile (counted at the build, where the JAX package
+        counts its own); capturing again a list the bounded cache dropped
+        counts under ``recaptures``."""
+        ckey = (fn, str(idxs.device))
+        prog = _PROGRAMS.get(ckey)
+        if prog is None:
+            specs = []
+            for s, (br, bc) in zip(slots, blocks):
+                d = s if batch is None else s[0]
+                grid = (d.shape[0] // br, d.shape[1] // bc, br, bc)
+                specs.append(((batch, *grid) if batch is not None else grid, d.dtype))
+            prog = CapturedProgram(fn, specs, idxs)
+            _PROGRAMS[ckey] = prog
+            if not built:
+                self.stats["recaptures"] += 1
+        return prog
+
+    def _launch(self, fn, idxs, blocks, slots: Sequence, batch, n_tasks: int, replay: bool,
+                built: bool = False) -> None:
+        """One run of a captured list: capture on a miss, copy the roots
+        (or, stacked, each slot's member list) and the indices into the
+        static storage, replay, and hand the static grids back to the
+        roots (DESIGN.md §2)."""
+        prog = self._program(fn, idxs, blocks, slots, batch, built)
+        faults.fire("executor.launch", batch=batch, n_tasks=n_tasks, replay=replay)
+        faults.fire("launch.oom", batch=batch, n_tasks=n_tasks, replay=replay)
+        if batch is None:
+            prog.load(slots, blocks)
+        else:
+            prog.load_stacked(slots, blocks)
+        prog.load_indices(idxs)
+        prog.run()
+        self.last_program = prog
+        if prog.captured:
+            self.stats["graph_replays"] += 1
+        self._corrupt_outputs(prog.grids, batch=batch, replay=replay)
+        if replay:
+            label = "replay" if batch is None else f"replay:stacked{batch}"
+        else:
+            label = "program" if batch is None else f"stacked{batch}"
+        self._note_launch(idxs.device, label)
+        if batch is None:
+            prog.hand_back(slots, blocks)
+        else:
+            prog.hand_back_stacked(slots, blocks)
 
     # -- whole-schedule path (DESIGN.md §2) ------------------------------------
     def execute_schedule(self, waves: List[List[GTask]], dag=None) -> int:
@@ -349,90 +414,36 @@ class WaveExecutor(Executor):
             n += self._run_program(plan, stack=(members, bucket))
         return n
 
-    def _stack_grids(
-        self,
-        member_lists: Sequence[List[GData]],
-        blocks: Sequence[Tuple[int, int]],
-        bucket: int,
-    ) -> List[torch.Tensor]:
-        """Per root slot, stack the members' resident grids into one
-        ``(bucket, nr, nc, br, bc)`` tensor, padding the batch by repeating
-        the last member (lanes are independent, so padding lanes compute
-        junk that is never read back).
-
-        Repeat-tick fast path: when the members are exactly lanes 0..N-1 of
-        one prior StackedEpoch with the same block and bucket — and they
-        are that epoch's ONLY live holders, so running the next list in
-        place on its grid cannot overwrite a bystander lane — the grid is
-        reused as-is: zero per-request data movement between drains."""
-        out: List[torch.Tensor] = []
-        for members, (br, bc) in zip(member_lists, blocks):
-            first = members[0].lane
-            if (
-                first is not None
-                and first[0].block == (br, bc)
-                and first[0].batch == bucket
-                and first[0].holders == len(members)
-                and all(
-                    m.lane is not None
-                    and m.lane[0] is first[0]
-                    and m.lane[1] == i
-                    for i, m in enumerate(members)
-                )
-            ):
-                out.append(first[0].grid)
-                continue
-            gs = [m.enter_grid(br, bc) for m in members]
-            gs = gs + [gs[-1]] * (bucket - len(gs))
-            out.append(torch.stack(gs))
-        return out
-
-    @staticmethod
-    def _adopt_stacked(member_lists, grids, blocks) -> None:
-        """Hand each member its lane of the stacked result grids."""
-        for members, g, (br, bc) in zip(member_lists, grids, blocks):
-            epoch = StackedEpoch(g, (br, bc))
-            for i, m in enumerate(members):
-                m.adopt_lane(epoch, i)
-
     def _run_program(self, plan: SchedulePlan, stack=None) -> int:
         """Build-or-fetch and run one planned launch list.  With ``stack =
         (members, bucket)`` the plan runs in stacked form over
         ``(bucket, nr, nc, br, bc)`` grids (DESIGN.md §7): the list and its
         cache key depend on the pow2 bucket, never on the exact request
         count."""
-        datas = [plan.datas[d] for d in plan.roots_order]
         batch = None
+        slots = [plan.datas[d] for d in plan.roots_order]
         if stack is not None:
             members, batch = stack
-            member_lists = [members[d] for d in plan.roots_order]
-            grids = self._stack_grids(member_lists, plan.blocks, batch)
-        else:
-            grids = [d.enter_grid(*blk) for d, blk in zip(datas, plan.blocks)]
+            slots = [members[d] for d in plan.roots_order]
         key = ("waveprog", batch, self.memo_key_extra()) + plan.key
         fn = self._fn_cache.get(key)
-        if fn is None:
+        built = fn is None
+        if built:
             fn = build_program(plan, self.backend, batch=batch)
             self._fn_cache[key] = fn
             self.stats["compiles"] += 1
         idxs = plan.flat_idxs  # built once at plan time, device-resident
-        faults.fire("executor.launch", batch=batch, n_tasks=len(plan.tasks), replay=False)
-        faults.fire("launch.oom", batch=batch, n_tasks=len(plan.tasks), replay=False)
-        fn(grids, idxs)
-        self._corrupt_outputs(grids, batch=batch, replay=False)
-        self._note_launch(idxs.device, "program" if batch is None else f"stacked{batch}")
-        if stack is not None:
-            self._adopt_stacked(member_lists, grids, plan.blocks)
+        self._launch(fn, idxs, plan.blocks, slots, batch, len(plan.tasks), replay=False, built=built)
         if self._capture is not None:
-            slots = tuple(self._capture_ids.get(d, -1) for d in plan.roots_order)
-            if -1 in slots:
+            slot_ids = tuple(self._capture_ids.get(d, -1) for d in plan.roots_order)
+            if -1 in slot_ids:
                 self._capture_ok = False  # touches a non-root-arg datum
             else:
                 faults.fire("memo.capture", batch=batch)
                 self._capture.append(
                     ProgramRecord(
                         fn,
-                        slots,
+                        slot_ids,
                         plan.blocks,
                         idxs,
                         len(plan.tasks),

@@ -7,7 +7,10 @@ it (``versioning.TaskDag``).  The barrier between waves is replaced by a
 
     plan   = plan_schedule(waves, dag)  # fusion + issue slots + indices
     fn     = build_program(plan, ...)   # one launch list, cached on plan.key
-    fn(grids, plan.flat_idxs)           # updates the resident grids in place
+    fn(grids, plan.flat_idxs)           # updates the grids in place
+
+The wave executors record ``fn`` once into a CUDA graph over static grids
+and replay it (``captured.CapturedProgram``).
 
 Scheduling pass (``dag`` present), identical to the JAX package's:
 
@@ -26,7 +29,8 @@ Roots stay in ``(nr, nc, br, bc)`` grid-major layout for the duration (the
 ``GData`` grid-resident epoch).  Block indices are built ONCE at plan time
 into a single ``(total, 2)`` int32 tensor on the grids' device
 (``SchedulePlan.flat_idxs``); drain replay reuses it untouched.  Two drains
-whose schedules share a structure hit the same launch list.
+whose schedules share a structure hit the same launch list (their indices
+may differ: ``plan.key`` holds none).
 
 Per single-segment group the list calls the operation's fused grid kernel
 (``Operation.grid_fused_fn``: gather, compute and write back in one kernel,
@@ -390,60 +394,68 @@ def build_program(plan: SchedulePlan, backend: str, batch: Optional[int] = None)
         else:
             kind = "gather"
             fn = g.op.batched_leaf_fn(backend)
-        steps.append((kind, fn, g.segments, g.write_pos, g.size, base))
+        steps.append((kind, fn, g.segments, g.write_pos, g.size, base, g.op.name))
         base += len(g.arg_slots) * g.size
 
     def program(grids: Sequence[torch.Tensor], idxs: torch.Tensor) -> None:
-        for kind, fn, segments, write_pos, size, b0 in steps:
-            # static-offset slices of the single flat index tensor (launch
-            # order matches SchedulePlan.flat_idxs)
-            n_args = len(segments[0][0])
-            gidx = [
-                idxs[b0 + a * size : b0 + (a + 1) * size]
-                for a in range(n_args)
-            ]
-            if kind == "fused":
-                fn(gidx, tuple(grids[s] for s in segments[0][0]))
-                continue
-            blocks = []
-            for a in range(n_args):
-                chunks = []
-                off = 0
-                for slots_, ssize in segments:
-                    ix = gidx[a][off : off + ssize]
-                    g = grids[slots_[a]]
-                    if batch is None:
-                        chunks.append(g[ix[:, 0], ix[:, 1]])
-                    else:
-                        chunks.append(g[:, ix[:, 0], ix[:, 1]])
-                    off += ssize
-                stack = (
-                    chunks[0]
-                    if len(chunks) == 1
-                    else torch.cat(chunks, dim=0 if batch is None else 1)
-                )
-                if batch is not None:
-                    # flatten (B, group) into one leaf stack: the batched
-                    # leaf is elementwise over the stack, so lane order only
-                    # has to match the un-flatten below
-                    stack = stack.flatten(0, 1)
-                blocks.append(stack)
-            outs = fn(*blocks)
-            if not isinstance(outs, (tuple, list)):
-                outs = (outs,)
-            for out, a in zip(outs, write_pos):
-                if batch is not None:
-                    out = out.reshape(batch, size, *out.shape[1:])
-                off = 0
-                for slots_, ssize in segments:
-                    r = slots_[a]
-                    ix = gidx[a][off : off + ssize]
-                    if batch is None:
-                        part = out if len(segments) == 1 else out[off : off + ssize]
-                        grids[r].index_put_((ix[:, 0], ix[:, 1]), part.to(dtypes[r]))
-                    else:
-                        part = out if len(segments) == 1 else out[:, off : off + ssize]
-                        grids[r][:, ix[:, 0], ix[:, 1]] = part.to(dtypes[r])
-                    off += ssize
+        for i, step in enumerate(steps):
+            try:
+                run_step(grids, idxs, *step)
+            except BaseException as e:
+                # name the failing operation (a failed graph capture reports it)
+                e.add_note(f"group {i} of {len(steps)}, {step[6]} ({step[0]}, {step[4]} tasks)")
+                raise
+
+    def run_step(grids, idxs, kind, fn, segments, write_pos, size, b0, op_name) -> None:
+        # static-offset slices of the single flat index tensor (launch
+        # order matches SchedulePlan.flat_idxs)
+        n_args = len(segments[0][0])
+        gidx = [
+            idxs[b0 + a * size : b0 + (a + 1) * size]
+            for a in range(n_args)
+        ]
+        if kind == "fused":
+            fn(gidx, tuple(grids[s] for s in segments[0][0]))
+            return
+        blocks = []
+        for a in range(n_args):
+            chunks = []
+            off = 0
+            for slots_, ssize in segments:
+                ix = gidx[a][off : off + ssize]
+                g = grids[slots_[a]]
+                if batch is None:
+                    chunks.append(g[ix[:, 0], ix[:, 1]])
+                else:
+                    chunks.append(g[:, ix[:, 0], ix[:, 1]])
+                off += ssize
+            stack = (
+                chunks[0]
+                if len(chunks) == 1
+                else torch.cat(chunks, dim=0 if batch is None else 1)
+            )
+            if batch is not None:
+                # flatten (B, group) into one leaf stack: the batched
+                # leaf is elementwise over the stack, so lane order only
+                # has to match the un-flatten below
+                stack = stack.flatten(0, 1)
+            blocks.append(stack)
+        outs = fn(*blocks)
+        if not isinstance(outs, (tuple, list)):
+            outs = (outs,)
+        for out, a in zip(outs, write_pos):
+            if batch is not None:
+                out = out.reshape(batch, size, *out.shape[1:])
+            off = 0
+            for slots_, ssize in segments:
+                r = slots_[a]
+                ix = gidx[a][off : off + ssize]
+                if batch is None:
+                    part = out if len(segments) == 1 else out[off : off + ssize]
+                    grids[r].index_put_((ix[:, 0], ix[:, 1]), part.to(dtypes[r]))
+                else:
+                    part = out if len(segments) == 1 else out[:, off : off + ssize]
+                    grids[r][:, ix[:, 0], ix[:, 1]] = part.to(dtypes[r])
+                off += ssize
 
     return program

@@ -31,7 +31,8 @@ pivot-free LU on the CPU (``lu_factor_ex(pivot=False)`` is CUDA-only), so
 ``getrf`` runs the plain recurrence ``tile_linalg.getrf_plain`` on CPU
 tensors (as the JAX oracle delegates to its tile body: pivot-free LU has
 one defined recurrence) and ``lu_factor_ex(pivot=False)``, whose packed
-``LU`` is exactly L\\U, on CUDA tensors.
+``LU`` is exactly L\\U, on CUDA tensors (through cuSOLVER or cuBLAS:
+``cusolver_linalg``).
 
 All oracles compute in float32 and cast back to the input dtype, and take
 any leading batch dimensions.  On the card, float32 matmuls must not drop
@@ -62,7 +63,12 @@ def fp32_matmul():
 
 
 def potrf(a: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.cholesky(a.float()).to(a.dtype)
+    """A matrix that is not positive definite comes back all NaN, as
+    ``jnp.linalg.cholesky`` returns it.  ``cholesky_ex`` leaves its status
+    on the device, so the call never synchronizes (``cholesky`` would check
+    it on the host) and a launch list holding it can be captured."""
+    L, info = torch.linalg.cholesky_ex(a.float())
+    return L.masked_fill_((info != 0)[..., None, None], float("nan")).to(a.dtype)
 
 
 def trsm(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -82,9 +88,25 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (c.float() - a.float() @ b.float().mT).to(c.dtype)
 
 
+@contextmanager
+def cusolver_linalg():
+    """Run the enclosed CUDA factorizations on cuSOLVER and cuBLAS, then
+    restore the caller's choice.  For more than 16 tiles of edge 128,
+    PyTorch's default picks MAGMA's batched LU, which waits on the host
+    and so cannot be captured into a CUDA graph; the cuSOLVER and cuBLAS
+    routes never wait.  The setting is process-wide, as ``fp32_matmul``'s."""
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
 def getrf(a: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cuda":
-        return torch.linalg.lu_factor_ex(a.float(), pivot=False).LU.to(a.dtype)
+        with cusolver_linalg():
+            return torch.linalg.lu_factor_ex(a.float(), pivot=False).LU.to(a.dtype)
     from .tile_linalg import getrf_plain
 
     return getrf_plain(a).to(a.dtype)

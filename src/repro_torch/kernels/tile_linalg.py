@@ -77,7 +77,7 @@ STACKED_LAUNCHES: Dict[str, int] = {k: 0 for k in _SIGNATURES}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, STACKED_LAUNCHES, MATMUL_LAUNCHES):
+    for counts in COUNTERS:
         for k in counts:
             counts[k] = 0
 
@@ -481,6 +481,10 @@ GRID_FUSED = {
 WGMMA, TF32X3, SIMPLE = "wgmma", "tf32x3", "simple"
 # route -> launches since the last reset_launches()
 MATMUL_LAUNCHES: Dict[str, int] = {WGMMA: 0, TF32X3: 0, SIMPLE: 0}
+
+# every launch counter of this module; a captured launch list (whose replay
+# makes no Python launch) adds its recorded tally to these
+COUNTERS = (LAUNCHES, STACKED_LAUNCHES, MATMUL_LAUNCHES)
 
 
 matmul_plain = ref.matmul  # C = A B in float32, cast to A's dtype

@@ -713,6 +713,10 @@ class BatchServer:
             )
             self._queues[sig] = front + self._queues.get(sig, [])
         report.pending_after = self.pending()
+        if self._tick_lat:
+            arr = np.asarray(self._tick_lat)
+            report.p50_ms = float(np.percentile(arr, 50))
+            report.p99_ms = float(np.percentile(arr, 99))
         wall = time.perf_counter() - t_tick
         if wall > 0:
             report.overlap_ratio = max(
@@ -890,7 +894,7 @@ class BatchServer:
             p.future._resolve(lambda ds=datas, ex=extract: ex(ds))
             report.resolved += 1
             report.requests += 1
-            self._record_latency(report, (now - p.enqueue_t) * 1e3)
+            self._record_latency((now - p.enqueue_t) * 1e3)
         d = item.dispatcher
         est = d.executor.stats
         bucket_stats = {
@@ -1203,14 +1207,12 @@ class BatchServer:
         else:
             report.failed += 1
 
-    def _record_latency(self, report: TickReport, ms: float) -> None:
+    def _record_latency(self, ms: float) -> None:
         # the rolling window is a maxlen deque: appends evict the oldest
         # sample in O(1), so a long-running server never accumulates
         self._latencies.append(ms)
         # per-tick percentiles over THIS tick's resolved set, tracked
         # separately (the rolling window may already have evicted part of
-        # a large tick's own samples)
+        # a large tick's own samples); ``tick`` takes their percentiles
+        # once, at its end
         self._tick_lat.append(ms)
-        arr = np.asarray(self._tick_lat)
-        report.p50_ms = float(np.percentile(arr, 50))
-        report.p99_ms = float(np.percentile(arr, 99))

@@ -16,7 +16,7 @@ from contextlib import ExitStack
 import pytest
 import torch
 
-import repro_torch.core.executors.jit_wave as tjw
+import repro_torch.core.executors.captured as tcap
 from repro.testing import faults as jfaults
 from repro_torch.testing import faults as tfaults
 from test_torch_serve import SIDES, _chol, _dd, _lu, _outcome, _report, _server, both
@@ -247,19 +247,20 @@ def test_oom_textual_match_wraps_generic_error():
 
 def test_cuda_oom_while_stacking_degrades_like_launch_oom(monkeypatch):
     """The port's real OOM: ``torch.cuda.OutOfMemoryError`` raised while a
-    stacked grid is allocated (inside ``_stack_grids``, before any launch)
-    takes the same split-and-degrade path as the JAX package's injected
-    ``launch.oom``, with the same counters and results."""
-    real = tjw.WaveExecutor._stack_grids
+    stacked grid is allocated (the static grids of the bucket's captured
+    program, before any launch) takes the same split-and-degrade path as
+    the JAX package's injected ``launch.oom``, with the same counters and
+    results."""
+    real = tcap.CapturedProgram.__init__
     armed = [True]
 
-    def stack_or_oom(self, member_lists, blocks, bucket):
-        if armed[0] and bucket == 4:
+    def allocate_or_oom(self, fn, specs, idxs):
+        if armed[0] and specs[0][0][0] == 4 and len(specs[0][0]) == 5:  # the (4, nr, nc, br, bc) bucket
             armed[0] = False
             raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 4.00 MiB")
-        return real(self, member_lists, blocks, bucket)
+        real(self, fn, specs, idxs)
 
-    monkeypatch.setattr(tjw.WaveExecutor, "_stack_grids", stack_or_oom)
+    monkeypatch.setattr(tcap.CapturedProgram, "__init__", allocate_or_oom)
 
     def scenario(s):
         srv = _server(s, graph="g2", max_batch=4, degrade_recovery=3)
