@@ -69,6 +69,21 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    each seed-0 error within its ACCURACY limit, printed beside earlier
    values), the matrix solve twice on g2, a profiled replay of the
    matrix-RHS drain, then ``run_inv`` on g1 at n = 256.
+4b. Distributed graphs, on a world-size-1 NCCL ``DeviceMesh`` of shape
+   (1, 1) with axes ("data", "model"): g4 (two levels, the hand-written
+   tile kernels) Cholesky and LU solve with b (4096, 512) at (4, 4) then
+   (8, 8) partitions (phase 3's 128 x 128 leaves; b in (4, 4) then
+   (8, 1)), each drained as phase 3 drains (first, memo replays on seeds 1
+   and 0), then g4 ``run_lu``'s drain, g3 (library leaves) Cholesky and
+   g3flat Cholesky at 32 x 32 once each.  Each drain is held against
+   float64 (g4's seed-0 drains within ACCURACY's limits) and against the
+   same drain on g2p within its tolerance, must run a captured graph for
+   every launch list, show the counters and tile-kernel launches that
+   ``DIST_PLANS`` and ``DIST_LAUNCHES`` pin (all nine kernels across the g4
+   drains), and prints its wall, host dispatch and launch lists beside
+   g2p's.  ``run_cholesky``, ``run_lu`` and ``run_lu_solve`` with
+   ``mesh=`` must return, on the mesh's device, their g4 drains' results
+   bit for bit.
 5. Serving: ``BatchServer(graph="g2p", max_batch=64)``; each tick queues 64
    ``lu_solve`` (vector b), 16 ``lu`` and 16 ``cholesky`` requests of
    n = 1024 in 8 x 8 partitions, three signature buckets of one stacked
@@ -1050,7 +1065,7 @@ def captured_vs_eager(torch, tl, d, inputs, exact: bool, tol: float) -> float:
     return diff
 
 
-def replay_idle(torch, graph: str, submit) -> tuple:
+def replay_idle(torch, graph: str, submit, mesh=None) -> tuple:
     """(device busy ms, device span ms) of one more drain of ``submit``'s
     program on a fresh dispatcher (a memo replay), in a profiler session
     that traces the card only: the idle share of a drain's device span,
@@ -1059,7 +1074,7 @@ def replay_idle(torch, graph: str, submit) -> tuple:
 
     from repro_torch.core import Dispatcher
 
-    d = Dispatcher(graph=graph)
+    d = Dispatcher(graph=graph, mesh=mesh)
     submit(d)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1071,16 +1086,18 @@ def replay_idle(torch, graph: str, submit) -> tuple:
 
 
 def drain_checked(torch, tl, label: str, graph: str, submit, inputs, want: tuple, want_launches: dict, error,
-                  tol: float, flops: float):
-    """Drain one program on ``graph`` between zeroed and read kernel
-    counters; check its structural counters, its kernel launches and its
-    error, and hold its captured result against the eager launch list on
-    the same ``inputs``.  Prints whether it ran a captured graph, its host
-    dispatch and wall, and the device's idle share of a replay's span
-    (``replay_idle``).  Returns the launch counts and the error."""
+                  tol: float, flops: float, mesh=None):
+    """Drain one program on ``graph`` (over ``mesh`` for a distributed graph)
+    between zeroed and read kernel counters; check its structural counters,
+    that every launch list ran a captured graph, its kernel launches and
+    its error, and hold its captured result against the eager launch list
+    on the same ``inputs`` (a one-list drain; None skips it).  Prints
+    whether it ran captured graphs, its host dispatch and wall, and the
+    device's idle share of a replay's span (``replay_idle``); keeps them
+    in DRAIN_TIMES.  Returns the launch counts and the error."""
     from repro_torch.core import Dispatcher
 
-    d = Dispatcher(graph=graph)
+    d = Dispatcher(graph=graph, mesh=mesh)
     datas = submit(d)
     torch.cuda.synchronize()
     tl.reset_launches()
@@ -1091,26 +1108,32 @@ def drain_checked(torch, tl, label: str, graph: str, submit, inputs, want: tuple
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in tl.LAUNCHES.items() if v}
     err = error(*datas)
-    diff = captured_vs_eager(torch, tl, d, inputs, graph == "g2p", tol)
-    busy, span = replay_idle(torch, graph, submit)
+    diff = None if inputs is None else captured_vs_eager(torch, tl, d, inputs, graph == "g2p", tol)
+    busy, span = replay_idle(torch, graph, submit, mesh)
     st = d.executor.stats
+    DRAIN_TIMES[label] = (wall, t_host, st["launches"])
+    diff_s = "not_run" if diff is None else f"{diff:.3e}"
     print(f"{label} drain: leaves={leaves} groups={st['groups']} prefusion={st['groups_prefusion']} "
           f"slots={st['slots']} compiles={st.get('compiles', 0)} launches={st['launches']} "
           f"memo_hits={d.stats['memo_hits']} graph={'captured' if st.get('graph_replays') else 'eager'} "
+          f"graph_replays={st.get('graph_replays', 0)} "
           f"kernel_launches={counts} wall_ms={wall * 1e3:.3f} host_dispatch_ms={t_host * 1e3:.3f} "
-          f"gflops={flops / wall / 1e9:.1f} max_abs_err_vs_f64={err:.3e} captured_vs_eager_max_diff={diff:.3e}; "
+          f"gflops={flops / wall / 1e9:.1f} max_abs_err_vs_f64={err:.3e} captured_vs_eager_max_diff={diff_s}; "
           f"a replay traced: device_busy_ms={busy:.3f} device_span_ms={span:.3f} "
           f"idle_share_of_span={1 - busy / span if span else float('nan'):.3f}")
     if err > tol:
         raise AssertionError(f"{label} drain error {err:.3e} > {tol}")
     got = (leaves, st["groups"], st["groups_prefusion"], st["slots"], st.get("compiles", 0),
            st["launches"], d.stats["memo_hits"], st.get("graph_replays", 0))
-    if got != want + (1,):
-        raise AssertionError(f"{label} counters (with graph replays) {got} != {want + (1,)}")
+    if got != want + (want[5],):  # every launch list a graph replay
+        raise AssertionError(f"{label} counters (with graph replays) {got} != {want + (want[5],)}")
     if counts != want_launches:
         raise AssertionError(f"{label} kernel launches {counts} != {want_launches}")
     return counts, err
 
+
+# label -> (wall s, host dispatch s, launch lists) of each checked drain
+DRAIN_TIMES = {}
 
 # each path's first drain (seed 0), a replay on fresh inputs (seed 1: a
 # replay that skipped its copy-in fails its error check) and a replay on the
@@ -1264,6 +1287,161 @@ def lu_main_path(torch, tl) -> dict:
     print(f"g1  run_inv n=256: max_abs_err of inv @ a vs I={e1:.3e}")
     if e1 > 1e-4:
         raise AssertionError(f"g1 run_inv error {e1:.3e} > 1e-4")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 4b: the distributed graphs on a world-size-1 mesh
+# --------------------------------------------------------------------------
+# two levels: 4 x 4 blocks of 1024, each split 8 x 8 into phase 3's 128 x 128
+# tiles; the LU solve's b (N, RHS) in 4 x 4 then 8 x 1 (leaves 128 x 128)
+DIST_P, DIST_B_P = ((4, 4), (8, 8)), ((4, 4), (8, 1))
+# (leaves, groups, prefusion groups, slots, compiles of a first drain, launch
+# lists) of each plan, the same at any tile size, and the tile-kernel
+# launches of one g4 drain: tests/test_torch_distributed.py
+# (test_chip_smoke_distributed_plans) works them out at n = 64
+DIST_PLANS = {
+    "cholesky": (7328, 205, 205, 157, 7, 10),
+    "run_lu": (11440, 209, 209, 157, 7, 10),
+    "lu_solve": (15664, 416, 485, 364, 10, 21),
+    "cholesky_flat": (5984, 124, 124, 94, 1, 1),
+}
+DIST_LAUNCHES = {
+    "cholesky": {"potrf": 32, "trsm": 52, "syrk": 52, "gemm": 69},
+    "run_lu": {"getrf": 32, "trsml": 52, "trsmu": 52, "gemmnn": 73},
+    "lu_solve": {"getrf": 32, "trsml": 60, "trsmu": 52, "trsmul": 32, "gemmnn": 240},
+}
+
+
+def distributed_path(torch, tl) -> dict:
+    """Phase 4b: on a world-size-1 NCCL ``DeviceMesh`` of shape (1, 1), g4
+    Cholesky and the g4 LU solve with b (N, RHS) drained as phase 3 drains
+    (DRAINS), then g4 ``run_lu``, g3 Cholesky and g3flat Cholesky at P x P
+    once each.  Every drain is held against float64 (the g4 seed-0 drains
+    within ACCURACY's limits) and against the same drain on g2p within its
+    tolerance, must run a captured graph for every launch list and show
+    DIST_PLANS' counters and DIST_LAUNCHES' kernel launches; each g4 drain
+    prints its wall, host dispatch and launch lists beside g2p's, and each
+    g4 path's entry point with ``mesh=`` must equal its drain.  Returns the
+    g4 drains' kernel launches."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import Dispatcher, GData, dd_matrix, spd_matrix
+    from repro_torch.core.data import from_grid
+    from repro_torch.core.executors import clear_compile_cache
+    from repro_torch.core.executors.sharded import mesh_device
+    from repro_torch.linalg import run_cholesky, run_lu, run_lu_solve, utp_cholesky, utp_getrf, utp_lu_solve
+
+    spd = {seed: spd_matrix(N, seed=seed) for seed in (0, 1)}
+    dd = {seed: dd_matrix(N, seed=seed) for seed in (0, 1)}
+    rhs = {seed: torch.from_numpy(np.random.default_rng(seed).standard_normal((N, RHS)).astype(np.float32)).cuda()
+           for seed in (0, 1)}
+    ref = {("cholesky", s): torch.linalg.cholesky(a.double()) for s, a in spd.items()}
+    ref.update({("run_lu", s): torch.linalg.lu_factor_ex(a.double(), pivot=False).LU for s, a in dd.items()})
+    ref.update({("lu_solve", s): torch.linalg.solve(a.double(), rhs[s].double()) for s, a in dd.items()})
+
+    def submitter(kind, seed, parts, b_parts):
+        def submit(d):
+            if kind == "cholesky":
+                A = GData((N, N), partitions=parts, value=spd[seed])
+                utp_cholesky(d, A)
+                return (A,)
+            A = GData((N, N), partitions=parts, value=dd[seed])
+            if kind == "run_lu":
+                utp_getrf(d, A)
+                return (A,)
+            B = GData((N, RHS), partitions=b_parts, value=rhs[seed])
+            utp_lu_solve(d, A, B)
+            return (B,)
+
+        return submit
+
+    def result(kind, X):
+        out = from_grid(X.grid)
+        return torch.tril(out) if kind == "cholesky" else out
+
+    flat = {}  # (kind, seed) -> the same drain's result on g2p (a memo replay of phases 3-4)
+    for kind in ("cholesky", "run_lu", "lu_solve"):
+        for seed in (0, 1):
+            d = Dispatcher(graph="g2p")
+            (X,) = submitter(kind, seed, ((P, P),), ((P, RHS_P),))(d)
+            d.run()
+            flat[(kind, seed)] = result(kind, X)
+
+    drained = {}  # (graph, kind, seed) -> the last such drain's result
+
+    def error(kind, seed, label, tol):
+        def err(X):
+            got = drained[(label[:3].strip(), kind, seed)] = result(kind, X)
+            e = (got.double() - ref[(kind, seed)]).abs().max().item()
+            vs = (got - flat[(kind, seed)]).abs().max().item()
+            print(f"{label}: max_abs_diff_vs_g2p={vs:.3e} (tolerance {tol})")
+            if not vs <= tol:
+                raise AssertionError(f"{label} differs from g2p by {vs:.3e} > {tol}")
+            return e
+
+        return err
+
+    tols = {"cholesky": 2e-4, "run_lu": 2e-4, "lu_solve": 1e-3}
+    flops = {"cholesky": N**3 / 3, "run_lu": 2 * N**3 / 3, "lu_solve": 2 * N**3 / 3 + 2 * N * N * RHS}
+    names = {"cholesky": "cholesky", "run_lu": "run_lu", "lu_solve": f"lu_solve b=({N},{RHS})"}
+    runs = []  # (kind, graph, drain, seed, partitions)
+    for kind in ("cholesky", "lu_solve"):
+        runs += [(kind, "g4", drain, seed, DIST_P) for drain, seed in DRAINS]
+    runs += [("run_lu", "g4", "first ", 0, DIST_P), ("cholesky", "g3", "first ", 0, DIST_P),
+             ("cholesky", "g3flat", "first ", 0, ((P, P),))]
+    def entry_point(kind, mesh, want):
+        """The public entry point with ``mesh=`` on seed 0 (a memo replay of
+        the drains above): on the mesh's device (``cuda:0``), equal to the
+        drain bit for bit."""
+        if kind == "cholesky":
+            got = run_cholesky(spd[0], graph="g4", partitions=DIST_P, mesh=mesh)
+        elif kind == "run_lu":
+            L, U = run_lu(dd[0], graph="g4", partitions=DIST_P, mesh=mesh)
+            got = torch.tril(L, -1) + U
+        else:
+            got = run_lu_solve(dd[0], rhs[0], graph="g4", partitions=DIST_P, b_partitions=DIST_B_P, mesh=mesh)
+        if got.device != mesh_device(mesh) or not torch.equal(got, want):
+            raise AssertionError(f"g4 {kind} through its entry point on the mesh: {got.device}, "
+                                 f"max diff {(got - want).abs().max().item():.3e} from the drain")
+        print(f"g4 {kind} entry point with mesh=: on {got.device}, equal to the drain bit for bit")
+
+    launches = {k: 0 for k in tl.LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            for kind, graph, drain, seed, parts in runs:
+                first = drain == "first "
+                if first:  # each path builds its lists from nothing, as DIST_PLANS counts them
+                    clear_compile_cache()
+                plan = DIST_PLANS["cholesky_flat" if graph == "g3flat" else kind]
+                want = plan[:4] + (plan[4] if first else 0, plan[5], int(not first))
+                label = f"{graph:3s} {names[kind]} {drain} seed={seed}"
+                # one launch list (g3flat) is also held against the same list run eagerly
+                inputs = [spd[seed]] if graph == "g3flat" else None
+                counts, err = drain_checked(
+                    torch, tl, label, graph, submitter(kind, seed, parts, DIST_B_P), inputs, want,
+                    DIST_LAUNCHES[kind] if graph == "g4" else {}, error(kind, seed, label, tols[kind]),
+                    tols[kind], flops[kind], mesh=mesh)
+                if graph == "g4" and seed == 0:
+                    accuracy_held(kind, err)
+                    if drain == DRAINS[-1][0] or kind == "run_lu":  # the last of its kind's drains
+                        entry_point(kind, mesh, drained[("g4", kind, 0)])
+                if graph == "g4":
+                    for k, v in counts.items():
+                        launches[k] += v
+                    wall, host, lists = DRAIN_TIMES[label]
+                    wall2, host2, lists2 = DRAIN_TIMES["g2p" + label[3:]]
+                    print(f"{label} beside g2p: wall_ms={wall * 1e3:.3f} vs {wall2 * 1e3:.3f} "
+                          f"host_dispatch_ms={host * 1e3:.3f} vs {host2 * 1e3:.3f} "
+                          f"launch_lists={lists} vs {lists2} (g4 over g2p: wall x{wall / wall2:.2f})")
+        finally:
+            dist.destroy_process_group()
     return launches
 
 
@@ -2327,6 +2505,7 @@ def main() -> int:
     launches = main_path(torch, tl)
     for k, v in lu_main_path(torch, tl).items():
         launches[k] += v
+    g4_launches = distributed_path(torch, tl)
     stacked_launches = serving_path(torch, tl)
     capture_probe(torch)
     lm_kernels = lm_path(torch, tl, rng)
@@ -2336,9 +2515,12 @@ def main() -> int:
         t = times[name]
         if launches[name] == 0:
             raise AssertionError(f"{name} was launched no time on its main path")
+        if g4_launches[name] == 0:
+            raise AssertionError(f"{name} was launched no time on the g4 path")
         entry = {
             "name": name, "route": "cuda", "source": f"{CSRC}/{tl.LIBRARY[name]}.cu", "library": tl.LIBRARY[name],
-            "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": max(errs[name], t["err"]),
+            "replaces": REPLACES[name], "launches": launches[name] + g4_launches[name],
+            "paths": {"g2p": launches[name], "g4": g4_launches[name]}, "max_abs_err": max(errs[name], t["err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "tasks": t["tasks"], "ctas": t["ctas"],
             "arith": t["arith"],

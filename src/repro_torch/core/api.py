@@ -22,16 +22,17 @@ from .dispatcher import Dispatcher
 _current: Optional[Dispatcher] = None
 
 
-def utp_initialize(graph: str = "g2") -> Dispatcher:
+def utp_initialize(graph: str = "g2", mesh=None) -> Dispatcher:
     """Create the current dispatcher (paper Fig. 2a line 11).
 
-    ``graph`` names a task-flow graph (g1/g2/g2p — see
-    ``core.graph.GRAPHS``; the distributed graphs are not ported yet).
-    Returns the dispatcher, which is also reachable through
-    ``dispatcher()`` until the next ``utp_initialize``.
+    ``graph`` names a task-flow graph (g1/g2/g2p/g3/g4/g3flat — see
+    ``core.graph.GRAPHS``); distributed graphs additionally need ``mesh``
+    (a ``torch.distributed`` ``DeviceMesh``).  Returns the dispatcher, which
+    is also reachable through ``dispatcher()`` until the next
+    ``utp_initialize``.
     """
     global _current
-    _current = Dispatcher(graph=graph)
+    _current = Dispatcher(graph=graph, mesh=mesh)
     return _current
 
 

@@ -24,16 +24,20 @@ from ..testing import faults
 from .executors.base import Executor
 from .executors.inline import InlineExecutor
 from .executors.jit_wave import _DRAIN_MEMO, CudaExecutor, WaveExecutor
+from .executors.sharded import ShardExecutor
 from .graph import TaskFlowGraph, get_graph
 from .task import GTask, TaskState
 from .versioning import DepTracker, InFlightEpoch
 
 
-def _make_executor(graph: TaskFlowGraph, on_finished) -> Executor:
+def _make_executor(graph: TaskFlowGraph, mesh, on_finished) -> Executor:
     if graph.distributed:
-        raise NotImplementedError(
-            f"graph {graph.name} needs the sharded executor, which is not "
-            "ported yet (ROADMAP queue A10)"
+        if mesh is None:
+            raise ValueError(f"graph {graph.name} is distributed but mesh is None")
+        backend = "cuda" if graph.leaf_executor == "cuda" else "torch"
+        return ShardExecutor(
+            mesh, backend=backend, shard_axes=graph.shard_axes,
+            on_task_finished=on_finished,
         )
     if graph.leaf_executor == "inline":
         return InlineExecutor(on_task_finished=on_finished)
@@ -132,6 +136,7 @@ class Dispatcher:
     def __init__(
         self,
         graph="g2",
+        mesh=None,
         stack_roots: bool = True,
         verify: Optional[bool] = None,
     ):
@@ -143,7 +148,8 @@ class Dispatcher:
         if verify is None:
             verify = os.environ.get("REPRO_VERIFY", "") not in ("", "0")
         self.verify = bool(verify)
-        self.executor = _make_executor(self.graph, self._on_finished)
+        self.mesh = mesh
+        self.executor = _make_executor(self.graph, mesh, self._on_finished)
         self.executor.verify = self.verify
         # Homogeneous-root stacking (DESIGN.md §7): a drain whose root
         # stream is N structurally identical, data-disjoint tasks runs as
@@ -259,8 +265,9 @@ class Dispatcher:
         data-disjoint tasks the executor can stack (DESIGN.md §7): same
         operation singleton, same per-arg geometry (region, level, shape,
         dtype, device, partitions, mode), every argument datum private to
-        its root, and an executor with the stacked path."""
-        if len(roots) < 2:
+        its root, and an executor with the stacked path.  Distributed graphs
+        never stack."""
+        if len(roots) < 2 or self.graph.distributed:
             return False
         if not hasattr(self.executor, "execute_stacked"):
             return False

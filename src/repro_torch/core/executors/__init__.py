@@ -10,6 +10,7 @@ from .jit_wave import (
     program_cache_stats,
     set_drain_memo_capacity,
 )
+from .sharded import ShardExecutor, row_sharding
 from .wave_program import SchedulePlan, build_program, plan_schedule
 
 __all__ = [
@@ -19,6 +20,7 @@ __all__ = [
     "Executor",
     "InlineExecutor",
     "SchedulePlan",
+    "ShardExecutor",
     "WaveExecutor",
     "build_program",
     "clear_compile_cache",
@@ -27,5 +29,6 @@ __all__ = [
     "group_wave",
     "plan_schedule",
     "program_cache_stats",
+    "row_sharding",
     "set_drain_memo_capacity",
 ]

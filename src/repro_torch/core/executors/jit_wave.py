@@ -425,13 +425,7 @@ class WaveExecutor(Executor):
         if stack is not None:
             members, batch = stack
             slots = [members[d] for d in plan.roots_order]
-        key = ("waveprog", batch, self.memo_key_extra()) + plan.key
-        fn = self._fn_cache.get(key)
-        built = fn is None
-        if built:
-            fn = build_program(plan, self.backend, batch=batch)
-            self._fn_cache[key] = fn
-            self.stats["compiles"] += 1
+        fn, built = self._list_for(plan, batch)
         idxs = plan.flat_idxs  # built once at plan time, device-resident
         self._launch(fn, idxs, plan.blocks, slots, batch, len(plan.tasks), replay=False, built=built)
         if self._capture is not None:
@@ -462,6 +456,18 @@ class WaveExecutor(Executor):
         self.stats["groups_prefusion"] += plan.n_groups_prefusion
         self.stats["slots"] += plan.n_slots
         return len(plan.tasks)
+
+    def _list_for(self, plan: SchedulePlan, batch: Optional[int]):
+        """(launch list of ``plan``, whether this call built it): cached on
+        the plan's structural key, a build counted under ``compiles``."""
+        key = ("waveprog", batch, self.memo_key_extra()) + plan.key
+        fn = self._fn_cache.get(key)
+        built = fn is None
+        if built:
+            fn = build_program(plan, self.backend, batch=batch)
+            self._fn_cache[key] = fn
+            self.stats["compiles"] += 1
+        return fn, built
 
     # -- per-group fallback path -----------------------------------------------
     def _build_group_fn(

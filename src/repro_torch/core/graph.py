@@ -13,13 +13,15 @@ into, and which executor acts at the leaf level.  The paper's G1-G4 map to:
 Leaf backends: ``"torch"`` runs the library leaves (``kernels/ref.py``),
 ``"cuda"`` the hand-written tile kernels (``kernels/tile_linalg.py``).
 The configuration is *external* to the program: the same ``utp_cholesky``
-runs under any graph.  The distributed graphs stay in the table with the
-same names; their executor is not ported yet.
+runs under any graph.  The distributed graphs run their leaves through
+``executors.sharded.ShardExecutor`` over a ``torch.distributed``
+``DeviceMesh`` (``Dispatcher(mesh=...)``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -28,6 +30,16 @@ class TaskFlowGraph:
     split_levels: int  # hierarchy depth: 0 = run root tasks directly
     leaf_executor: str  # 'inline' | 'wave' | 'cuda'
     distributed: bool = False  # insert the shard (DuctTeip) stage on top
+    shard_axes: Tuple[Optional[str], ...] = ("data", None)
+
+    def describe(self) -> str:
+        stages = ["program", "D"]
+        if self.distributed:
+            stages.append("DT(shard)")
+        if self.split_levels >= 1:
+            stages.append("SG(wave)" if self.leaf_executor in ("wave", "cuda") else self.leaf_executor)
+        stages.append({"inline": "CB(torch)", "wave": "CB(torch)", "cuda": "GB(cuda)"}[self.leaf_executor])
+        return " -> ".join(stages)
 
 
 GRAPHS = {

@@ -14,6 +14,7 @@ import torch
 
 from ..core import Dispatcher, GData, GTask
 from ..core.data import from_grid
+from ..core.executors.sharded import mesh_device
 from .ops import POTRF
 
 
@@ -27,13 +28,16 @@ def run_cholesky(
     a: Any,
     graph: str = "g2",
     partitions: Tuple[Tuple[int, int], ...] = ((4, 4),),
+    mesh=None,
     device=None,
     verify: Optional[bool] = None,
 ) -> torch.Tensor:
     """Factorize SPD ``a`` (numpy array or tensor); returns the lower factor
     L (upper zeroed) on ``device``, which is CUDA unless the caller names
-    another."""
-    d = Dispatcher(graph=graph, verify=verify)
+    another.  With ``mesh`` (the distributed graphs) the data goes on the
+    mesh's device and every rank returns the whole factor."""
+    device = mesh_device(mesh, device)
+    d = Dispatcher(graph=graph, mesh=mesh, verify=verify)
     dtype = a.dtype if torch.is_tensor(a) else torch.float32
     A = GData(tuple(a.shape), partitions=partitions, dtype=dtype, value=a, device=device)
     utp_cholesky(d, A)

@@ -22,7 +22,10 @@ Conventions (pivot-free Doolittle, see ``linalg/ops.py``):
 factor can be passed straight back in for forward/backward substitution.
 Inputs are numpy arrays or tensors; every entry point puts its data on
 ``device``, which is CUDA unless the caller names another, and returns
-tensors there.
+tensors there.  ``mesh`` (a ``torch.distributed`` ``DeviceMesh``) runs the
+distributed graphs g3/g4/g3flat: the data goes on the mesh's device
+(``cuda:<local rank>`` or the CPU), a ``device`` naming another raises, and
+every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from ..core import Dispatcher, GData, GTask
 from ..core.data import from_grid, resolve_device
+from ..core.executors.sharded import mesh_device
 from ..errors import NumericalError
 from .ops import GETRF, LUSOLVE, TRSML, TRSMU, TRSMUL
 
@@ -119,6 +123,7 @@ def run_lu(
     graph: str = "g2",
     partitions: Partitions = ((4, 4),),
     check_finite: bool = False,
+    mesh=None,
     device=None,
     verify: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,7 +133,8 @@ def run_lu(
     expansion has no singular-pivot detection, but ``check_finite=True``
     raises ``NumericalError`` instead of returning inf/NaN.
     """
-    d = Dispatcher(graph=graph, verify=verify)
+    device = mesh_device(mesh, device)
+    d = Dispatcher(graph=graph, mesh=mesh, verify=verify)
     A = _gdata(a, partitions, device)
     utp_getrf(d, A)
     d.run()
@@ -142,6 +148,7 @@ def run_lu_many(
     mats: Sequence[Any],
     graph: str = "g2",
     partitions: Partitions = ((4, 4),),
+    mesh=None,
     device=None,
     verify: Optional[bool] = None,
 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -154,7 +161,8 @@ def run_lu_many(
     per-root *segment fusion* form, the baseline the stacked
     ``run_lu_batched`` is compared against (DESIGN.md §7).
     """
-    d = Dispatcher(graph=graph, stack_roots=False, verify=verify)
+    device = mesh_device(mesh, device)
+    d = Dispatcher(graph=graph, mesh=mesh, stack_roots=False, verify=verify)
     roots = []
     for a in mats:
         A = _gdata(a, partitions, device)
@@ -168,6 +176,7 @@ def run_lu_batched(
     mats: Sequence[Any],
     graph: str = "g2",
     partitions: Partitions = ((4, 4),),
+    mesh=None,
     device=None,
     verify: Optional[bool] = None,
 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -181,7 +190,8 @@ def run_lu_batched(
     of O(log N) bucket lists), unlike ``run_lu_many`` whose fused groups
     still carry one gather/scatter segment per root.
     """
-    d = Dispatcher(graph=graph, verify=verify)
+    device = mesh_device(mesh, device)
+    d = Dispatcher(graph=graph, mesh=mesh, verify=verify)
     roots = []
     for a in mats:
         A = _gdata(a, partitions, device)
@@ -200,6 +210,7 @@ def run_solve(
     b_partitions: Optional[Partitions] = None,
     side: Optional[str] = None,
     check_finite: bool = False,
+    mesh=None,
     device=None,
     verify: Optional[bool] = None,
 ) -> torch.Tensor:
@@ -212,7 +223,8 @@ def run_solve(
     non-square block counts (b's row grid must match a's for left-sided
     solves, its column grid for the right-sided one).
     """
-    d = Dispatcher(graph=graph, verify=verify)
+    device = mesh_device(mesh, device)
+    d = Dispatcher(graph=graph, mesh=mesh, verify=verify)
     A = _gdata(a, partitions, device)
     B = _gdata(b, partitions if b_partitions is None else b_partitions, device)
     utp_solve(d, A, B, lower=lower, side=side)
@@ -230,6 +242,7 @@ def run_lu_solve(
     partitions: Partitions = ((4, 4),),
     b_partitions: Optional[Partitions] = None,
     check_finite: bool = False,
+    mesh=None,
     device=None,
     verify: Optional[bool] = None,
 ) -> torch.Tensor:
@@ -248,7 +261,8 @@ def run_lu_solve(
     b2 = b[:, None] if vec else b
     if b_partitions is None:
         b_partitions = tuple((pr, 1 if vec else pc) for pr, pc in partitions)
-    d = Dispatcher(graph=graph, verify=verify)
+    device = mesh_device(mesh, device)
+    d = Dispatcher(graph=graph, mesh=mesh, verify=verify)
     A = _gdata(a, partitions, device)
     B = _gdata(b2, b_partitions, device)
     utp_lu_solve(d, A, B)
@@ -265,6 +279,7 @@ def run_lu_solve_batched(
     graph: str = "g2",
     partitions: Partitions = ((4, 4),),
     b_partitions: Optional[Partitions] = None,
+    mesh=None,
     device=None,
     verify: Optional[bool] = None,
 ) -> List[torch.Tensor]:
@@ -274,7 +289,8 @@ def run_lu_solve_batched(
     tick.  Geometry rules follow ``run_lu_solve`` (vector or matrix b)."""
     if len(mats) != len(rhss):
         raise ValueError(f"{len(mats)} matrices vs {len(rhss)} right-hand sides")
-    d = Dispatcher(graph=graph, verify=verify)
+    device = mesh_device(mesh, device)
+    d = Dispatcher(graph=graph, mesh=mesh, verify=verify)
     outs = []
     for a, b in zip(mats, rhss):
         if b.shape[0] != a.shape[0]:
@@ -296,11 +312,13 @@ def run_inv(
     a: Any,
     graph: str = "g2",
     partitions: Partitions = ((4, 4),),
+    mesh=None,
     device=None,
     verify: Optional[bool] = None,
 ) -> torch.Tensor:
     """Matrix inverse via LU: ``run_lu_solve(a, I)`` — the same composed
     pipeline against the identity, with no new operation."""
+    device = mesh_device(mesh, device)
     dtype = a.dtype if torch.is_tensor(a) else torch.float32
     eye = torch.eye(a.shape[0], dtype=dtype, device=resolve_device(device))
-    return run_lu_solve(a, eye, graph=graph, partitions=partitions, device=device, verify=verify)
+    return run_lu_solve(a, eye, graph=graph, partitions=partitions, mesh=mesh, device=device, verify=verify)

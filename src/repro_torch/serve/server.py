@@ -61,6 +61,7 @@ from ..core import Dispatcher, GData, GTask
 from ..core.data import resolve_device
 from ..core.dispatcher import DrainHandle
 from ..core.executors import drain_memo_pressure
+from ..core.executors.sharded import mesh_device
 from ..core.operation import OpRegistry
 from ..errors import (
     CircuitOpenError,
@@ -316,11 +317,15 @@ class BatchServer:
     ``device`` is where requests are ingested and drained: CUDA unless the
     caller names another (``device="cpu"`` runs the kernels' plain
     versions); without CUDA the default raises, it never falls back.
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh``) serves the distributed
+    graphs: requests go on the mesh's device, and their drains are never
+    stacked.
     """
 
     def __init__(
         self,
         graph: str = "g2",
+        mesh=None,
         max_batch: int = 64,
         max_pending: Optional[int] = None,
         overload_policy: str = "reject",
@@ -337,7 +342,7 @@ class BatchServer:
         degrade_recovery: int = 8,
         device=None,
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh_device(mesh, device))
         if max_batch < 1 or max_batch & (max_batch - 1):
             raise ValueError(
                 f"max_batch must be a power of two >= 1, got {max_batch}"
@@ -372,6 +377,7 @@ class BatchServer:
                 f"degrade_recovery must be >= 1, got {degrade_recovery}"
             )
         self.graph = graph
+        self.mesh = mesh
         self.max_batch = max_batch
         self.max_pending = max_pending
         self.overload_policy = overload_policy
@@ -923,7 +929,7 @@ class BatchServer:
             op=chunk[0].op.name,
             size=len(chunk),
         )
-        d = Dispatcher(graph=self.graph)
+        d = Dispatcher(graph=self.graph, mesh=self.mesh)
         for p in chunk:
             d.submit_task(
                 GTask(p.op, None, [dd.root_view() for dd in p.datas])

@@ -276,7 +276,7 @@ def test_graph_table_and_undistributed_executors():
     assert tcore.Dispatcher("g2").executor.backend == "torch"
     assert tcore.Dispatcher("g1").executor.backend == "torch"
     for name in ("g3", "g4", "g3flat"):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(ValueError, match=f"graph {name} is distributed but mesh is None"):
             tcore.Dispatcher(graph=name)
     with pytest.raises(KeyError):
         tcore.get_graph("g9")
