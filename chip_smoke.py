@@ -134,6 +134,26 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    TTFT, decode ms a step and tokens/s, and request 0's prefill and first
    two decode steps checked, teacher-forced, against a no-cache forward
    (6d); the ``ops.matmul`` entry point at 4096^3, float32 and bfloat16 (6e).
+7. The non-dense LM families (``NONDENSE``), each at its published widths,
+   bf16, seeded random weights, built after the one before is freed, with
+   its parameters and bytes: granite-moe-1b-a400m (24 layers, 7a),
+   zamba2-2.7b (54 layers, 7b), rwkv6-3b (32 layers, 7c),
+   llama4-maverick-400b-a17b cut to one group (a dense-MLP and a routed
+   layer of 128 experts: the whole model does not fit, 7d), musicgen-large
+   (48 layers, on ``synth_embeddings``) and pixtral-12b (40 layers, 7e).
+   Each takes the no-cache forward at B = 1, S = 4096 (llama4 2048) between
+   zeroed and read flash launch counts (24, 9, 0, 2, 48, 40, all on the
+   Hopper kernel), timed with the flash kernel and the plain attention,
+   checked teacher-forced layer by layer where it attends (MoE layers: the
+   tokens whose top-k set or kept experts differ between the paths
+   counted and left out of the per-position maximum, the whole layer's
+   error held too; the share dropped at capacity printed; MoE routers
+   asserted fp32 on the card), and profiled with the device time grouped
+   by expert GEMMs, dispatch, router, the SSD and WKV chunk loops, flash,
+   dense GEMMs and elementwise work.  ``ServeEngine`` as in 6d runs
+   granite (at its capacity factor, then at n_experts / top_k, where no
+   token drops, for the teacher-forced check), zamba2, rwkv6 and musicgen
+   (prompts of frame embeddings, decoding through the stub table).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing it.
@@ -2098,11 +2118,35 @@ def drop_last_kv_tile(flash):
 
 
 def model_layers(model):
-    """(layer description, layer parameters) of every layer, in order."""
-    from repro_torch.models.transformer import group_layout
+    """(layer description, layer parameters) of every layer, in the order
+    the forward runs them: each group's layers, then the shared block
+    where the family has one (zamba2)."""
+    from repro_torch.models.transformer import SHARED, group_layout, has_shared_block
 
     layout = group_layout(model.cfg)
-    return [(d, p) for g in model.params["stack"]["groups"] for d, p in zip(layout, g["layers"])]
+    shared = model.params["stack"]["shared"] if has_shared_block(model.cfg) else None
+    out = []
+    for g in model.params["stack"]["groups"]:
+        out += zip(layout, g["layers"])
+        if shared is not None:
+            out.append((SHARED, shared))
+    return out
+
+
+def kept_experts(torch, cfg, p, x, pos, desc):
+    """The MoE layer's routing of the tokens of ``x`` (its input) under
+    ``cfg``: (top-k expert set (T, k) sorted, the same with dropped
+    assignments set to -1, dropped assignments)."""
+    from repro_torch.models import moe
+    from repro_torch.models.attention import attention_apply
+    from repro_torch.models.layers import norm_apply
+
+    h, _ = attention_apply(cfg, p["attn"], norm_apply(cfg, p["ln1"], x), pos, window=desc.window)
+    xf = norm_apply(cfg, p["ln2"], x + h).reshape(-1, cfg.d_model)
+    _, idx, _ = moe._router(cfg, p["mlp"]["router"], xf)
+    C = moe._capacity(cfg, xf.shape[0])
+    dropped = (moe._slots(cfg, idx, C) == cfg.n_experts * C).reshape(idx.shape)
+    return idx.sort(-1).values, torch.where(dropped, -1, idx).sort(-1).values, int(dropped.sum())
 
 
 def teacher_forced(torch, model, batch, other_cfg) -> dict:
@@ -2111,27 +2155,49 @@ def teacher_forced(torch, model, batch, other_cfg) -> dict:
     relative L2 error of one position, over all S positions: per layer,
     then of the final hidden states and of the logits of the last layer's
     two outputs.  (Free-running, two correct attentions do not stay
-    comparable on this random network; see lm_forward.)"""
+    comparable on this random network; see lm_forward.)
+
+    An MoE layer routes each token by its own logits, and the two paths'
+    attentions round differently, so a token whose logits nearly tie may
+    take another expert set (or lose another assignment at the capacity
+    cut) under ``other_cfg``: such tokens are counted (``topk_differ``:
+    another top-k set; ``rerouted``: another set of kept experts) and left
+    out of that layer's per-position maximum, and the whole layer's
+    relative L2 error (``layer_rel_max``, every token in it) is held to the
+    same tolerance.  ``dropped`` is the share of (token, k) assignments
+    ``model.cfg`` drops at the capacity cut, over all MoE layers."""
     from repro_torch.models.layers import norm_apply
     from repro_torch.models.transformer import _layer_apply
 
     cfg = model.cfg
-    B, S = batch["tokens"].shape
-    pos = torch.arange(S, device=batch["tokens"].device)[None].expand(B, S)
+    x0 = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    B, S = x0.shape[:2]
+    pos = torch.arange(S, device=x0.device)[None].expand(B, S)
     x = model.embed_batch(batch, pos)
-    errs, over = [], 0
+    errs, whole, over, topk_differ, rerouted, dropped, assigned = [], [], 0, [], [], 0, 0
     for desc, p in model_layers(model):
         y = _layer_apply(cfg, desc, p, x, pos, None, None)
         y_o = _layer_apply(other_cfg, desc, p, x, pos, None, None)
         e = rows_rel_l2(y, y_o)
+        if desc.moe:
+            tk, kept, n_drop = kept_experts(torch, cfg, p, x, pos, desc)
+            tk_o, kept_o, _ = kept_experts(torch, other_cfg, p, x, pos, desc)
+            same = (kept == kept_o).all(-1)
+            topk_differ.append(int((tk != tk_o).any(-1).sum()))
+            rerouted.append(int((~same).sum()))
+            dropped, assigned = dropped + n_drop, assigned + tk.numel()
+            e = e[same]
         errs.append(e.max().item())
+        whole.append(rel_l2(y, y_o))
         over += int((e > LM_TOL).sum())
         x = y
     h, h_o = (norm_apply(cfg, model.params["final_norm"], t) for t in (y, y_o))
     lg, lg_o = model.lm_logits(h), model.lm_logits(h_o)
-    return dict(layer_max=max(errs), layer_worst=errs.index(max(errs)), over=over,
+    return dict(layer_max=max(errs), layer_worst=errs.index(max(errs)), over=over, layer_rel_max=max(whole),
                 hidden=rows_rel_l2(h, h_o).max().item(), logits=rows_rel_l2(lg, lg_o).max().item(),
-                top1=(lg.argmax(-1) == lg_o.argmax(-1)).float().mean().item())
+                top1=(lg.argmax(-1) == lg_o.argmax(-1)).float().mean().item(), per_layer=errs,
+                per_layer_rel=whole, topk_differ=topk_differ, rerouted=rerouted,
+                dropped=dropped / assigned if assigned else None)
 
 
 def lm_forward(torch, fa):
@@ -2281,8 +2347,8 @@ def lm_forward_f32(torch, fa) -> int:
     return launches
 
 
-def lm_engine(torch, model) -> None:
-    """Phase 6d: ``ServeEngine`` at full width, greedy, ENGINE slots:
+def lm_engine(torch, model, check: bool = True, profile: bool = True) -> dict:
+    """Phase 6d (and 7's engines): ``ServeEngine`` at full width, greedy, ENGINE slots:
     ENGINE_REQUESTS requests of ENGINE_NEW new tokens with prompts of
     ENGINE_PROMPTS tokens from ``np.random.default_rng(0)`` (request 0's
     prompt ENGINE_PROBE long).  Checks the requests, tokens and decode
@@ -2293,7 +2359,14 @@ def lm_engine(torch, model) -> None:
     layers saw (the prefill's, then slot 0's of each decode step), and its
     outputs and logits at the last three positions must agree with the
     engine's.  That holds only if the prefill's cache scatter, the
-    per-slot positions and the cache reads are right."""
+    per-slot positions and the cache reads (KV rows and recurrent states)
+    are right.  A stub-frontend model takes prompts of frame/patch
+    embeddings (standard normal / sqrt(d_model), from the same generator)
+    and decodes through the engine's stub table.  ``check=False`` skips
+    the teacher-forced check (an MoE model at a capacity that drops
+    tokens: its routing depends on the other slots' tokens, which no
+    single sequence's forward sees); ``profile=False`` the profiled step.
+    Returns the engine's numbers."""
     import numpy as np
 
     from repro_torch.kernels import flash_attention as fa
@@ -2307,17 +2380,23 @@ def lm_engine(torch, model) -> None:
     rng = np.random.default_rng(0)
     lengths = rng.integers(ENGINE_PROMPTS[0], ENGINE_PROMPTS[1] + 1, ENGINE_REQUESTS)
     lengths[0] = ENGINE_PROBE
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)), max_new_tokens=ENGINE_NEW)
-            for i, n in enumerate(lengths)]
+    stub = eng.stub
+    if stub:
+        prompts = [(rng.standard_normal((int(n), cfg.d_model)) / math.sqrt(cfg.d_model)).astype(np.float32)
+                   for n in lengths]
+    else:
+        prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lengths]
+    reqs = [Request(rid=i, prompt=pr, max_new_tokens=ENGINE_NEW) for i, pr in enumerate(prompts)]
     # request 0's calls: the first prefill, then the first two decode steps (slot 0);
     # for each, every layer's input and last-position output, and the logits
     rec = {"prefill": 0, "decode": 0, "on": False}
     captured, logits = [], []
     prefill, decode_step, layer_apply = model.prefill, model.decode_step, tr._layer_apply
 
-    def record_layer(cfg_, desc, p, x, positions, cache, cache_pos):
-        y = layer_apply(cfg_, desc, p, x, positions, cache, cache_pos)
+    def record_layer(*args, **kw):
+        y = layer_apply(*args, **kw)
         if rec["on"]:
+            x = args[3]
             captured[-1].append((x[:1].clone(), y[:1, -1:].clone()))
         return y
 
@@ -2360,6 +2439,7 @@ def lm_engine(torch, model) -> None:
                              f"(want {ENGINE_REQUESTS}, none, {ENGINE_DECODE_STEPS})")
     ttft = [(r.t_first - r.t_submit) * 1e3 for r in reqs]
     n_tok = sum(len(r.out_tokens) for r in reqs)
+    out = dict(tokens_per_s=n_tok / wall_s, decode_ms=float(np.mean(decode_ms)), ttft_ms=ttft, wall_s=wall_s)
     print(f"engine {cfg.name} slots={ENGINE['slots']} max_seq={ENGINE['max_seq']} greedy: {len(done)} requests, "
           f"prompts {sorted(int(n) for n in lengths)}, {ENGINE_NEW} new tokens each, decode_steps={eng.decode_steps}, "
           f"flash launches={fa_launches} (the cache path attends through _sdpa_auto); wall_s={wall_s:.3f} "
@@ -2367,6 +2447,8 @@ def lm_engine(torch, model) -> None:
           f"{', '.join(f'{t:.1f}' for t in ttft[4:])}; decode-only step ms mean={np.mean(decode_ms):.3f} "
           f"min={np.min(decode_ms):.3f} max={np.max(decode_ms):.3f} over {len(decode_ms)} steps; steps with "
           f"admissions ms={', '.join(f'{t:.1f}' for t in admit_ms)}")
+    if not check:
+        return out
 
     pre, d1, d2 = captured
     n = ENGINE_PROBE + 2
@@ -2381,8 +2463,12 @@ def lm_engine(torch, model) -> None:
     lg_errs = [rel_l2(g, w) for g, w in zip(logits, want)]
     top1 = [bool(g.argmax() == w.argmax()) for g, w in zip(logits, want)]
     r0 = reqs[0]
-    seq = np.concatenate([r0.prompt, r0.out_tokens[:2]])
-    h, _ = model({"tokens": torch.from_numpy(seq[None]).cuda()})
+    if stub:
+        emb = eng.stub_table[torch.tensor(r0.out_tokens[:2], device=model.device)]
+        seq = {"embeds": torch.cat([torch.from_numpy(r0.prompt).cuda(), emb])[None].to(cfg.compute_dtype)}
+    else:
+        seq = {"tokens": torch.from_numpy(np.concatenate([r0.prompt, r0.out_tokens[:2]])[None]).cuda()}
+    h, _ = model(seq)
     free = model.lm_logits(h[0, -3:])
     print(f"engine request 0 (prompt {ENGINE_PROBE}): prefill and decode steps 1-2 vs a no-cache forward of {n} "
           f"tokens at positions {n - 3}..{n - 1}, teacher-forced: max layer rel_l2={max(errs):.3e} (layer "
@@ -2392,6 +2478,9 @@ def lm_engine(torch, model) -> None:
           f"{[bool(g.argmax() == w.argmax()) for g, w in zip(logits, free)]}")
     if max(errs + lg_errs) > LM_TOL:
         raise AssertionError(f"engine disagrees with the no-cache forward: layers {errs} logits {lg_errs}")
+    out["check_layer_max"], out["check_logits_max"] = max(errs), max(lg_errs)
+    if not profile:
+        return out
     toks = torch.zeros(ENGINE["slots"], dtype=torch.long, device=model.device)
     pos = torch.full((ENGINE["slots"],), ENGINE_PROBE, device=model.device)
 
@@ -2399,7 +2488,8 @@ def lm_engine(torch, model) -> None:
         eng._decode_fn(toks, pos).cpu()  # as a step: the sampled tokens come back to the host
         return f"slots={ENGINE['slots']}"
 
-    profiled(torch, "engine decode step", decode, classify=lm_kernel)
+    profiled(torch, f"engine {cfg.name} decode step", decode, classify=lm_kernel)
+    return out
 
 
 def matmul_path(torch, tl, rng) -> dict:
@@ -2467,6 +2557,266 @@ def lm_path(torch, tl, rng) -> list:
     ]
 
 
+# --------------------------------------------------------------------------
+# Phase 7: the non-dense LM families
+# --------------------------------------------------------------------------
+# each family at its published widths, bf16, seeded random weights: the
+# no-cache forward's length, its flash launches (one a layer with attention;
+# zamba2: one a group, its shared block; rwkv6: none), a depth cut where the
+# card cannot hold the model, and whether ServeEngine runs it
+NONDENSE = {
+    "granite-moe-1b-a400m": dict(phase="7a", S=4096, flash=24, engine=True),
+    "zamba2-2.7b": dict(phase="7b", S=4096, flash=9, engine=True),
+    "rwkv6-3b": dict(phase="7c", S=4096, flash=0, engine=True),
+    # 48 layers of 18.6 B parameters a group are 890 GB in bf16: one group
+    # (a dense-MLP layer and a routed layer of 128 experts, top-1, shared
+    # expert), 37 GB, and one fp32 expert leaf of 21.5 GB while it is drawn
+    "llama4-maverick-400b-a17b": dict(phase="7d", S=2048, flash=2, n_layers=2, engine=False),
+    "musicgen-large": dict(phase="7e", S=4096, flash=48, engine=True),
+    "pixtral-12b": dict(phase="7e", S=4096, flash=40, engine=False),
+}
+# functions of the forward whose device time the profile groups by the
+# function that launched it (module, function, group); the innermost wins
+SPANS = (("moe", "_expert_ffn", "expert_gemm"), ("moe", "_gather_dispatch", "dispatch"),
+         ("moe", "_router", "router"), ("ssm", "ssd_chunked", "ssd_chunk_loop"),
+         ("rwkv", "wkv6_chunked", "wkv_chunk_loop"))
+
+
+class spans:
+    """Within the block, each function of SPANS runs inside a
+    ``record_function("span:<group>")`` range, which the profiler's tree
+    keeps above the ops that launch its kernels."""
+
+    def __enter__(self):
+        import importlib
+
+        from torch.profiler import record_function
+
+        self.saved = []
+        for mod, fn, group in SPANS:
+            m = importlib.import_module(f"repro_torch.models.{mod}")
+            f = getattr(m, fn)
+
+            def wrapped(*a, _f=f, _g=group, **kw):
+                with record_function(f"span:{_g}"):
+                    return _f(*a, **kw)
+
+            setattr(m, fn, wrapped)
+            self.saved.append((m, fn, f))
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn, f in self.saved:
+            setattr(m, fn, f)
+
+
+def span_groups(ops: dict, ranges: list, kernels: list) -> tuple:
+    """Device time by group: each kernel (linked op id, start, end, name)
+    under the innermost range (start, end, group) open when the op that
+    launched it started (``ops``: op id -> start; host clock), else under
+    ``lm_kernel``'s group of its name.  One sweep over the host timeline.
+    Returns ({group: (kernels, us)}, us under a range)."""
+    points = sorted([(r0, 1, i) for i, (r0, _, _) in enumerate(ranges)] +
+                    [(r1, 0, i) for i, (_, r1, _) in enumerate(ranges)])
+    launched = sorted((ops[op], j) for j, (op, _, _, _) in enumerate(kernels) if op in ops)
+    label = [None] * len(kernels)
+    open_, p = [], 0
+    for t, j in launched:
+        while p < len(points) and points[p][0] <= t:
+            _, opens, i = points[p]
+            open_.append(i) if opens else open_.remove(i)
+            p += 1
+        if open_:
+            label[j] = ranges[open_[-1]][2]
+    by, under = {}, 0.0
+    for (_, k0, k1, name), g in zip(kernels, label):
+        us = (k1 - k0) / 1e3
+        g, under = (g, under + us) if g else (lm_kernel(name), under)
+        n, tot = by.get(g, (0, 0.0))
+        by[g] = (n + 1, tot + us)
+    return by, under
+
+
+def profiled_forward(torch, label: str, run) -> None:
+    """``profiled``'s numbers for one forward (wall, host dispatch, device
+    busy, span and idle share), with the device time grouped by SPANS and
+    kernel names (``span_groups``).  It reads the profiler's raw events:
+    building its Python event tree costs about 70 us an event, minutes
+    for a recurrent forward's 10^6 events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with spans(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warm_up(torch)
+        t0 = time.perf_counter()
+        run()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops, span_list, kernels = {}, [], []
+    for e in prof.profiler.kineto_results.events():
+        name, t0_ns = e.name(), e.start_ns()
+        if e.device_type() == DeviceType.CUDA:
+            # a record_function range shows as a device annotation too: not a kernel
+            if not name.startswith("span:") and WARMUP_KERNEL not in name:
+                kernels.append((e.linked_correlation_id(), t0_ns, t0_ns + e.duration_ns(), name))
+        elif name.startswith("span:"):
+            span_list.append((t0_ns, t0_ns + e.duration_ns(), name[5:]))
+        elif e.correlation_id():
+            ops[e.correlation_id()] = t0_ns
+    if not kernels:
+        print(f"{label} profile: no device events recorded (wall_ms={wall_ms:.3f}); device time not measured")
+        return
+    iv = sorted((k0, k1) for _, k0, k1, _ in kernels)
+    busy, (cs, ce) = 0, iv[0]
+    for k0, k1 in iv[1:]:
+        if k0 > ce:
+            busy, cs, ce = busy + (ce - cs), k0, k1
+        else:
+            ce = max(ce, k1)
+    busy, span = (busy + ce - cs) / 1e6, (max(k1 for _, k1 in iv) - iv[0][0]) / 1e6
+    by, under = span_groups(ops, span_list, kernels)
+    total = sum(us for _, us in by.values())
+    parts = " ".join(f"{k}={v[1] / 1e3:.3f}ms/{v[0]}" for k, v in sorted(by.items(), key=lambda kv: -kv[1][1]))
+    print(f"{label} profile (profiler on): wall_ms={wall_ms:.3f} host_dispatch_ms={host_ms:.3f} "
+          f"device_span_ms={span:.3f} device_busy_ms={busy:.3f} idle_share_of_span={1 - busy / span:.3f}; "
+          f"kernels {total / 1e3:.3f} ms, by group ({under / 1e3:.3f} ms of it under a SPANS function): {parts}")
+
+
+def nondense_model(torch, name: str, spec: dict):
+    """A family's model on the card, bf16 at its published widths (and
+    depth, but for a cut in ``spec``), seeded random weights; prints its
+    configuration, parameters and bytes.  MoE routers must be fp32."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    published = get_arch(name)
+    cfg = dataclasses.replace(published, use_pallas=True, n_layers=spec.get("n_layers", published.n_layers))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    counts = model.param_counts()
+    cut = f" (cut from {published.n_layers}: one group)" if cfg.n_layers != published.n_layers else " (published)"
+    print(f"lm {name}: family={cfg.family} layers={cfg.n_layers}{cut} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv} hd={cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab} experts={cfg.n_experts} "
+          f"top_k={cfg.top_k} ssm_heads={cfg.ssm_heads} ssm_state={cfg.ssm_state} rwkv_head={cfg.rwkv_head_size} "
+          f"frontend={cfg.frontend} params={n_params} (template {counts['total']}, active {counts['active']}) "
+          f"bytes={n_bytes} ({n_bytes / 1e9:.2f} GB) peak_GB={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"init_s={time.perf_counter() - t0:.2f}")
+    if n_params != counts["total"]:
+        raise AssertionError(f"{name}: {n_params} parameters on the card, the template counts {counts['total']}")
+    routers = [p["mlp"]["router"] for d, p in model_layers(model) if d.moe]
+    if cfg.is_moe:
+        bad = [(r.dtype, r.device) for r in routers if r.dtype != torch.float32 or r.device != model.device]
+        if not routers or bad:
+            raise AssertionError(f"{name}: {len(routers)} routers, not fp32 on the card: {bad}")
+        print(f"lm {name}: {len(routers)} MoE routers, all torch.float32 on {routers[0].device}")
+    return model
+
+
+def nondense_forward(torch, fa, model, spec: dict) -> int:
+    """The no-cache forward at B = 1, S = spec["S"] between zeroed and read
+    flash launch counts (exactly spec["flash"], all on the Hopper kernel),
+    timed with the flash kernel and with the plain attention, checked
+    teacher-forced layer by layer (``teacher_forced``) where it attends,
+    and profiled (``profiled_forward``).  Returns the flash launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models.frontend import synth_embeddings, uses_stub_frontend
+
+    cfg = model.cfg
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    S = spec["S"]
+    if uses_stub_frontend(cfg):
+        batch = {"embeds": synth_embeddings(cfg, 0, 1, S, model.device)}
+    else:
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, S))).cuda()}
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    h, _ = model(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, sm90 = fa.LAUNCHES["flash_attention"], fa.LAUNCHES["flash_attention_sm90"]
+    if launches != spec["flash"] or sm90 != launches:
+        raise AssertionError(f"{cfg.name} forward launched flash_attention {launches} times ({sm90} on the Hopper "
+                             f"kernel), not {spec['flash']} on it")
+    if h.shape != (1, S, cfg.d_model) or h.dtype != torch.bfloat16 or not torch.isfinite(h).all():
+        raise AssertionError(f"{cfg.name} forward: hidden {tuple(h.shape)} {h.dtype}, finite "
+                             f"{bool(torch.isfinite(h).all())}")
+    recurrent = cfg.family in ("rwkv", "hybrid")  # host bound: tens of thousands of small launches
+    reps, warmup = (1, 0) if recurrent else (3, 2)
+    ms = cuda_ms(lambda: model(batch), reps, warmup=warmup)
+    line = f"lm {cfg.name} forward S={S}: flash launches={launches} ({sm90} on the Hopper kernel) " \
+           f"first_s={first_s:.3f} forward_ms use_pallas=True {ms:.3f}"
+    if launches:
+        model.cfg = plain_cfg
+        plain_ms = cuda_ms(lambda: model(batch), 2, warmup=1)
+        model.cfg = cfg
+        line += f", use_pallas=False (plain _sdpa_auto) {plain_ms:.3f}"
+    print(line)
+    del h
+    if launches:
+        got = teacher_forced(torch, model, batch, plain_cfg)
+        moe_note = ""
+        if cfg.is_moe:
+            moe_note = (f"; MoE layers: tokens whose top-k set differs between the paths {got['topk_differ']}, "
+                        f"whose kept experts differ {got['rerouted']} (left out of the per-position maximum); "
+                        f"(token, k) assignments dropped at capacity {got['dropped']:.4f} of all")
+        print(f"lm {cfg.name} forward teacher-forced, each layer flash vs plain on the same input: per layer "
+              f"largest per-position rel_l2 [{', '.join(f'{e:.2e}' for e in got['per_layer'])}], whole-layer "
+              f"rel_l2 [{', '.join(f'{e:.2e}' for e in got['per_layer_rel'])}]; max {got['layer_max']:.3e} "
+              f"(layer {got['layer_worst']}; {got['over']} positions above tol), final hidden {got['hidden']:.3e}, "
+              f"logits {got['logits']:.3e}, top1 agreement {got['top1']:.4f} (tol {LM_TOL}){moe_note}")
+        if max(got["layer_max"], got["layer_rel_max"], got["hidden"], got["logits"]) > LM_TOL:
+            raise AssertionError(f"{cfg.name}: the flash forward disagrees with the plain one: {got}")
+    profiled_forward(torch, f"lm {cfg.name} forward S={S}", lambda: model(batch))
+    print(f"lm {cfg.name} peak device memory GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    return launches
+
+
+def nondense_path(torch) -> dict:
+    """Phase 7: each family of NONDENSE built (7a granite, 7b zamba2, 7c
+    rwkv6, 7d llama4's one group, 7e musicgen and pixtral), its forward run
+    and checked (``nondense_forward``), then ``ServeEngine`` over it where
+    NONDENSE says so (``lm_engine``; an MoE model twice: at its published
+    capacity, timed, and at capacity n_experts / top_k, where no token drops,
+    for the teacher-forced check), and freed before the next.  Returns the
+    flash launches of each forward that attends."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+
+    paths = {}
+    for name, spec in NONDENSE.items():
+        t0 = time.perf_counter()
+        model = nondense_model(torch, name, spec)
+        launches = nondense_forward(torch, fa, model, spec)
+        if launches:
+            paths[name] = launches
+        if spec["engine"]:
+            cfg = model.cfg
+            lm_engine(torch, model, check=not cfg.is_moe)
+            if cfg.is_moe:
+                model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+                print(f"engine {name}: again at capacity_factor={model.cfg.capacity_factor} (no drops) for the "
+                      f"teacher-forced check")
+                lm_engine(torch, model, check=True, profile=False)
+                model.cfg = cfg
+        del model
+        torch.cuda.empty_cache()
+        print(f"phase {spec['phase']} {name} s={time.perf_counter() - t0:.2f}")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2509,6 +2859,12 @@ def main() -> int:
     stacked_launches = serving_path(torch, tl)
     capture_probe(torch)
     lm_kernels = lm_path(torch, tl, rng)
+    t0 = time.perf_counter()
+    flash_paths = nondense_path(torch)
+    print(f"phase 7 s={time.perf_counter() - t0:.2f}")
+    sm90 = lm_kernels[0]
+    sm90["paths"] = {LM: sm90["launches"], **flash_paths}
+    sm90["launches"] = sum(sm90["paths"].values())
 
     kernels = []
     for name in KERNELS:

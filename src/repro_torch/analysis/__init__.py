@@ -1,13 +1,16 @@
-"""Static analysis over schedules and dependence DAGs (DESIGN.md §11).
+"""Static analysis over schedules, dependence DAGs and the op registry
+(DESIGN.md §11).
 
-- ``hazards``: re-derive RAW/WAR/WAW dependences from task footprints and
+- ``hazards``:  re-derive RAW/WAR/WAW dependences from task footprints and
   cross-check the ``DepTracker`` DAG (missing edge = race, spurious edge =
   lost parallelism).
-- ``verify``:  prove a ``SchedulePlan``'s fusion/slot/scatter invariants
+- ``verify``:   prove a ``SchedulePlan``'s fusion/slot/scatter invariants
   and stacked-lane disjointness.
+- ``lint_ops``: AST + signature contract checks over every registered
+  Operation (split purity, mode/arity, leaf coherence).
 
-Runtime wiring: ``Dispatcher(verify=True)`` or ``REPRO_VERIFY=1`` runs both
-passes on every non-replay drain; memo replays re-execute a verified
+Runtime wiring: ``Dispatcher(verify=True)`` or ``REPRO_VERIFY=1`` runs the
+hazard and plan passes on every non-replay drain; memo replays re-execute a verified
 capture and skip verification entirely.
 """
 
@@ -18,6 +21,7 @@ from .hazards import (
     analyze_hazards,
     recompute_conflicts,
 )
+from .lint_ops import LintIssue, lint_operation, lint_or_raise, lint_registry
 from .verify import (
     clear_verified_cache,
     verifier_stats,
@@ -28,9 +32,13 @@ from .verify import (
 __all__ = [
     "Conflict",
     "HazardReport",
+    "LintIssue",
     "LostParallelismWarning",
     "analyze_hazards",
     "clear_verified_cache",
+    "lint_operation",
+    "lint_or_raise",
+    "lint_registry",
     "recompute_conflicts",
     "verifier_stats",
     "verify_plan",

@@ -47,6 +47,9 @@ concrete type, as in the JAX package:
 The taxonomy lives at the top level (not under ``serve/``) because the
 drain-side surfaces raise it too: ``run_lu(check_finite=True)`` raises
 ``NumericalError`` directly, with no serving stack involved.
+
+``LintError`` stands apart: static tooling (``analysis/lint_ops.py``)
+raises it, never a drain.
 """
 
 from __future__ import annotations
@@ -145,12 +148,28 @@ class ScheduleVerificationError(ServeError):
         super().__init__(msg)
 
 
+class LintError(Exception):
+    """The operation-algebra linter found contract violations (DESIGN.md
+    §11): an impure ``split`` on a memoizable Operation, access modes
+    inconsistent with the leaf's write positions, or incoherent
+    leaf/batched-leaf signatures.  Static tooling only — never raised by a
+    drain."""
+
+    def __init__(self, issues):
+        self.issues = list(issues)
+        super().__init__(
+            f"{len(self.issues)} operation lint issue(s):\n  "
+            + "\n  ".join(str(i) for i in self.issues)
+        )
+
+
 __all__ = [
     "CircuitOpenError",
     "DeadlineExceeded",
     "DrainError",
     "DrainStalledError",
     "InflightError",
+    "LintError",
     "NumericalError",
     "RejectedError",
     "ResourceExhausted",

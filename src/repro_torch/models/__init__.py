@@ -1,6 +1,7 @@
-"""LM substrate: the dense decoder family of the JAX package's ``models``
-(attention layers, dense MLPs, KV cache), with the no-cache attention
-through the hand-written flash kernel when ``cfg.use_pallas`` is set."""
+"""LM substrate: the JAX package's ``models`` — the dense decoders, MoE
+(gather and dense dispatch), Mamba2 with zamba2's shared block, RWKV6 and
+the stub frontends — with the no-cache attention through the hand-written
+flash kernel when ``cfg.use_pallas`` is set."""
 
 from .convert import params_from_jax
 from .model import Model, build_model, param_counts

@@ -24,7 +24,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import flash_attention
-from .layers import PSpec, apply_rope, rms_norm, rope_embed
+from .layers import PSpec, apply_rope, proj, rms_norm, rope_embed
 
 NEG_INF = -1e30
 
@@ -32,25 +32,19 @@ NEG_INF = -1e30
 def attention_template(cfg: ArchConfig) -> Dict[str, PSpec]:
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
     t = {
-        "wq": PSpec((D, H, hd)),
-        "wk": PSpec((D, Hkv, hd)),
-        "wv": PSpec((D, Hkv, hd)),
-        "wo": PSpec((H, hd, D)),
+        "wq": PSpec((D, H, hd), ("embed", "heads", "head_dim")),
+        "wk": PSpec((D, Hkv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": PSpec((D, Hkv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": PSpec((H, hd, D), ("heads", "head_dim", "embed")),
     }
     if cfg.qk_norm:
-        t["q_norm"] = PSpec((hd,), init="ones")
-        t["k_norm"] = PSpec((hd,), init="ones")
+        t["q_norm"] = PSpec((hd,), ("head_dim",), init="ones")
+        t["k_norm"] = PSpec((hd,), ("head_dim",), init="ones")
     return t
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum('bsd,dhk->bshk'): one (B*S, D) x (D, H*hd) product."""
-    D, H, hd = w.shape
-    return (x @ w.to(x.dtype).reshape(D, H * hd)).unflatten(-1, (H, hd))
-
-
 def _qkv(cfg: ArchConfig, p, x, positions, window: int = 0):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = proj(x, p["wq"]), proj(x, p["wk"]), proj(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])

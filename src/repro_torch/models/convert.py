@@ -4,7 +4,8 @@
 numpy arrays (``jax.tree.map(np.asarray, params)``, done by the caller: the
 port never imports JAX), splits the stacked ``groups`` axis (the JAX
 package scans its layer groups over parameters stacked on a leading
-``n_groups`` axis) into the port's list of groups, and loads the result
+``n_groups`` axis) into the port's list of groups, keeps zamba2's
+unstacked shared block (``stack/shared``) as it is, and loads the result
 with ``build_model``.  With it both packages compute with the same
 weights, which torch cannot draw: it cannot reproduce ``jax.random``.
 """
@@ -40,8 +41,9 @@ def _tensor(a) -> torch.Tensor:
 def params_from_jax(cfg: ArchConfig, tree: Dict[str, Any], *, device=None) -> Model:
     """A ``Model`` on ``device`` (CUDA unless the caller passes another)
     holding the JAX package's parameters ``tree`` (numpy leaves)."""
-    groups = tree["stack"]["groups"]
+    stack = tree["stack"]
     port = {k: _map(v, _tensor) for k, v in tree.items() if k != "stack"}
-    port["stack"] = {"groups": [_map(groups, lambda a, g=g: _tensor(np.asarray(a)[g]))
-                                for g in range(n_groups(cfg))]}
+    port["stack"] = {k: _map(v, _tensor) for k, v in stack.items() if k != "groups"}
+    port["stack"]["groups"] = [_map(stack["groups"], lambda a, g=g: _tensor(np.asarray(a)[g]))
+                               for g in range(n_groups(cfg))]
     return build_model(cfg, port, device=device)

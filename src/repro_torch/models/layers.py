@@ -1,13 +1,14 @@
 """Shared model building blocks and the parameter-template system (the JAX
 package's ``models/layers.py``).
 
-Every parameter is declared as a ``PSpec`` (shape, init kind, scale).  The
-template tree drives ``init_params`` (seeded draws from a
-``torch.Generator``; torch cannot reproduce ``jax.random``'s numbers, so
+Every parameter is declared as a ``PSpec`` (shape, logical axes, init
+kind, scale).  The template tree drives ``init_params`` (seeded draws from
+a ``torch.Generator``; torch cannot reproduce ``jax.random``'s numbers, so
 the tests carry the JAX package's parameters across instead, through
 ``models/convert.py``) and ``count_template`` (exact N without
-allocation).  The JAX templates' logical axes feed its sharding resolver,
-which the port has no use for.
+allocation).  The logical axes are the JAX templates', copied: the port
+reads them only to find the expert leaves (``"experts"``) for
+``param_counts``; the JAX package's sharding resolver also reads them.
 """
 
 from __future__ import annotations
@@ -25,17 +26,23 @@ from ..configs.base import ArchConfig
 @dataclass(frozen=True)
 class PSpec:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"  # 'normal' | 'zeros' | 'ones' | 'const' | 'embed'
     scale: float = 1.0
 
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"PSpec shape {self.shape} and logical axes {self.logical} differ in rank")
 
-def map_template(template, fn: Callable[[PSpec], Any]):
-    """The template tree (dicts and lists) with ``fn`` applied to each leaf."""
+
+def map_template(template, fn: Callable[[PSpec, str], Any], path: str = ""):
+    """The template tree (dicts and lists) with ``fn(leaf, path)`` applied
+    to each leaf, ``path`` the leaf's keys joined by "/"."""
     if isinstance(template, PSpec):
-        return fn(template)
+        return fn(template, path)
     if isinstance(template, dict):
-        return {k: map_template(v, fn) for k, v in template.items()}
-    return [map_template(v, fn) for v in template]
+        return {k: map_template(v, fn, f"{path}/{k}") for k, v in template.items()}
+    return [map_template(v, fn, f"{path}/{i}") for i, v in enumerate(template)]
 
 
 def init_tensor(spec: PSpec, gen: torch.Generator, dtype, device) -> torch.Tensor:
@@ -53,7 +60,8 @@ def init_tensor(spec: PSpec, gen: torch.Generator, dtype, device) -> torch.Tenso
     else:
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / (fan_in ** 0.5)
-    return torch.randn(spec.shape, generator=gen, dtype=dtype, device=device) * std
+    # in place: a draw of llama4's expert leaves is 21.5 GB in fp32
+    return torch.randn(spec.shape, generator=gen, dtype=dtype, device=device).mul_(std)
 
 
 def template_leaves(template) -> Iterator[PSpec]:
@@ -66,6 +74,21 @@ def template_leaves(template) -> Iterator[PSpec]:
 
 def count_template(template) -> int:
     return sum(math.prod(s.shape) for s in template_leaves(template))
+
+
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,d...->bs...'): x (B, S, D) times a weight (D, ...) as one
+    (B*S, D) x (D, prod(...)) product, in x's dtype."""
+    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def largest_divisor(S: int, chunk: int) -> int:
+    """The chunked scans' chunk: the largest divisor of S not exceeding
+    ``chunk``."""
+    Q = min(chunk, S)
+    while S % Q:
+        Q -= 1
+    return Q
 
 
 # --------------------------------------------------------------------------
@@ -90,9 +113,9 @@ def layer_norm(
 def norm_template(cfg: ArchConfig, dim: Optional[int] = None) -> Dict[str, PSpec]:
     """Pre-norm parameter template honouring ``cfg.norm_type``."""
     d = cfg.d_model if dim is None else dim
-    t = {"scale": PSpec((d,), init="ones")}
+    t = {"scale": PSpec((d,), ("embed",), init="ones")}
     if cfg.norm_type == "layernorm":
-        t["bias"] = PSpec((d,), init="zeros")
+        t["bias"] = PSpec((d,), ("embed",), init="zeros")
     return t
 
 
@@ -135,10 +158,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # --------------------------------------------------------------------------
 def mlp_template(cfg: ArchConfig) -> Dict[str, PSpec]:
     D, F_ = cfg.d_model, cfg.d_ff
-    t = {"wo": PSpec((F_, D))}
-    t["wi"] = PSpec((D, F_))
+    t = {"wo": PSpec((F_, D), ("mlp", "embed"))}
+    t["wi"] = PSpec((D, F_), ("embed", "mlp"))
     if cfg.mlp_type in ("swiglu", "geglu"):
-        t["wg"] = PSpec((D, F_))
+        t["wg"] = PSpec((D, F_), ("embed", "mlp"))
     return t
 
 

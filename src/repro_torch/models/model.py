@@ -1,26 +1,28 @@
-"""Top-level model: embed -> layer groups -> norm -> head (the JAX
-package's ``models/model.py``).
+"""Top-level model: embed or stub frontend -> layer groups -> norm -> head
+(the JAX package's ``models/model.py``).
 
 The JAX package builds a namespace of pure functions over a parameter
 tree; the port's ``Model`` is an ``nn.Module`` that holds its parameters
 (frozen: this port runs inference and the forward loss, no backward)::
 
     forward(batch, positions=None, cache=None, cache_pos=None) -> (hidden, cache)
-    loss(batch)                      scalar LM loss + metrics (chunked xent)
-    prefill(batch, cache)            fill the KV cache from position 0
+    loss(batch)                      scalar LM loss + metrics (chunked xent, MoE aux)
+    prefill(batch, cache)            fill the cache from position 0
     decode_step(cache, batch, pos)   one token a row with the cache
     lm_logits(h), init_cache(batch, max_seq), param_counts()
 
-Batch convention: {"tokens": (B, S) int} (training adds {"labels": (B, S)
-int}); the {"embeds": (B, S, D)} batches of the stub-frontend families
-wait for ROADMAP A11.
+Batch convention: {"tokens": (B, S) int} for token-input families, or
+{"embeds": (B, S, D)} for the stub-frontend families (``[audio]``/
+``[vlm]``); training adds {"labels": (B, S) int}.
 
 Parameters are cast once, at load: every floating parameter of two or more
 dimensions is stored in ``cfg.compute_dtype`` and no float32 copy stays on
-the device; 1-D scales and biases stay float32.  That is the effect of the
-JAX package's ``cast_for_forward`` (which ``loss``/``prefill``/
-``decode_step`` apply per call, and every layer's ``astype(x.dtype)``
-applies inside ``forward``), so both give the same numbers.
+the device; 1-D scales and biases, and every leaf under a ``router`` (the
+MoE router's weights, whose logits decide the routing), stay in
+``cfg.param_dtype``.  That is the effect of the JAX package's
+``cast_for_forward`` (which ``loss``/``prefill``/``decode_step`` apply per
+call, and every layer's ``astype(x.dtype)`` applies inside ``forward``),
+so both give the same numbers.
 """
 
 from __future__ import annotations
@@ -36,33 +38,42 @@ from ..configs.base import ArchConfig
 from ..core.data import resolve_device
 from ..kernels.ref import fp32_matmul
 from .frontend import uses_stub_frontend
-from .layers import PSpec, count_template, init_tensor, map_template, norm_apply, norm_template, sinusoidal_embed
-from .transformer import init_cache, not_ported, stack_apply, stack_template
+from .layers import (PSpec, count_template, init_tensor, map_template, norm_apply, norm_template, sinusoidal_embed,
+                     template_leaves)
+from .transformer import group_layout, init_cache, n_groups, stack_apply, stack_template
 
 
 def model_template(cfg: ArchConfig) -> Dict[str, Any]:
     D, V = cfg.d_model, cfg.vocab
     t: Dict[str, Any] = {}
     if not uses_stub_frontend(cfg):
-        t["embed"] = PSpec((V, D), init="embed", scale=0.02)
+        t["embed"] = PSpec((V, D), ("vocab", "embed"), init="embed", scale=0.02)
     t["stack"] = stack_template(cfg)
     t["final_norm"] = norm_template(cfg)
     if uses_stub_frontend(cfg) or not cfg.tie_embeddings:
-        t["lm_head"] = PSpec((D, V))
+        t["lm_head"] = PSpec((D, V), ("embed", "vocab"))
     return t
 
 
 def param_counts(cfg: ArchConfig) -> Dict[str, int]:
-    """Exact N from the template (no allocation).  Dense layers only: every
-    parameter is active."""
+    """Exact N from the template (no allocation).  A token runs top_k of
+    the n_experts experts, so the active count takes top_k / n_experts of
+    every leaf with an ``experts`` axis."""
     t = model_template(cfg)
     total = count_template(t)
     embed = count_template(t["embed"]) if "embed" in t else 0
+    expert_total = expert_active = 0
+    for s in template_leaves(t):
+        if "experts" in s.logical:
+            n = math.prod(s.shape)
+            expert_total += n
+            expert_active += (n // cfg.n_experts) * cfg.top_k
+    active = total - expert_total + expert_active
     return {
         "total": total,
-        "active": total,
+        "active": active,
         "embed": embed,
-        "active_nonembed": total - embed,
+        "active_nonembed": active - embed,
         "total_nonembed": total - embed,
     }
 
@@ -89,10 +100,14 @@ class ParamTree(nn.Module):
         return key in self._parameters or key in self._modules
 
 
-def _cast_at_load(cfg: ArchConfig, t: torch.Tensor) -> torch.Tensor:
-    if t.is_floating_point() and t.dim() >= 2:
+def _cast_at_load(cfg: ArchConfig, t: torch.Tensor, path: str) -> torch.Tensor:
+    """``cast_for_forward``'s rule: >= 2-D floats to the compute dtype, but
+    never a leaf under ``router``."""
+    if not t.is_floating_point():
+        return t
+    if t.dim() >= 2 and "router" not in path.split("/"):
         return t.to(cfg.compute_dtype)
-    return t.to(cfg.param_dtype) if t.is_floating_point() else t
+    return t.to(cfg.param_dtype)
 
 
 class Model(nn.Module):
@@ -146,6 +161,12 @@ class Model(nn.Module):
         cache_pos=None,
     ):
         """Returns (hidden (B, S, D), cache); the cache is updated in place."""
+        h, cache, _ = self.forward_aux(batch, positions, cache, cache_pos)
+        return h, cache
+
+    def forward_aux(self, batch: Dict[str, torch.Tensor], positions=None, cache=None, cache_pos=None):
+        """``forward`` that also returns the summed MoE aux loss, as the JAX
+        package's ``forward`` does: (hidden, cache, aux)."""
         x0 = batch["embeds"] if "embeds" in batch else batch["tokens"]
         B, S = x0.shape[0], x0.shape[1]
         if positions is None:
@@ -156,8 +177,8 @@ class Model(nn.Module):
                 positions = positions + cache_pos
             positions = positions.expand(B, S)
         h = self.embed_batch(batch, positions)
-        h = stack_apply(self.cfg, self.params["stack"]["groups"], h, positions, cache, cache_pos)
-        return norm_apply(self.cfg, self.params["final_norm"], h), cache
+        h, aux = stack_apply(self.cfg, self.params["stack"], h, positions, cache, cache_pos)
+        return norm_apply(self.cfg, self.params["final_norm"], h), cache, aux
 
     def chunked_xent(self, h: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-entropy over sequence chunks of ``cfg.loss_chunk``, so the
@@ -179,9 +200,17 @@ class Model(nn.Module):
         return tot / n, acc.float() / n
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        h, _ = self.forward(batch)
+        cfg = self.cfg
+        h, _, aux = self.forward_aux(batch)
         loss, acc = self.chunked_xent(h, batch["labels"])
-        return loss, {"xent": loss, "accuracy": acc, "loss": loss}
+        metrics = {"xent": loss, "accuracy": acc}
+        if cfg.is_moe:
+            n_moe = sum(1 for d in group_layout(cfg) if d.moe) * n_groups(cfg)
+            aux = cfg.moe_aux_weight * aux / max(n_moe, 1)
+            metrics["moe_aux"] = aux
+            loss = loss + aux
+        metrics["loss"] = loss
+        return loss, metrics
 
     def prefill(self, batch: Dict[str, torch.Tensor], cache):
         """Run the prompt filling ``cache`` from position 0.  Returns
@@ -209,7 +238,7 @@ def _load(cfg: ArchConfig, template, params, device, path: str = ""):
         t = torch.as_tensor(params)
         if tuple(t.shape) != template.shape:
             raise ValueError(f"parameter {path}: shape {tuple(t.shape)} != template {template.shape}")
-        return _cast_at_load(cfg, t.to(device))
+        return _cast_at_load(cfg, t.to(device), path)
     if isinstance(template, dict):
         return {k: _load(cfg, v, params[k], device, f"{path}/{k}") for k, v in template.items()}
     if len(params) != len(template):
@@ -224,15 +253,13 @@ def build_model(cfg: ArchConfig, params: Optional[Dict[str, Any]] = None, *, see
     (``models/convert.py`` makes one from the JAX package's); without it
     the weights are drawn by the JAX package's init rules from a
     ``torch.Generator`` seeded with ``seed``, on the device, each leaf cast
-    as soon as it is drawn.  Raises ``NotImplementedError`` for the
-    families whose layers are not ported yet (ROADMAP A11)."""
-    if uses_stub_frontend(cfg):
-        raise not_ported(cfg, f"the {cfg.frontend} stub frontend")
-    template = model_template(cfg)  # raises for MoE, RWKV and hybrid layouts
+    as soon as it is drawn."""
+    template = model_template(cfg)
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = map_template(template, lambda s: _cast_at_load(cfg, init_tensor(s, gen, cfg.param_dtype, dev)))
+        params = map_template(template, lambda s, path: _cast_at_load(cfg, init_tensor(s, gen, cfg.param_dtype, dev),
+                                                                        path))
     else:
         params = _load(cfg, template, params, dev)
     return Model(cfg, params)

@@ -1,0 +1,153 @@
+"""Mixture-of-Experts layer: top-k router and two single-device dispatch
+strategies (the JAX package's ``models/moe.py``).
+
+``gather`` (the default): capacity-bounded scatter/gather permutation,
+           O(T·k·D) data movement, linear in tokens.
+``dense``  : Mesh-TF style one-hot dispatch products, O(T·E·C) FLOPs, kept
+           as the naive baseline.
+
+The router computes fp32 logits from fp32 operands (its weights stay in
+``cfg.param_dtype`` at load: ``models/model.py``), applies softmax after
+top-k (the Switch convention) and returns the Switch load-balancing loss,
+which the caller weights.
+
+Top-k ties: ``jax.lax.top_k`` puts the lower expert index first.  The port
+takes the first k of a stable descending sort, which orders ties the same
+way.  The order matters: a token's slot in its expert's buffer is a
+cumulative count over the flattened (T·k) assignments, so another order
+would move tokens across the capacity cut.
+
+Not ported here: the JAX package's ``MoeCtx`` and ``_moe_ep`` (expert
+parallelism under ``shard_map``), which are multi-chip (ROADMAP A12).
+The expert products are batched matrix products, as the reference's XLA
+einsums are; no hand-written kernel is involved.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from .layers import PSpec, _gelu
+
+
+def moe_template(cfg: ArchConfig) -> Dict[str, PSpec]:
+    D, F_, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    t = {
+        "router": PSpec((D, E), (None, None), scale=0.1),
+        "wi": PSpec((E, D, F_), ("experts", "embed", "mlp")),
+        "wo": PSpec((E, F_, D), ("experts", "mlp", "embed")),
+    }
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        t["wg"] = PSpec((E, D, F_), ("experts", "embed", "mlp"))
+    if cfg.shared_expert:
+        t["shared_wi"] = PSpec((D, F_), ("embed", "mlp"))
+        t["shared_wg"] = PSpec((D, F_), ("embed", "mlp"))
+        t["shared_wo"] = PSpec((F_, D), ("mlp", "embed"))
+    return t
+
+
+def _act(cfg: ArchConfig, up: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        fn = F.silu if cfg.mlp_type == "swiglu" else _gelu
+        return fn(gate.float()).to(up.dtype) * up
+    if cfg.mlp_type == "relu2":
+        return F.relu(up.float()).square().to(up.dtype)
+    return _gelu(up.float()).to(up.dtype)
+
+
+def _expert_ffn(cfg: ArchConfig, wi, wg, wo, h: torch.Tensor) -> torch.Tensor:
+    """h: (E, C, D) -> (E, C, D), one batched product over the experts."""
+    up = torch.bmm(h, wi.to(h.dtype))
+    g = torch.bmm(h, wg.to(h.dtype)) if wg is not None else None
+    return torch.bmm(_act(cfg, up, g), wo.to(h.dtype))
+
+
+def _router(cfg: ArchConfig, router_w: torch.Tensor, xf: torch.Tensor):
+    """xf: (T, D).  Returns (gates (T, k) fp32, idx (T, k), aux loss)."""
+    logits = xf.float() @ router_w.float()
+    gates_all = torch.softmax(logits, dim=-1)
+    top_vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top_vals, idx = top_vals[:, : cfg.top_k], idx[:, : cfg.top_k]
+    gates = torch.softmax(top_vals, dim=-1)  # renormalised over the selected
+    # load-balance aux (Switch): E * sum_e f_e * P_e, f by top-1 assignment
+    E = cfg.n_experts
+    f = F.one_hot(idx[:, 0], E).float().mean(0)
+    aux = E * (f * gates_all.mean(0)).sum()
+    return gates, idx, aux
+
+
+def _capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    return max(1, int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+
+
+def _slots(cfg: ArchConfig, idx: torch.Tensor, C: int) -> torch.Tensor:
+    """The buffer row of every (token, k) assignment, in the flattened
+    (T·k) order: expert e's n-th assignment goes to row e·C + n while
+    n < C; the rest go to the overflow row E·C (dropped).  The running
+    count is the reference's cumulative sum of one-hots, taken along the
+    inner dimension of the (E, T·k) transpose: on the card a scan along
+    the outer dimension of (T·k, E) is two orders of magnitude slower."""
+    E = cfg.n_experts
+    flat_e = idx.reshape(-1)
+    pos_in_e = torch.cumsum(F.one_hot(flat_e, E).T.contiguous(), dim=1) - 1  # (E, T*k): 0-based slot
+    pos = pos_in_e.gather(0, flat_e[None])[0]
+    return torch.where(pos < C, flat_e * C + pos, E * C)
+
+
+def _gather_dispatch(cfg: ArchConfig, p, xf, gates, idx, C):
+    """Permutation dispatch: scatter tokens to (E, C) slots, gather back.
+    The buffer has one real overflow row, sliced off before the experts
+    run, so duplicate writes to it are harmless."""
+    T, D = xf.shape
+    E, k = cfg.n_experts, cfg.top_k
+    gated = cfg.mlp_type in ("swiglu", "geglu")
+    dest = _slots(cfg, idx, C)
+    src = xf.repeat_interleave(k, dim=0) if k > 1 else xf
+    buf = torch.zeros(E * C + 1, D, dtype=xf.dtype, device=xf.device)
+    buf.index_copy_(0, dest, src)
+    h = _expert_ffn(cfg, p["wi"], p["wg"] if gated else None, p["wo"], buf[: E * C].reshape(E, C, D))
+    hflat = torch.cat([h.reshape(E * C, D), h.new_zeros(1, D)])
+    back = hflat[dest] * gates.reshape(-1)[:, None].to(h.dtype)  # (T*k, D)
+    return back.reshape(T, k, D).sum(1)
+
+
+def _dense_dispatch(cfg: ArchConfig, p, xf, gates, idx, C):
+    """One-hot dispatch products (the naive baseline); the one-hots and
+    their cumulative sum in ``xf``'s dtype, as the reference builds them."""
+    T, D = xf.shape
+    E, k = cfg.n_experts, cfg.top_k
+    gated = cfg.mlp_type in ("swiglu", "geglu")
+    onehot = F.one_hot(idx, E).to(xf.dtype)  # (T, k, E)
+    cum = torch.cumsum(onehot.reshape(T * k, E), dim=0).reshape(T, k, E)
+    slot = ((cum - onehot) * onehot).sum(-1)  # (T, k): 0-based slot id
+    slot_oh = (slot[..., None] == torch.arange(C, device=xf.device, dtype=slot.dtype)).to(xf.dtype)
+    slot_oh = slot_oh * (slot < C)[..., None].to(xf.dtype) * onehot.sum(-1, keepdim=True)
+    disp = torch.einsum("tke,tkc->ect", onehot, slot_oh)
+    h_in = torch.einsum("ect,td->ecd", disp, xf)
+    h = _expert_ffn(cfg, p["wi"], p["wg"] if gated else None, p["wo"], h_in)
+    comb = torch.einsum("tke,tkc,tk->ect", onehot, slot_oh, gates.to(xf.dtype))
+    return torch.einsum("ect,ecd->td", comb, h)
+
+
+def _shared_expert(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    up = x @ p["shared_wi"].to(x.dtype)
+    g = x @ p["shared_wg"].to(x.dtype)
+    up = F.silu(g.float()).to(x.dtype) * up
+    return up @ p["shared_wo"].to(x.dtype)
+
+
+def moe_apply(cfg: ArchConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux loss)."""
+    B, S, D = x.shape
+    xf = x.reshape(B * S, D)
+    gates, idx, aux = _router(cfg, p["router"], xf)
+    C = _capacity(cfg, B * S)
+    dispatch = _dense_dispatch if cfg.moe_dispatch == "dense" else _gather_dispatch
+    out = dispatch(cfg, p, xf, gates, idx, C).reshape(B, S, D)
+    if cfg.shared_expert:
+        out = out + _shared_expert(cfg, p, x)
+    return out, aux

@@ -1,69 +1,78 @@
-"""Decoder-stack assembly for attention layers (the JAX package's
+"""Decoder-stack assembly: heterogeneous layer groups (the JAX package's
 ``models/transformer.py``).
 
 Every architecture is a repeating **group** of layers:
 
     dense / audio / vlm     group = 1 attention layer
     gemma3 (5 local:1 glob) group = 6 attention layers w/ static windows
+    llama4  (interleaved)   group = [dense-MLP layer, MoE layer]
+    granite (all-MoE)       group = 1 MoE layer
+    rwkv6                   group = 1 RWKV block (time-mix + channel-mix)
+    zamba2 (hybrid)         group = 6 Mamba2 layers + ONE shared attn+MLP
+                            block (weights shared across groups)
 
-Static facts (kind, window size) live in ``LayerDesc``.  The
+Static facts (kind, window size, MoE or dense) live in ``LayerDesc``.  The
 JAX package scans the groups with ``lax.scan`` over parameters stacked on a
 leading ``n_groups`` axis; the port loops over a list of groups (an
-``nn.ModuleList`` in the model), each holding its own layers.  The KV cache
-keeps the JAX tree and its leading ``n_groups`` axis,
-``{"layers": [{"k": (G, B, Smax, Hkv, hd), "v": ...}, ...]}`` (one entry per
-layer of the group), so a slot scatter and the tests compare like with
-like; group ``g`` reads and writes its slice ``[g]`` in place.
+``nn.ModuleList`` in the model), each holding its own layers, and zamba2's
+shared block is one unstacked tree beside them (``stack/shared``).
+
+The cache keeps the JAX tree and its leading ``n_groups`` axis:
+``{"layers": [per layer of a group: {"k", "v"} | {"wkv", "shift_tm",
+"shift_cm"} | {"ssm", "conv_x", "conv_b", "conv_c"}], "shared": {"k", "v"}}``
+(``shared`` for zamba2 only: the shared block runs once a group, so it
+has a KV cache a group).  Group ``g`` reads and writes its slice ``[g]``
+in place: attention writes its K/V rows into the slice, and a recurrent
+layer's new state is copied into it.
 
 Not ported, by design: ``remat`` and ``scan_layers`` (rematerialisation
 and the compiled scan are JAX training mechanisms; the port runs eagerly,
 forward only), ``cast_in_scan`` and ``MoeCtx``'s sharding anchors
-(multi-chip layouts).  Not ported yet (ROADMAP A11): MoE layers, RWKV and
-Mamba2 blocks and zamba2's shared block; ``group_layout`` raises for them.
+(multi-chip layouts, ROADMAP A12).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
 from .attention import attention_apply, attention_template, init_kv_cache
 from .layers import mlp_apply, mlp_template, norm_apply, norm_template
-
-A11_LEFT = "moe.py, ssm.py, rwkv.py and frontend.py"
-
-
-def not_ported(cfg: ArchConfig, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: {what} is not ported to repro_torch yet "
-        f"(ROADMAP A11 still holds {A11_LEFT}); the dense family runs"
-    )
+from .moe import moe_apply, moe_template
+from .rwkv import rwkv_block_apply, rwkv_cache_shape, rwkv_template
+from .ssm import mamba_apply, mamba_cache_shape, mamba_template
 
 
 @dataclass(frozen=True)
 class LayerDesc:
-    kind: str  # 'attn' (the only kind ported)
-    window: int = 0  # sliding window (0 = global)
+    kind: str  # 'attn' | 'rwkv' | 'mamba'
+    window: int = 0  # sliding window (0 = global) for attn layers
+    moe: bool = False  # MoE MLP instead of dense MLP
+
+
+SHARED = LayerDesc("attn")  # zamba2's shared block: a global attention layer with a dense MLP
 
 
 def group_layout(cfg: ArchConfig) -> List[LayerDesc]:
     """The static per-layer plan of one group."""
     if cfg.family == "rwkv":
-        raise not_ported(cfg, "the RWKV6 block")
+        return [LayerDesc("rwkv")]
     if cfg.family == "hybrid":
-        raise not_ported(cfg, "the Mamba2 layer and zamba2's shared block")
-    if cfg.is_moe:
-        raise not_ported(cfg, "the MoE layer")
+        return [LayerDesc("mamba") for _ in range(cfg.hybrid_attn_every or cfg.n_layers)]
     if cfg.local_per_global > 0:
         g = cfg.local_per_global + 1
         return [
-            LayerDesc("attn", window=cfg.local_window if i < cfg.local_per_global else 0)
+            LayerDesc("attn", window=cfg.local_window if i < cfg.local_per_global else 0, moe=cfg.is_moe)
             for i in range(g)
         ]
-    return [LayerDesc("attn")]
+    if cfg.is_moe and cfg.moe_interleave > 1:
+        # llama4-style: dense layer then routed layer, repeating
+        return [LayerDesc("attn", moe=(i % cfg.moe_interleave == cfg.moe_interleave - 1))
+                for i in range(cfg.moe_interleave)]
+    return [LayerDesc("attn", moe=cfg.is_moe)]
 
 
 def n_groups(cfg: ArchConfig) -> int:
@@ -75,35 +84,75 @@ def n_groups(cfg: ArchConfig) -> int:
     return cfg.n_layers // len(layout)
 
 
+def has_shared_block(cfg: ArchConfig) -> bool:
+    return cfg.family == "hybrid" and cfg.hybrid_attn_every > 0
+
+
 # --------------------------------------------------------------------------
 # templates
 # --------------------------------------------------------------------------
-def _layer_template(cfg: ArchConfig) -> Dict[str, Any]:
+def _layer_template(cfg: ArchConfig, desc: LayerDesc) -> Dict[str, Any]:
+    if desc.kind == "rwkv":
+        return rwkv_template(cfg)
+    if desc.kind == "mamba":
+        return {"ln1": norm_template(cfg), "mamba": mamba_template(cfg)}
     return {
         "ln1": norm_template(cfg),
         "attn": attention_template(cfg),
         "ln2": norm_template(cfg),
-        "mlp": mlp_template(cfg),
+        "mlp": moe_template(cfg) if desc.moe else mlp_template(cfg),
     }
 
 
+def shared_block_template(cfg: ArchConfig) -> Dict[str, Any]:
+    """zamba2's shared attention+MLP block (one copy, run once a group)."""
+    return _layer_template(cfg, SHARED)
+
+
 def group_template(cfg: ArchConfig) -> Dict[str, Any]:
-    return {"layers": [_layer_template(cfg) for _ in group_layout(cfg)]}
+    return {"layers": [_layer_template(cfg, d) for d in group_layout(cfg)]}
 
 
 def stack_template(cfg: ArchConfig) -> Dict[str, Any]:
-    """The decoder's template: one group template per group."""
-    return {"groups": [group_template(cfg) for _ in range(n_groups(cfg))]}
+    """The decoder's template: one group template per group, and the
+    shared block where the family has one."""
+    t: Dict[str, Any] = {"groups": [group_template(cfg) for _ in range(n_groups(cfg))]}
+    if has_shared_block(cfg):
+        t["shared"] = shared_block_template(cfg)
+    return t
 
 
 # --------------------------------------------------------------------------
 # caches
 # --------------------------------------------------------------------------
+def _layer_cache(cfg: ArchConfig, desc: LayerDesc, batch: int, max_seq: int, G: int, device):
+    """One layer's decode state for all G groups: name -> zeros (G, ...)."""
+    if desc.kind == "attn":
+        return init_kv_cache(cfg, batch, max_seq, G, cfg.cache_dtype, device)
+    if desc.kind == "rwkv":
+        shapes, fp32 = rwkv_cache_shape(cfg, batch), ("wkv",)
+    else:
+        shapes, fp32 = mamba_cache_shape(cfg, batch), ("ssm",)
+    return {k: torch.zeros((G,) + s, dtype=torch.float32 if k in fp32 else cfg.cache_dtype, device=device)
+            for k, s in shapes.items()}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None):
-    """The whole stack's KV cache: one entry per layer of a group, every
-    leaf with a leading ``n_groups`` dim."""
+    """The whole stack's decode state: one entry per layer of a group (and
+    the shared block's KV, a group each), every leaf with a leading
+    ``n_groups`` dim; recurrent states in fp32, the rest in
+    ``cfg.cache_dtype``."""
     G = n_groups(cfg)
-    return {"layers": [init_kv_cache(cfg, batch, max_seq, G, cfg.cache_dtype, device) for _ in group_layout(cfg)]}
+    cache: Dict[str, Any] = {"layers": [_layer_cache(cfg, d, batch, max_seq, G, device)
+                                        for d in group_layout(cfg)]}
+    if has_shared_block(cfg):
+        cache["shared"] = init_kv_cache(cfg, batch, max_seq, G, cfg.cache_dtype, device)
+    return cache
+
+
+def cache_leaves(cache) -> List[torch.Tensor]:
+    """Every leaf of a cache, layout (G, B, ...)."""
+    return [t for c in cache["layers"] + [cache.get("shared", {})] for t in c.values()]
 
 
 # --------------------------------------------------------------------------
@@ -117,33 +166,61 @@ def _layer_apply(
     positions: torch.Tensor,
     cache: Optional[Dict[str, torch.Tensor]],
     cache_pos,
+    aux: Optional[List[torch.Tensor]] = None,
 ) -> torch.Tensor:
+    """One layer; ``cache`` (this group's slice of the layer's state) is
+    updated in place.  An MoE layer appends its aux loss to ``aux`` when
+    the caller passes a list."""
+    if desc.kind in ("rwkv", "mamba"):
+        if desc.kind == "rwkv":
+            x, new = rwkv_block_apply(cfg, p, x, cache)
+        else:
+            h, new = mamba_apply(cfg, p["mamba"], norm_apply(cfg, p["ln1"], x), cache)
+            x = x + h
+        if cache is not None:
+            for k, t in new.items():
+                cache[k].copy_(t)
+        return x
     h, _ = attention_apply(
         cfg, p["attn"], norm_apply(cfg, p["ln1"], x), positions,
         window=desc.window, cache=cache, cache_pos=cache_pos,
     )
     x = x + h
-    return x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
+    h2 = norm_apply(cfg, p["ln2"], x)
+    if desc.moe:
+        out, a = moe_apply(cfg, p["mlp"], h2)
+        if aux is not None:
+            aux.append(a)
+        return x + out
+    return x + mlp_apply(cfg, p["mlp"], h2)
 
 
-def _group_apply(cfg: ArchConfig, layout: List[LayerDesc], p_group, x, positions, cache, g: int,
-                 cache_pos) -> torch.Tensor:
-    for i, desc in enumerate(layout):
-        c_i = None if cache is None else {k: t[g] for k, t in cache["layers"][i].items()}
-        x = _layer_apply(cfg, desc, p_group["layers"][i], x, positions, c_i, cache_pos)
-    return x
+def _slice(cache, g: int):
+    return None if cache is None else {k: t[g] for k, t in cache.items()}
 
 
 def stack_apply(
     cfg: ArchConfig,
-    groups,
+    stack,
     x: torch.Tensor,  # (B, S, D) embedded input
     positions: torch.Tensor,  # (B, S)
     cache: Optional[Dict[str, Any]] = None,
     cache_pos=None,
-) -> torch.Tensor:
-    """Run the layer groups in order; the cache (if any) is updated in place."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the layer groups in order, each followed by the shared block
+    where the family has one.  Returns (hidden, the summed MoE aux loss);
+    the cache (if any) is updated in place."""
     layout = group_layout(cfg)
-    for g, p_g in enumerate(groups):
-        x = _group_apply(cfg, layout, p_g, x, positions, cache, g, cache_pos)
-    return x
+    shared = stack["shared"] if has_shared_block(cfg) else None
+    aux: List[torch.Tensor] = []
+    for g, p_g in enumerate(stack["groups"]):
+        for i, desc in enumerate(layout):
+            c_i = None if cache is None else _slice(cache["layers"][i], g)
+            x = _layer_apply(cfg, desc, p_g["layers"][i], x, positions, c_i, cache_pos, aux)
+        if shared is not None:
+            c_s = None if cache is None else _slice(cache["shared"], g)
+            x = _layer_apply(cfg, SHARED, shared, x, positions, c_s, cache_pos)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in aux:
+        total = total + a
+    return x, total

@@ -18,6 +18,13 @@ decode once; the port runs them eagerly.  Greedy sampling is an argmax.
 Temperature and top-k sampling draw from the engine's own
 ``torch.Generator`` seeded from ``EngineConfig.seed``: the same schedule,
 but not ``jax.random``'s draws.
+
+Stub-frontend families (``[audio]``/``[vlm]``) take a prompt of (S, D)
+frame/patch embeddings and decode each sampled token id through a fixed
+(vocab, D) table (``models/frontend.py`` ``stub_token_table``); the
+caller may pass that table's standard normal draw as ``stub_table``.  The
+JAX engine casts every prompt to int32 before its prefill, which truncates
+such embeddings; the port keeps their values (``DESIGN.md``).
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.data import resolve_device
+from ..models.frontend import stub_token_table, uses_stub_frontend
 from ..models.model import Model
-from ..models.transformer import not_ported
+from ..models.transformer import cache_leaves
 
 
 @dataclass
@@ -48,7 +56,7 @@ class EngineConfig:
 @dataclass
 class Request:
     rid: int
-    prompt: np.ndarray  # (S,) int tokens
+    prompt: np.ndarray  # (S,) int tokens ((S, D) float embeds for stub-frontend archs)
     max_new_tokens: int = 16
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
@@ -59,9 +67,10 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, model: Model, ecfg: Optional[EngineConfig] = None, *,
-                 device=None):
+                 device=None, stub_table=None):
         """``model`` runs on ``device`` (CUDA unless the caller passes
-        another; raises without it), and must already lie there."""
+        another; raises without it), and must already lie there.
+        ``stub_table``: see the module docstring (stub frontends only)."""
         dev = resolve_device(device)
         if model.device.type != dev.type or dev.index not in (None, model.device.index):
             raise ValueError(f"the model lies on {model.device}, the engine runs on {dev}")
@@ -77,26 +86,29 @@ class ServeEngine:
         self.requests: List[Request] = []
         self.queue: List[Request] = []
         self._gen = torch.Generator(device=self.device).manual_seed(self.ecfg.seed)
+        self.stub = uses_stub_frontend(cfg)
+        self.stub_table = stub_token_table(cfg, self.device, stub_table) if self.stub else None
         self.decode_steps = 0
 
     # -- programs ------------------------------------------------------------
-    def _prefill_fn(self, prompt_tokens: torch.Tensor):
-        """prompt_tokens (1, S) -> (last-token logits (1, V), a fresh
-        one-row cache holding the prompt)."""
+    def _prefill_fn(self, prompt: torch.Tensor):
+        """prompt (1, S) tokens or (1, S, D) embeds -> (last-token logits
+        (1, V), a fresh one-row cache holding the prompt)."""
         cache = self.model.init_cache(1, self.ecfg.max_seq)
-        return self.model.prefill({"tokens": prompt_tokens}, cache)
+        return self.model.prefill({"embeds" if self.stub else "tokens": prompt}, cache)
 
     def _scatter_fn(self, one, slot: int) -> None:
         # every cache leaf has layout (G, B, ...): the batch lane is axis 1
-        for pool, new in zip(self.cache["layers"], one["layers"]):
-            for k in pool:
-                pool[k][:, slot] = new[k][:, 0]
+        for pool, new in zip(cache_leaves(self.cache), cache_leaves(one)):
+            pool[:, slot] = new[:, 0]
 
     def _decode_fn(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """tokens (B,), pos (B,) -> next tokens (B,); the cache in place."""
-        if self.cfg.frontend:
-            raise not_ported(self.cfg, "decoding through a stub frontend")
-        logits, self.cache = self.model.decode_step(self.cache, {"tokens": tokens[:, None]}, pos)
+        if self.stub:  # a sampled id enters through its fixed embedding
+            batch = {"embeds": self.stub_table[tokens][:, None].to(self.cfg.compute_dtype)}
+        else:
+            batch = {"tokens": tokens[:, None]}
+        logits, self.cache = self.model.decode_step(self.cache, batch, pos)
         e = self.ecfg
         if e.temperature <= 0.0:
             return logits.argmax(-1)
@@ -127,8 +139,11 @@ class ServeEngine:
             if S + req.max_new_tokens > self.ecfg.max_seq:
                 raise ValueError(f"request {req.rid}: prompt {S} + {req.max_new_tokens} new tokens "
                                  f"exceed max_seq {self.ecfg.max_seq}")
-            toks = torch.as_tensor(np.asarray(req.prompt, dtype=np.int64)[None], device=self.device)
-            logits, one_cache = self._prefill_fn(toks)
+            if self.stub:
+                prompt = torch.as_tensor(np.asarray(req.prompt, dtype=np.float32)[None], device=self.device)
+            else:
+                prompt = torch.as_tensor(np.asarray(req.prompt, dtype=np.int64)[None], device=self.device)
+            logits, one_cache = self._prefill_fn(prompt)
             self._scatter_fn(one_cache, slot)
             tok = self._sample_host(logits)
             self.slot_req[slot] = req

@@ -1,9 +1,18 @@
 """The port's ServeEngine on the CPU: copies of tests/test_moe_serving.py's
 engine tests, and the JAX ServeEngine's greedy tokens and decode-step count
 reproduced exactly on the same parameters (carried across by
-``params_from_jax``) and prompts.  Sampled tokens cannot match
-``jax.random``'s draws, so sampling is checked by validity: every decoded
-token lies in its step's top-k set."""
+``params_from_jax``) and prompts, for the dense, MoE, RWKV6, hybrid and
+stub-frontend families.  Sampled tokens cannot match ``jax.random``'s
+draws, so sampling is checked by validity: every decoded token lies in its
+step's top-k set.
+
+A stub-frontend prompt is (S, D) frame embeddings, and a decoded token
+enters through the stub table, whose standard normal draw the test takes
+from ``jax.random`` (the JAX engine's ``PRNGKey(7)``) and passes to the
+port.  The JAX engine casts every prompt to int32 before its prefill, which
+truncates float embeddings; the port keeps their values, so the prompts
+here are integer-valued embeddings, on which both compute the same
+function."""
 
 import dataclasses
 
@@ -43,7 +52,7 @@ def _port_model(name, n_kv=None):
     return cfg, params_from_jax(cfg, tree, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["starcoder2-7b", "gemma3-12b"])
+@pytest.mark.parametrize("name", ["starcoder2-7b", "gemma3-12b", "rwkv6-3b"])
 def test_engine_generates(name):
     cfg = ARCHS[name].reduced()
     m = build_model(cfg, device="cpu")
@@ -89,16 +98,27 @@ def test_engine_continuous_batching_slot_reuse():
     assert eng.decode_steps == 3 * 2
 
 
-@pytest.mark.parametrize("name,n_kv", [("starcoder2-7b", None), ("starcoder2-7b", 2), ("gemma3-12b", None)])
+def _prompt(cfg, rng, n):
+    """n prompt tokens, or n integer-valued frame embeddings (values -1, 0
+    and 1) for a stub frontend."""
+    if cfg.frontend:
+        return rng.integers(-1, 2, size=(n, cfg.d_model)).astype(np.float32)
+    return rng.integers(0, cfg.vocab, size=n)
+
+
+@pytest.mark.parametrize("name,n_kv", [("starcoder2-7b", None), ("starcoder2-7b", 2), ("gemma3-12b", None),
+                                       ("rwkv6-3b", None), ("granite-moe-1b-a400m", None), ("zamba2-2.7b", None),
+                                       ("musicgen-large", None)])
 def test_engine_greedy_matches_jax_engine(name, n_kv):
     """Five requests of three prompt lengths over two slots: the port's
     tokens, per request, and decode-step count equal the JAX engine's."""
     jcfg, params, _ = _jax_params(name, n_kv)
     cfg, m = _port_model(name, n_kv)
     rng = np.random.default_rng(3)
-    specs = [(rng.integers(0, cfg.vocab, size=n), k) for n, k in ((6, 5), (9, 3), (6, 4), (20, 6), (9, 2))]
+    specs = [(_prompt(cfg, rng, n), k) for n, k in ((6, 5), (9, 3), (6, 4), (20, 6), (9, 2))]
     jeng = JServeEngine(jcfg, params, JEngineConfig(slots=2, max_seq=32))
-    teng = ServeEngine(cfg, m, EngineConfig(slots=2, max_seq=32), device="cpu")
+    table = np.array(jax.random.normal(jax.random.PRNGKey(7), (cfg.vocab, cfg.d_model))) if cfg.frontend else None
+    teng = ServeEngine(cfg, m, EngineConfig(slots=2, max_seq=32), device="cpu", stub_table=table)
     jreqs = [JRequest(rid=i, prompt=p, max_new_tokens=k) for i, (p, k) in enumerate(specs)]
     treqs = [Request(rid=i, prompt=p, max_new_tokens=k) for i, (p, k) in enumerate(specs)]
     for jr, tr in zip(jreqs, treqs):
