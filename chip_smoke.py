@@ -154,6 +154,29 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    granite (at its capacity factor, then at n_experts / top_k, where no
    token drops, for the teacher-forced check), zamba2, rwkv6 and musicgen
    (prompts of frame embeddings, decoding through the stub table).
+8. Training, in a process of its own (``chip_smoke.py --phase 8``, which
+   ``main`` starts before phase 1 touches the card: its 50 GB peak needs
+   the whole card), with
+   no hand-written kernel on this path (``use_pallas`` is off, as in the
+   reference's training, whose ``pallas_call`` has no VJP):
+   starcoder2-7b at its published widths, 8 of its 32 layers, bf16
+   compute with fp32 masters and moments, S = 4096, batch 4, remat
+   ``full``.  8a: a ``Trainer`` for 20 steps from a seeded init on
+   ``warmup_cosine(3e-4, 2, 20)`` with checkpoints every 10 steps into a
+   temporary directory, its step captured into one CUDA graph on the first
+   step and replayed after (compiles 1 then 0, replays 19); the first step's
+   and the median replay's ms, tokens/s, ``model_flops``, MFU, peak memory,
+   the grad norm of every step, the loss falling (the last 5 steps' mean
+   below the first 5's), and one profiled replay (busy, idle share, device
+   time by bf16 GEMMs, the plain attention's fp32 products and softmax,
+   elementwise work and the optimizer).  8b: one step from the seeded
+   state eager, then captured and replayed from the same state: every
+   parameter leaf within 1e-3 relative L2, the loss and grad norm too.
+   8c: ``UTPTrainStep`` fused with two microbatches from that state
+   (compiles 1 then 0), within 1e-3 of 8b's eager step, captured and
+   replayed.  8d: a reduced float32 configuration, the captured step on the
+   card against the same step on the CPU for two steps (rtol 2e-4, atol
+   2e-5).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing it.
@@ -163,6 +186,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2817,9 +2841,526 @@ def nondense_path(torch) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------------
+# Phase 8: the training path
+# --------------------------------------------------------------------------
+TRAIN_LM = "starcoder2-7b"  # published widths, bf16 compute, fp32 masters and moments
+TRAIN_LAYERS = 8  # of 32: masters, gradients and two fp32 moments take 16 bytes a parameter
+TRAIN_SEQ, TRAIN_BATCH = 4096, 4
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10
+TRAIN_LR = (3e-4, 2)  # warmup_cosine(peak, warmup, total=TRAIN_STEPS)
+# no global-norm clip: at the seeded init the gradient's norm grows steeply
+# with depth, in the reference as in the port (tests/test_torch_train.py
+# test_grad_norm_growth_with_depth_is_the_reference; 8.1e8 at 8 layers at
+# this width, nearly all of it the embedding's), so a clip at 1.0 scales every
+# other gradient under Adam's eps and only the embedding moves (PERF.md,
+# section 6)
+TRAIN_CLIP = 0.0
+# one step captured against the same step eager, from one state: the largest
+# relative L2 difference of a parameter leaf (the embedding gradient's
+# atomics are not deterministic, and a bf16 gradient moves with them)
+CAPTURED_TOL = 1e-3
+# Besides the last five steps' mean below the first five's, 8a's loss check
+# is paired: the last five steps' losses against the losses of the seeded
+# init (the same run at lr 0) on the same batches, whose mean must fall by
+# at least LOSS_FALL.  A loss at fixed parameters is the same in the
+# captured step and eager to 0 (8b), so a run that trained nothing falls by
+# 0, where the batches' own spread (0.04 in 20 steps, PERF.md section 6)
+# hides a fall of 0.02 between the first five steps and the last
+LOSS_FALL = 5e-3
+# 8b: the head's backward (bf16 GEMMs on the fp32 gradient split into two
+# bf16 parts) against float64 on the card: relative L2 of each product.  A
+# tenth of the bf16 rounding each product then takes (2**-9 / sqrt(3) =
+# 1.1e-3).  The bf16 GEMMs' own fp32 accumulation over K = 49152 costs
+# about 6e-5, the reference's fp32 contraction 4e-6 (PERF.md, section 6)
+HEAD_GRAD_TOL = 1e-4
+# 8d, card vs CPU.  lr 1e-4: Adam divides each gradient element by its own
+# size plus eps = 1e-8, so an element of ~eps whose fp32 sums differ by a few
+# percent between the devices ends ~lr / 15 apart; at lr 1e-3 one embedding
+# element of 16384 ended 6.7e-5 apart, past atol 2e-5 (PERF.md, section 6)
+TRAIN_F32 = {"arch": "starcoder2-7b", "seq": 32, "batch": 4, "steps": 2, "lr": 1e-4}
+TRAIN_DEVICE = "cuda"
+TRAIN_F32_TOL = {"rtol": 2e-4, "atol": 2e-5}
+
+
+def train_opt_cfg(cfg):
+    from repro_torch import optim
+
+    return optim.AdamWConfig(lr=optim.warmup_cosine(TRAIN_LR[0], warmup=TRAIN_LR[1], total=TRAIN_STEPS),
+                             clip_norm=TRAIN_CLIP, state_dtype=cfg.optim_state_dtype)
+
+
+def train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(TRAIN_LM), n_layers=TRAIN_LAYERS, remat="full", use_pallas=False)
+
+
+def reset_state(torch, cfg, params: dict, opt: dict, seed: int = 0) -> None:
+    """Bring ``params`` and ``opt`` back, in place, to the state a trainer
+    seeded with ``seed`` starts from (the same draws, leaf by leaf, as
+    ``build_model(..., train=True)``), without a second copy on the card."""
+    from repro_torch.models.layers import init_tensor, map_template
+    from repro_torch.models.model import model_template
+
+    gen = torch.Generator(device=params["final_norm.scale"].device).manual_seed(seed)
+
+    def draw(spec, path):
+        p = params[path.strip("/").replace("/", ".")]
+        with torch.no_grad():
+            p.copy_(init_tensor(spec, gen, cfg.param_dtype, p.device))
+
+    map_template(model_template(cfg), draw)
+    for t in list(opt["m"].values()) + list(opt["v"].values()) + [opt["count"]]:
+        t.zero_()
+
+
+def max_leaf_rel(torch, got: dict, want: dict) -> float:
+    """The largest relative L2 difference over the leaves of two flat trees."""
+    worst = 0.0
+    for k, w in want.items():
+        w = w.float()
+        worst = max(worst, ((got[k].float() - w).norm() / w.norm().clamp_min(1e-30)).item())
+    return worst
+
+
+def train_kernel(name: str) -> str:
+    """The group of a device kernel of the training step: the bf16 products
+    (the weight GEMMs and the head: cuBLASLt's ``nvjet`` kernels on the
+    H100), the plain attention's float32 products (FFMA ``f32f32``/``sgemm``
+    kernels: no float32 GEMM outside the attention) and softmax, and the
+    rest (elementwise, reductions, copies; the attention's mask and scale
+    passes over its fp32 scores among them)."""
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "attention" if any(k in low for k in ("f32f32", "sgemm", "simt")) else "gemm"
+    if "softmax" in low:
+        return "attention"
+    return "elementwise"
+
+
+def profiled_train_step(torch, label: str, run, n_opt: int) -> None:
+    """One captured step under the profiler: device busy and idle share,
+    device time by group (``train_kernel``; the last ``n_opt`` kernels in
+    time, the AdamW update's count, as "optimizer"), and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warm_up(torch)
+        t0 = time.perf_counter()
+        run()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and WARMUP_KERNEL not in ev.name),
+                 key=lambda ev: ev.time_range.start)
+    if len(evs) <= n_opt:
+        print(f"{label} profile: {len(evs)} device events recorded (wall_ms={wall_ms:.3f}); device time not measured")
+        return
+    busy, span, _ = device_busy(prof, train_kernel)
+    by, top = {}, {}
+    for i, ev in enumerate(evs):
+        group = "optimizer" if i >= len(evs) - n_opt else train_kernel(ev.name)
+        n, us = by.get(group, (0, 0.0))
+        by[group] = (n + 1, us + ev.time_range.elapsed_us())
+        n, us = top.get(ev.name, (0, 0.0))
+        top[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+    parts = " ".join(f"{k}={v[1] / 1e3:.3f}ms/{v[0]}" for k, v in sorted(by.items()))
+    print(f"{label} profile (profiler on): wall_ms={wall_ms:.3f} host_dispatch_ms={host_ms:.3f} "
+          f"device_span_ms={span / 1e3:.3f} device_busy_ms={busy / 1e3:.3f} "
+          f"idle_share_of_span={1 - busy / span:.3f} kernels={len(evs)} by_group: {parts}")
+    for name, (n, us) in sorted(top.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"{label} kernel {us / 1e3:.3f}ms/{n} [{train_kernel(name)}] {name[:150]}")
+
+
+def optimizer_kernels(torch, params: dict, opt: dict, opt_cfg) -> int:
+    """Kernels one AdamW update launches on the trainer's tree (zero
+    gradients; the state moves, it is not read again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import optim
+
+    grads = {k: torch.zeros_like(p) for k, p in params.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        optim.update(grads, opt, params, opt_cfg)
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+
+
+def trainer_run(torch) -> dict:
+    """8a: ``Trainer`` for TRAIN_STEPS steps from a seeded init on the
+    captured step, checkpoints every TRAIN_CKPT_EVERY into a temporary
+    directory; then a profiled replay."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.models import param_counts
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = train_cfg()
+    shape = ShapeConfig("train_card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt_cfg = train_opt_cfg(cfg)
+    counts = param_counts(cfg)
+    flops = model_flops(cfg, shape)
+    print(f"train {TRAIN_LM}: layers={cfg.n_layers} (of 32) d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv} "
+          f"hd={cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab} compute={cfg.compute_dtype} masters={cfg.param_dtype} "
+          f"moments={opt_cfg.state_dtype} remat={cfg.remat} use_pallas={cfg.use_pallas} clip={opt_cfg.clip_norm} "
+          f"seq={TRAIN_SEQ} "
+          f"batch={TRAIN_BATCH} params={counts['total']} model_flops={flops:.4e}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state_bytes = counts["total"] * (4 + 2 * opt_cfg.state_dtype.itemsize)
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as d:
+        free = shutil.disk_usage(d).free
+        print(f"train checkpoints in {d}: {free / 1e9:.1f} GB free, {state_bytes / 1e9:.1f} GB a checkpoint")
+        trainer = Trainer(cfg, shape, None, TrainerConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=d,
+                                                          log_every=5, seed=0), opt_cfg, device=TRAIN_DEVICE)
+        seen, ckpt_s = [], {"save": 0.0, "wait": 0.0}
+
+        def timed(name, fn):
+            def run(*a, **k):
+                t, waited = time.perf_counter(), ckpt_s["wait"]
+                try:
+                    return fn(*a, **k)
+                finally:  # a save's own time leaves out the wait inside it
+                    ckpt_s[name] += time.perf_counter() - t - (ckpt_s["wait"] - waited if name == "save" else 0)
+            return run
+
+        # the trainer's own checkpoint calls, timed: a save's host copy, and
+        # the waits for the writer thread
+        trainer.ckpt.save = timed("save", trainer.ckpt.save)
+        trainer.ckpt.wait = timed("wait", trainer.ckpt.wait)
+
+        dropped = []
+
+        def on_metrics(step, m):
+            seen.append((trainer.step_fn.compiles, trainer.step_fn.graph_replays))
+            if step == TRAIN_STEPS - 1:  # one checkpoint on disk at a time: the chip tool's disk holds 45 GiB
+                dropped.append(drop_verified_checkpoint(trainer.ckpt, TRAIN_CKPT_EVERY, state_bytes))
+            print(f"train step {step}: loss={m['loss']:.4f} grad_norm={m['grad_norm']:.4f} lr={m['lr']:.3e} "
+                  f"ms={m['step_time_s'] * 1e3:.1f} compiles={seen[-1][0]} graph_replays={seen[-1][1]}")
+
+        t0 = time.perf_counter()
+        out = trainer.train(on_metrics=on_metrics)
+        train_s = time.perf_counter() - t0
+        steps = trainer.ckpt.all_steps()
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in out["metrics"]]
+    times = [m["step_time_s"] for m in out["metrics"]]
+    median_s = float(np.median(times[1:]))
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / median_s
+    mfu = flops / median_s / PEAK_BF16_FLOPS
+    print(f"train result: steps={out['step']} first_step_ms={times[0] * 1e3:.1f} (warm-up + capture) "
+          f"median_replay_step_ms={median_s * 1e3:.1f} tokens_per_s={tokens_s:.1f} model_flops={flops:.4e} "
+          f"mfu={mfu:.4f} peak_memory_GB={peak / 1e9:.2f} train_s={train_s:.2f} checkpoints={steps} "
+          f"checkpoint_GB={ckpt_bytes / 1e9:.2f} checkpoint_save_s={ckpt_s['save']:.2f} "
+          f"checkpoint_wait_s={ckpt_s['wait']:.2f} stragglers={out['stragglers']} failures={out['failures']} "
+          f"loss_first5={np.mean(losses[:5]):.4f} loss_last5={np.mean(losses[-5:]):.4f}")
+    if out["step"] != TRAIN_STEPS or out["failures"]:
+        raise AssertionError(f"train: stopped at step {out['step']} with {out['failures']} failures")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite losses {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    if seen[0] != (1, 0) or seen[-1] != (1, TRAIN_STEPS - 1):
+        raise AssertionError(f"train: (compiles, graph replays) {seen[0]} after step 1 and {seen[-1]} at the end, "
+                             f"expected (1, 0) and (1, {TRAIN_STEPS - 1})")
+    if dropped != [TRAIN_CKPT_EVERY] or steps != [TRAIN_STEPS]:
+        raise AssertionError(f"train: checkpoint {dropped} verified and dropped, {steps} left")
+    params, opt = out["params"], out["opt_state"]
+    batch = next(trainer._batches(TRAIN_STEPS))
+    step_fn, ds = trainer.step_fn, trainer.dataset
+    del trainer, out
+    n_opt = optimizer_kernels(torch, params, opt, opt_cfg)
+    profiled_train_step(torch, "train replay", lambda: step_fn(params, opt, batch), n_opt)
+    del step_fn
+    lr0 = losses_at_init(torch, cfg, params, opt, ds, TRAIN_STEPS - 5)
+    fall = np.asarray(lr0) - np.asarray(losses[-5:])
+    print(f"train loss: last five steps {np.round(losses[-5:], 6).tolist()} against the seeded init (lr 0) on the "
+          f"same batches {np.round(lr0, 6).tolist()}: fall mean={fall.mean():.6f} min={fall.min():.6f} "
+          f"(first five steps' mean {np.mean(losses[:5]):.6f}, last five's {np.mean(losses[-5:]):.6f})")
+    if not fall.mean() >= LOSS_FALL:
+        raise AssertionError(f"train: the loss did not fall against lr 0 on the same batches: {fall.tolist()}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return {"first_step_ms": times[0] * 1e3, "median_step_ms": median_s * 1e3, "tokens_per_s": tokens_s,
+            "model_flops": flops, "mfu": mfu, "peak_memory_bytes": peak, "losses": losses, "loss_fall": fall.tolist()}
+
+
+def drop_verified_checkpoint(ckpt, step: int, state_bytes: int) -> int:
+    """Wait for ``step``'s checkpoint, check that it is whole (its meta
+    names every leaf and its arrays hold the state's bytes), and delete it:
+    the next one then has the disk to itself.  Returns ``step``."""
+    import json
+    import shutil
+
+    ckpt.wait()
+    d = ckpt.dir / f"step_{step:08d}"
+    meta = json.loads((d / "meta.json").read_text())
+    size = (d / "arrays.npz").stat().st_size
+    print(f"train checkpoint {step}: {len(meta['keys'])} leaves, {size / 1e9:.2f} GB; deleted before step "
+          f"{step + TRAIN_CKPT_EVERY}'s")
+    if ckpt.all_steps() != [step] or size < state_bytes or set(meta["crc"]) != set(meta["keys"]):
+        raise AssertionError(f"train: checkpoint {step} is not whole: {ckpt.all_steps()}, {size} bytes")
+    shutil.rmtree(d)
+    return step
+
+
+def losses_at_init(torch, cfg, params: dict, opt: dict, ds, start: int) -> list:
+    """The seeded init's loss (``params`` and ``opt`` are put back to it in
+    place) on the trainer's batches (``ds``) of steps ``start + 1 ..
+    TRAIN_STEPS``: the losses the same run at lr 0 reports."""
+    from repro_torch.data import sharded_batches
+    from repro_torch.models import build_model
+
+    reset_state(torch, cfg, params, opt)
+    model = build_model(cfg, device="meta", train=True)
+    batches = sharded_batches(ds, TRAIN_DEVICE, start_index=start)
+    with torch.no_grad():
+        return [float(model.loss_of(params, next(batches))[0]) for _ in range(TRAIN_STEPS - start)]
+
+
+def captured_vs_eager_step(torch) -> tuple:
+    """8b: one step from the seeded state on batch 0 eager (``plan.fn``),
+    then captured (the first call warms up and captures; the state is put
+    back and the second call replays the graph): parameters within
+    CAPTURED_TOL.  Returns (the eager step's parameters, the state
+    tensors, the batch, the dataset) for 8c."""
+    import numpy as np
+
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLMDataset, sharded_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+
+    cfg = train_cfg()
+    shape = ShapeConfig("train_card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt_cfg = train_opt_cfg(cfg)
+    plan = make_train_step(cfg, None, shape, opt_cfg, device=TRAIN_DEVICE)
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0))
+    batch = next(sharded_batches(ds, TRAIN_DEVICE))
+    params = build_model(cfg, seed=0, device=TRAIN_DEVICE, train=True).train_params()
+    opt = optim.init(params, opt_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, m_eager = plan.fn(params, opt, batch)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    eager = {k: v.detach().clone() for k, v in params.items()}  # 8.8 GB, kept on the card for 8c
+    step = plan.jitted()
+    reset_state(torch, cfg, params, opt)
+    t0 = time.perf_counter()
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    reset_state(torch, cfg, params, opt)
+    t0 = time.perf_counter()
+    _, _, m_graph = step(params, opt, batch)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    diff = max_leaf_rel(torch, params, eager)
+    loss_d = abs(float(m_graph["loss"]) - float(m_eager["loss"])) / abs(float(m_eager["loss"]))
+    gn_d = abs(float(m_graph["grad_norm"]) - float(m_eager["grad_norm"])) / abs(float(m_eager["grad_norm"]))
+    print(f"train captured vs eager: eager_step_ms={eager_ms:.1f} first_call_s={capture_s:.2f} (warm-up + capture) "
+          f"replay_step_ms={replay_ms:.1f} graph_replays={step.graph_replays} compiles={step.compiles} "
+          f"max_param_rel_l2={diff:.3e} loss_rel={loss_d:.3e} grad_norm_rel={gn_d:.3e} "
+          f"(eager loss={float(m_eager['loss']):.6f} grad_norm={float(m_eager['grad_norm']):.6f})")
+    if not (step.captured and step.graph_replays == 1 and step.compiles == 1):
+        raise AssertionError("train: the captured step did not replay a graph")
+    if not max(diff, loss_d, gn_d) <= CAPTURED_TOL or not np.isfinite(diff):
+        raise AssertionError(f"train: captured step vs eager {diff:.3e} / {loss_d:.3e} / {gn_d:.3e} > {CAPTURED_TOL}")
+    del step, plan
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    head_backward_check(torch, cfg, params["lm_head"] if "lm_head" in params else params["embed"].t())
+    return eager, params, opt, batch, ds
+
+
+def head_backward_check(torch, cfg, w_master) -> None:
+    """8b: the head's backward on one loss chunk of the main path (h of
+    shape (batch x loss_chunk, d_model) in bf16, the model's head weight in
+    bf16, the fp32 logit gradient softmax - one-hot over the chunk's
+    tokens) against the same products in float64: each within
+    HEAD_GRAD_TOL relative L2.  Also prints how far the reference's
+    arithmetic (the fp32 gradient contracted with the bf16 operands in
+    fp32, no TF32) and the cheaper arithmetic this backward does not use
+    (the gradient rounded to bf16, two GEMMs in place of four) land."""
+    from repro_torch.kernels.ref import fp32_matmul
+    from repro_torch.models.model import bf16_head_grads
+
+    gen = torch.Generator(device=w_master.device).manual_seed(1)
+    n = TRAIN_BATCH * min(cfg.loss_chunk, TRAIN_SEQ)
+    w = w_master.detach().to(cfg.compute_dtype)
+    h = torch.randn(n, cfg.d_model, generator=gen, device=w.device).to(cfg.compute_dtype)
+    labels = torch.randint(0, cfg.vocab, (n,), generator=gen, device=w.device)
+    with fp32_matmul():
+        g = torch.softmax(h.float() @ w.float(), dim=-1)
+    g[torch.arange(n, device=g.device), labels] -= 1
+    g /= n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dh, dw = bf16_head_grads(h, w, g)
+    torch.cuda.synchronize()
+    split_ms = (time.perf_counter() - t0) * 1e3
+    want = (g.double() @ w.double().t(), h.double().t() @ g.double())
+
+    def rel(got):
+        return [((a.double() - b).norm() / b.norm()).item() for a, b in zip(got, want)]
+
+    err = rel((dh, dw))
+    del dh, dw
+    with fp32_matmul():
+        ref = rel((g @ w.float().t(), h.float().t() @ g))
+    gr = g.to(cfg.compute_dtype)
+    rounded = rel((torch.mm(gr, w.t(), out_dtype=torch.float32), torch.mm(h.t(), gr, out_dtype=torch.float32)))
+    print(f"train head backward ({n} x {cfg.d_model} @ {cfg.d_model} x {cfg.vocab}), rel_l2 (dh, dw) against "
+          f"float64: split bf16 GEMMs {err[0]:.3e} {err[1]:.3e} (tol {HEAD_GRAD_TOL}); the fp32 contraction "
+          f"{ref[0]:.3e} {ref[1]:.3e}; the gradient rounded to bf16 first {rounded[0]:.3e} {rounded[1]:.3e}; "
+          f"split_ms={split_ms:.2f}")
+    if not max(err) <= HEAD_GRAD_TOL:
+        raise AssertionError(f"train head backward: {err} > {HEAD_GRAD_TOL}")
+
+
+def utp_fused_steps(torch, eager: dict, params: dict, opt: dict, batch: dict, ds) -> None:
+    """8c: ``UTPTrainStep`` fused, m = 2, from the seeded state: the first
+    call (warm-up and capture) within CAPTURED_TOL of 8b's eager step, two
+    replays on batches 1 and 2 (compiles 1, then 0), and a replay from the
+    seeded state on batch 0 held to 8b's step again."""
+    from repro_torch import optim
+    from repro_torch.data import sharded_batches
+    from repro_torch.models import build_model
+    from repro_torch.train import UTPTrainStep
+
+    cfg = train_cfg()
+    opt_cfg = train_opt_cfg(cfg)
+    model = build_model(cfg, device="meta", train=True)
+    utp = UTPTrainStep(model.value_and_grad, opt_cfg, microbatches=2, executor="fused", device=TRAIN_DEVICE)
+    reset_state(torch, cfg, params, opt)
+    torch.cuda.reset_peak_memory_stats()
+    compiles, diffs, ms = [], [], []
+    batches = sharded_batches(ds, TRAIN_DEVICE, start_index=1)
+    for i, b in enumerate([batch, next(batches), next(batches), batch]):
+        if i == 3:
+            reset_state(torch, cfg, params, opt)
+        before = utp.executor.stats["compiles"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = utp(params, opt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        compiles.append(utp.executor.stats["compiles"] - before)
+        if i in (0, 3):
+            diffs.append(max_leaf_rel(torch, params, eager))
+        print(f"train utp fused m=2 call {i + 1}: ms={ms[-1]:.1f} compiles={compiles[-1]} "
+              f"graph_replays={utp.executor.stats['graph_replays']} loss={float(met['loss']):.4f}")
+    print(f"train utp fused: vs 8b's eager step max_param_rel_l2 first_call={diffs[0]:.3e} replay={diffs[1]:.3e} "
+          f"peak_memory_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    if compiles != [1, 0, 0, 0] or utp.executor.stats["graph_replays"] != 3:
+        raise AssertionError(f"train utp: compiles {compiles}, graph replays {utp.executor.stats['graph_replays']}")
+    if not max(diffs) <= CAPTURED_TOL:
+        raise AssertionError(f"train utp: {diffs} vs the eager step > {CAPTURED_TOL}")
+
+
+def card_vs_cpu(torch) -> None:
+    """8d: a reduced float32 configuration, the same captured step on the
+    card and eager on the CPU from one init over the same batches: every
+    parameter within TRAIN_F32_TOL."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLMDataset, sharded_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+
+    f = TRAIN_F32
+    cfg = dataclasses.replace(get_arch(f["arch"]).reduced(), remat="full")
+    shape = ShapeConfig("train_f32", f["seq"], f["batch"], "train")
+    opt_cfg = optim.AdamWConfig(lr=f["lr"])
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=f["seq"], global_batch=f["batch"], seed=0))
+    init = build_model(cfg, seed=0, device="cpu", train=True).train_params()
+    out = {}
+    for dev in ("cpu", TRAIN_DEVICE):
+        params = {k: v.detach().to(dev, copy=True) for k, v in init.items()}
+        opt = optim.init(params, opt_cfg)
+        step = make_train_step(cfg, None, shape, opt_cfg, device=dev).jitted()
+        for b in [next(sharded_batches(ds, dev, start_index=i)) for i in range(f["steps"])]:
+            params, opt, met = step(params, opt, b)
+        out[dev] = ({k: v.detach().cpu() for k, v in params.items()}, float(met["loss"]), step)
+    worst = max(float(((out[TRAIN_DEVICE][0][k] - v).abs() - TRAIN_F32_TOL["rtol"] * v.abs()).max())
+                for k, v in out["cpu"][0].items())
+    print(f"train card vs cpu ({f['arch']} reduced, float32, {f['steps']} steps): loss card={out[TRAIN_DEVICE][1]:.6f} "
+          f"cpu={out['cpu'][1]:.6f} graph_replays={out[TRAIN_DEVICE][2].graph_replays} "
+          f"worst |diff| - rtol |cpu| = {worst:.3e} (atol {TRAIN_F32_TOL['atol']})")
+    if out[TRAIN_DEVICE][2].graph_replays != f["steps"] - 1:
+        raise AssertionError("train card vs cpu: the card's step did not replay its graph")
+    for k, v in out["cpu"][0].items():
+        np.testing.assert_allclose(out[TRAIN_DEVICE][0][k].numpy(), v.numpy(), **TRAIN_F32_TOL, err_msg=k)
+
+
+def train_path(torch) -> dict:
+    """Phase 8: the trainer (8a), captured against eager (8b), the UTP task
+    tree fused (8c) and the card against the CPU (8d)."""
+    import gc
+
+    t0 = time.perf_counter()
+    result = trainer_run(torch)
+    print(f"phase 8a s={time.perf_counter() - t0:.2f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    eager, params, opt, batch, ds = captured_vs_eager_step(torch)
+    print(f"phase 8b s={time.perf_counter() - t1:.2f}")
+    t1 = time.perf_counter()
+    utp_fused_steps(torch, eager, params, opt, batch, ds)
+    del eager, params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 8c s={time.perf_counter() - t1:.2f}")
+    t1 = time.perf_counter()
+    card_vs_cpu(torch)
+    print(f"phase 8d s={time.perf_counter() - t1:.2f}")
+    return result
+
+
+def train_phase() -> int:
+    """Phase 8 alone, in the process ``main`` starts for it
+    (``chip_smoke.py --phase 8``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    t0 = time.perf_counter()
+    train_path(torch)
+    print(f"phase 8 s={time.perf_counter() - t0:.2f}")
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:] == ["--phase", "8"]:
+        return train_phase()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
@@ -2834,6 +3375,24 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    # phase 8 first, in a process of its own, before this one touches the
+    # card: its 50 GB peak needs the whole card, and after phases 2-7 this
+    # process's allocator is fragmented and holds memory its captured
+    # programs keep (numbered 8: it was added after them).  Its temporary
+    # files (8a's checkpoints, 26 GB each) go under a directory of this
+    # process's, removed even if the child is killed
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase8_")
+    try:
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase", "8"], check=True, timeout=900,
+                       env=dict(os.environ, TMPDIR=tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 8 process s={time.perf_counter() - t0:.2f}", flush=True)
     t0 = time.perf_counter()
     sources = ["tile_lu_sm90", "flash_attention", "flash_attention_sm90", "matmul"]
     reports = _build.build(sources)
@@ -2862,6 +3421,14 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_paths = nondense_path(torch)
     print(f"phase 7 s={time.perf_counter() - t0:.2f}")
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"after phase 7: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved by the caching allocator, "
+          f"{(total - free) / 1e9:.2f} GB of {total / 1e9:.2f} GB in use on the card")
     sm90 = lm_kernels[0]
     sm90["paths"] = {LM: sm90["launches"], **flash_paths}
     sm90["launches"] = sum(sm90["paths"].values())

@@ -5,6 +5,7 @@ nor ``repro``.  Entry points put their data on CUDA unless the caller
 passes ``device="cpu"``.
 """
 
-from . import configs, core, kernels, linalg, models, serve, serving, testing
+from . import configs, core, data, kernels, launch, linalg, models, optim, serve, serving, testing, train
 
-__all__ = ["configs", "core", "kernels", "linalg", "models", "serve", "serving", "testing"]
+__all__ = ["configs", "core", "data", "kernels", "launch", "linalg", "models", "optim", "serve", "serving",
+           "testing", "train"]

@@ -5,13 +5,14 @@ One ``ArchConfig`` instance per assigned architecture lives in
 ``configs/<id>.py`` with the exact published numbers; ``reduced()`` derives
 the CPU smoke-test variant (same family, tiny dims).
 
-The sharding, rematerialisation and layer-scan knobs (``seq_parallel``,
-``anchor_*``, ``cast_in_scan``, ``cast_params``, ``remat``,
-``scan_layers``, ``fsdp``, ``microbatches``, ``windowed_cache``) steer the
-JAX package's compiled training and multi-chip programs.  They are kept so
-both packages read the same configuration, and have no effect in the port,
-which runs eagerly on one device and always casts at load (see
-``models/model.py``).
+``remat`` (``models/transformer.py``) and ``microbatches``
+(``launch/steps.py``) steer the port's training step as the reference's.
+The sharding and layer-scan knobs (``seq_parallel``, ``anchor_*``,
+``cast_in_scan``, ``cast_params``, ``scan_layers``, ``fsdp``,
+``windowed_cache``) steer the JAX package's compiled multi-chip programs;
+they are kept so both packages read the same configuration, and have no
+effect in the port, which runs on one device and casts as
+``models/model.py`` says.
 """
 
 from __future__ import annotations

@@ -39,12 +39,14 @@ records the tally.
 
 from __future__ import annotations
 
+import gc
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ...kernels.tile_linalg import COUNTERS
+from ...tree import flatten_with_paths, leaves, tree_map
 from ..data import GData, StackedEpoch
 
 _SIDE: Dict[int, torch.cuda.Stream] = {}  # device index -> warm-up/capture stream
@@ -224,3 +226,121 @@ class CapturedProgram:
             for j, m in enumerate(members):
                 m.adopt_lane(epoch, j)
             self._holders[i] = weakref.ref(epoch)
+
+
+def _signature(x):
+    """A leaf as the captured call keys it: a tensor by (shape, dtype,
+    device), anything else as it is."""
+    return (tuple(x.shape), x.dtype, x.device) if torch.is_tensor(x) else x
+
+
+class CapturedCall:
+    """A function of trees of tensors captured once into a CUDA graph over
+    static buffers: the counterpart of ``jax.jit`` for the training step
+    (``launch/steps.py`` ``StepPlan.jitted``) and the fused task-tree
+    executor (``train/step_ops.py``).
+
+    The first call on the card adopts each argument marked in ``donate`` as
+    its static buffer (the function updates it in place: the counterpart of
+    donation) and clones the others.  It runs the function once for real on
+    the side stream (the warm-up, which loads the libraries and creates
+    their handles; its result is the first call's), returns the memory the
+    warm-up freed to the device, and records a second run into the graph,
+    which executes nothing.  Every later call copies each argument into its
+    static buffer (nothing to copy where the caller passes the buffer
+    itself), replays the graph, and returns the recorded outputs: a static
+    buffer as it is, any other tensor as a clone, so the next replay never
+    changes a result the caller holds.  A capture that fails raises
+    ``CaptureError`` naming ``name``; nothing falls back to eager on the
+    card.  On the CPU every call runs the function eagerly on the arguments.
+
+    The call is bound to its first arguments' signature (``_signature``):
+    where ``jax.jit`` would trace again, a later call whose trees differ in
+    structure or key order, or whose tensors differ in shape, dtype or
+    device, raises ``CaptureError`` naming ``name`` and the first leaf that
+    differs, on either device (a copy into the static buffers would
+    broadcast, cast or land in the wrong buffer).
+    """
+
+    def __init__(self, fn, name: str, donate: Sequence[bool] = ()):
+        self.fn = fn
+        self.name = name
+        self.donate = tuple(donate)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.static = None
+        self.outputs = None
+        self.compiles = 0  # captures (one a call site, as jax.jit's compile)
+        self.graph_replays = 0
+        self.signature = None
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def __call__(self, *args):
+        self._check(args)
+        first = next((x for x in leaves(args) if torch.is_tensor(x)), None)
+        if first is None or first.device.type != "cuda":
+            self.compiles += self.compiles == 0
+            return self.fn(*args)
+        if self.graph is None:
+            return self._capture(args, first.device)
+        self._load(args)
+        self.graph.replay()
+        self.graph_replays += 1
+        return self._hand_out(self.outputs)
+
+    def _capture(self, args, device: torch.device):
+        donate = self.donate + (False,) * (len(args) - len(self.donate))
+        self.static = tuple(a if d else tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, a)
+                            for a, d in zip(args, donate))
+        stream = _side_stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            out = self.fn(*self.static)  # the warm-up: the first call's result
+        torch.cuda.current_stream(device).wait_stream(stream)
+        torch.cuda.synchronize(device)
+        gc.collect()
+        torch.cuda.empty_cache()  # the graph's private pool takes what the warm-up freed
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                self.outputs = self.fn(*self.static)
+            except BaseException as e:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture was invalidated by the failure itself
+                if isinstance(e, torch.cuda.OutOfMemoryError):
+                    raise
+                raise CaptureError(f"capturing {self.name} failed: {type(e).__name__}: {e}") from e
+            graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.graph = graph
+        self.compiles += 1
+        return out
+
+    def _check(self, args) -> None:
+        sig = {k: _signature(v) for k, v in flatten_with_paths(args).items()}
+        if self.signature is None:
+            self.signature = sig
+        elif list(sig.items()) != list(self.signature.items()):  # dict equality ignores the order
+            now, first = list(sig) + [None], list(self.signature) + [None]
+            i = next((i for i, (a, b) in enumerate(zip(now, first)) if a != b), None)
+            if i is not None:
+                raise CaptureError(f"{self.name}: leaf {i} of its arguments is {now[i]}, its first call's was "
+                                   f"{first[i]} (another tree structure or key order)")
+            path = next(k for k in sig if sig[k] != self.signature[k])
+            raise CaptureError(f"{self.name}: argument {path} is {sig[path]}, its first call's was "
+                               f"{self.signature[path]}")
+
+    @torch.no_grad()
+    def _load(self, args) -> None:
+        for s, a in zip(leaves(self.static), leaves(args)):
+            if torch.is_tensor(s) and a is not s:
+                s.copy_(a)
+
+    def _hand_out(self, outputs):
+        own = {id(x) for x in leaves(self.static) if torch.is_tensor(x)}
+        return tree_map(lambda x: x if not torch.is_tensor(x) or id(x) in own else x.clone(), outputs)

@@ -1,0 +1,116 @@
+"""Deterministic synthetic LM data pipeline (the JAX package's
+``data/pipeline.py``).
+
+The stream has *learnable structure* (a fixed random bigram transition
+table blended with noise) so end-to-end training drivers show a real,
+monotonically falling loss instead of log(V) forever.  Determinism: batch
+``i`` of a given (seed, config) is a pure function of (seed, i), so a
+restart needs only the batch index.  ``DataConfig`` and
+``SyntheticLMDataset`` are the reference's numpy code, copied, so batches
+are bit-identical to the JAX package's.
+
+``sharded_batches`` yields the batches as tensors on one device (the
+reference places them with the trainer's batch sharding; placement over a
+mesh is ROADMAP A12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.data import host_to_device, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    branching: int = 4  # bigram successors per token (lower = easier)
+    noise: float = 0.05  # fraction of uniform-random tokens
+
+
+class SyntheticLMDataset:
+    """Deterministic bigram-structured token stream."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        # fixed transition table: token t -> branching successors
+        self.table = rng.integers(
+            0, cfg.vocab, size=(cfg.vocab, cfg.branching), dtype=np.int64
+        )
+
+    def batch(self, index: int) -> Dict[str, np.ndarray]:
+        """Batch ``index`` (pure function of (seed, index))."""
+        cfg = self.cfg
+        rng = np.random.default_rng((cfg.seed, index))
+        B, S = cfg.global_batch, cfg.seq_len
+        toks = np.empty((B, S + 1), dtype=np.int64)
+        toks[:, 0] = rng.integers(0, cfg.vocab, size=B)
+        branch = rng.integers(0, cfg.branching, size=(B, S))
+        noise = rng.random((B, S)) < cfg.noise
+        noise_tok = rng.integers(0, cfg.vocab, size=(B, S))
+        for s in range(S):
+            nxt = self.table[toks[:, s], branch[:, s]]
+            toks[:, s + 1] = np.where(noise[:, s], noise_tok[:, s], nxt)
+        return {
+            "tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+        }
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        i = 0
+        while True:
+            yield self.batch(i)
+            i += 1
+
+
+def _stub_projection(ds: SyntheticLMDataset, d_model: int) -> np.ndarray:
+    """The stub frontend's (vocab, D) token-to-embedding table, the
+    reference's draw: ``default_rng((seed, 7, 0))``, scaled by 1/sqrt(D)."""
+    rng = np.random.default_rng((ds.cfg.seed, 7, 0))
+    proj = rng.standard_normal((ds.cfg.vocab, d_model)).astype(np.float32)
+    proj /= np.sqrt(d_model)
+    return proj
+
+
+def sharded_batches(
+    ds: SyntheticLMDataset,
+    device=None,
+    start_index: int = 0,
+    embeds_cfg: Optional[ArchConfig] = None,
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Yield batches on ``device`` (CUDA unless the caller names another)
+    starting at ``start_index`` (restart-safe), staged through pinned
+    memory on the way to the card.
+
+    For stub-frontend archs (``embeds_cfg.frontend`` set), tokens are mapped
+    to the reference's deterministic synthetic embeddings on the host (the
+    stub frontend), in ``embeds_cfg.compute_dtype``.
+    """
+    dev = resolve_device(device)
+    proj = None
+    if embeds_cfg is not None and embeds_cfg.frontend:
+        proj = torch.from_numpy(_stub_projection(ds, embeds_cfg.d_model))
+    return _batches(ds, dev, start_index, embeds_cfg, proj)
+
+
+def _batches(ds, dev, i, embeds_cfg, proj):
+    while True:
+        host = ds.batch(i)
+        out: Dict[str, torch.Tensor] = {}
+        if proj is not None:
+            emb = proj[torch.from_numpy(host["tokens"]).long()]
+            out["embeds"] = host_to_device(emb, dev, embeds_cfg.compute_dtype)
+        else:
+            out["tokens"] = host_to_device(torch.from_numpy(host["tokens"]), dev)
+        out["labels"] = host_to_device(torch.from_numpy(host["labels"]), dev)
+        yield out
+        i += 1

@@ -191,7 +191,15 @@ def flash_attention(
     block_k: int = 128,
 ) -> torch.Tensor:
     """Causal (and sliding-window, ``window`` > 0) GQA attention; on the
-    card the kernel ``flash_route`` names, on the CPU the plain version."""
+    card the kernel ``flash_route`` names, on the CPU the plain version.
+    Forward only, on both devices: the kernel has no backward (the JAX
+    package's ``pallas_call`` has no VJP either), so a call that autograd
+    would have to differentiate raises instead of returning an output
+    whose gradient is silently cut."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward kernel (nor has the JAX package's pallas_call a VJP): "
+            "train with use_pallas=False, or call it under torch.no_grad()")
     _check(q, k, v, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)

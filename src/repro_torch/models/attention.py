@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import flash_attention
@@ -94,12 +95,19 @@ def _sdpa(
 def _sdpa_chunked(q, k, v, q_pos, k_pos, k_valid, window: int, q_chunk: int,
                   score_dtype: str = "f32") -> torch.Tensor:
     """Attention over query chunks of ``q_chunk`` rows, so one chunk's
-    (B, H, c, Sk) scores exist at a time (the JAX package scans the chunks
-    under ``jax.checkpoint``; the port runs forward only)."""
-    outs = [
-        _sdpa(qc, k, v, pc, k_pos, k_valid, window, score_dtype)
-        for qc, pc in zip(q.split(q_chunk, dim=1), q_pos.split(q_chunk, dim=1))
-    ]
+    (B, H, c, Sk) scores exist at a time.  Under grad each chunk is
+    rematerialised (the JAX package scans the chunks under
+    ``jax.checkpoint``): the backward recomputes a chunk's scores instead of
+    keeping all of them (taken only when autograd records: see
+    ``transformer.records``)."""
+    outs = []
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    for qc, pc in zip(q.split(q_chunk, dim=1), q_pos.split(q_chunk, dim=1)):
+        if grad:
+            outs.append(checkpoint(_sdpa, qc, k, v, pc, k_pos, k_valid, window, score_dtype,
+                                   use_reentrant=False, preserve_rng_state=False))
+        else:
+            outs.append(_sdpa(qc, k, v, pc, k_pos, k_valid, window, score_dtype))
     return torch.cat(outs, dim=1)
 
 

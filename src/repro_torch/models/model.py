@@ -2,11 +2,12 @@
 (the JAX package's ``models/model.py``).
 
 The JAX package builds a namespace of pure functions over a parameter
-tree; the port's ``Model`` is an ``nn.Module`` that holds its parameters
-(frozen: this port runs inference and the forward loss, no backward)::
+tree; the port's ``Model`` is an ``nn.Module`` that holds its parameters::
 
     forward(batch, positions=None, cache=None, cache_pos=None) -> (hidden, cache)
     loss(batch)                      scalar LM loss + metrics (chunked xent, MoE aux)
+    loss_of(params, batch)           the same over a flat {name: tensor} dict
+    value_and_grad(params, batch)    ((loss, metrics), grads) over that dict
     prefill(batch, cache)            fill the cache from position 0
     decode_step(cache, batch, pos)   one token a row with the cache
     lm_logits(h), init_cache(batch, max_seq), param_counts()
@@ -15,14 +16,25 @@ Batch convention: {"tokens": (B, S) int} for token-input families, or
 {"embeds": (B, S, D)} for the stub-frontend families (``[audio]``/
 ``[vlm]``); training adds {"labels": (B, S) int}.
 
-Parameters are cast once, at load: every floating parameter of two or more
-dimensions is stored in ``cfg.compute_dtype`` and no float32 copy stays on
-the device; 1-D scales and biases, and every leaf under a ``router`` (the
-MoE router's weights, whose logits decide the routing), stay in
-``cfg.param_dtype``.  That is the effect of the JAX package's
-``cast_for_forward`` (which ``loss``/``prefill``/``decode_step`` apply per
-call, and every layer's ``astype(x.dtype)`` applies inside ``forward``),
-so both give the same numbers.
+Two forms, chosen by ``build_model(..., train=...)``:
+
+- **Serving** (the default): parameters are cast once, at load, and
+  frozen: every floating parameter of two or more dimensions is stored in
+  ``cfg.compute_dtype`` and no float32 copy stays on the device; 1-D
+  scales and biases, and every leaf under a ``router`` (the MoE router's
+  weights, whose logits decide the routing), stay in ``cfg.param_dtype``.
+  That is the effect of the JAX package's ``cast_for_forward`` (which
+  ``loss``/``prefill``/``decode_step`` apply per call, and every layer's
+  ``astype(x.dtype)`` applies inside ``forward``), so both give the same
+  numbers.
+- **Training**: the parameters are ``cfg.param_dtype`` (fp32) masters that
+  require grad.  ``value_and_grad(params, batch)`` (and ``loss_of``, its
+  forward) applies ``cast_for_forward`` to a flat ``{name: tensor}`` dict
+  of masters (the names of ``train_params()``; the same dict is AdamW's
+  tree) on every call, as a differentiable ``.to(compute_dtype)``, and
+  runs ``loss`` through ``torch.func.functional_call``: the gradients land
+  in the fp32 masters, as the reference's backward through its convert
+  does.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.data import resolve_device
@@ -41,6 +54,49 @@ from .frontend import uses_stub_frontend
 from .layers import (PSpec, count_template, init_tensor, map_template, norm_apply, norm_template, sinusoidal_embed,
                      template_leaves)
 from .transformer import group_layout, init_cache, n_groups, stack_apply, stack_template
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 operands with an fp32 accumulator and an fp32
+    result: one bf16 GEMM on the card; on the CPU (which has no such GEMM)
+    the operands upcast, which is exact."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    with fp32_matmul():
+        return a.float() @ b.float()
+
+
+def bf16_head_grads(h: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 products ``g @ w.T`` and ``h.T @ g`` of the fp32 logit
+    gradient ``g`` with the bf16 operands, as the reference's transpose
+    contracts them, from bf16 GEMMs: ``g`` splits into ``hi + lo``, each
+    bf16, which hold it to 2**-17 of each element, and each product is the
+    sum of two GEMMs."""
+    hi = g.to(h.dtype)
+    lo = (g - hi.float()).to(h.dtype)
+    dh, dw = _mm32(hi, w.t()), _mm32(h.t(), hi)
+    dh += _mm32(lo, w.t())
+    dw += _mm32(h.t(), lo)
+    return dh, dw
+
+
+class _Bf16Head(torch.autograd.Function):
+    """bf16 ``h @ w`` with an fp32 accumulator and an fp32 output (the JAX
+    ``preferred_element_type=float32``) on the card.  The backward contracts
+    the fp32 gradient with the bf16 operands (``bf16_head_grads``) and
+    returns each gradient in its operand's dtype, as the reference's
+    transpose does."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return _mm32(h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        dh, dw = bf16_head_grads(h, w, g)
+        return dh.to(h.dtype), dw.to(w.dtype)
 
 
 def model_template(cfg: ArchConfig) -> Dict[str, Any]:
@@ -80,18 +136,19 @@ def param_counts(cfg: ArchConfig) -> Dict[str, int]:
 
 class ParamTree(nn.Module):
     """A parameter tree as a module: dicts become ``ParamTree``s, lists
-    ``nn.ModuleList``s, tensors frozen parameters; ``p["key"]`` reads a
-    child as the JAX code reads its dict."""
+    ``nn.ModuleList``s, tensors parameters (frozen for serving; masters that
+    require grad for training, where floating); ``p["key"]`` reads a child as
+    the JAX code reads its dict."""
 
-    def __init__(self, tree: Dict[str, Any]):
+    def __init__(self, tree: Dict[str, Any], trainable: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, torch.Tensor):
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v, requires_grad=trainable and v.is_floating_point()))
             elif isinstance(v, dict):
-                self.add_module(k, ParamTree(v))
+                self.add_module(k, ParamTree(v, trainable))
             else:
-                self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
+                self.add_module(k, nn.ModuleList(ParamTree(x, trainable) for x in v))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -100,25 +157,101 @@ class ParamTree(nn.Module):
         return key in self._parameters or key in self._modules
 
 
+def _casts(t: torch.Tensor, keys) -> bool:
+    """``cast_for_forward``'s rule: a >= 2-D float goes to the compute
+    dtype, unless it lies under a ``router`` (``keys``: its path's keys)."""
+    return t.is_floating_point() and t.dim() >= 2 and "router" not in keys
+
+
 def _cast_at_load(cfg: ArchConfig, t: torch.Tensor, path: str) -> torch.Tensor:
-    """``cast_for_forward``'s rule: >= 2-D floats to the compute dtype, but
-    never a leaf under ``router``."""
-    if not t.is_floating_point():
-        return t
-    if t.dim() >= 2 and "router" not in path.split("/"):
+    """The serving form's leaf: ``_casts`` to the compute dtype, any other
+    float to ``cfg.param_dtype``."""
+    if _casts(t, path.split("/")):
         return t.to(cfg.compute_dtype)
-    return t.to(cfg.param_dtype)
+    return t.to(cfg.param_dtype) if t.is_floating_point() else t
+
+
+def _master(cfg: ArchConfig, t: torch.Tensor, path: str) -> torch.Tensor:
+    """A training master: every floating leaf in ``cfg.param_dtype``."""
+    return t.to(cfg.param_dtype) if t.is_floating_point() else t
+
+
+def cast_for_forward(cfg: ArchConfig, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The reference's ``cast_for_forward`` over a flat {name: tensor} dict:
+    >= 2-D floats to the compute dtype (a differentiable ``.to``, so the
+    backward casts each gradient back to its master's dtype), leaves under
+    a ``router`` unchanged.  The reference's ``cast_params=False`` and
+    ``cast_in_scan`` only move its convert (into every layer's
+    ``astype``, or into the scan body), which gives the same values."""
+    return {k: p.to(cfg.compute_dtype) if _casts(p, k.split(".")) else p for k, p in params.items()}
+
+
+class _LossCall(nn.Module):
+    """``Model.loss`` as a module call for ``torch.func.functional_call``.
+    It registers the model's ``ParamTree`` under the same attribute, so a
+    substituted name ``params.<name>`` reaches the tensor the model reads.
+
+    With ``wrt`` it also takes the gradients with respect to those tensors
+    inside the call: a rematerialised block recomputes its forward during
+    the backward and reads the parameters through the module then, so the
+    backward must run while the substitution holds."""
+
+    def __init__(self, model: "Model"):
+        super().__init__()
+        self.params = model.params
+        object.__setattr__(self, "_model", model)  # not a submodule
+
+    def forward(self, batch, wrt=None):
+        loss, metrics = self._model.loss(batch)
+        if wrt is None:
+            return loss, metrics
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ArchConfig, params: Dict[str, Any]):
+    def __init__(self, cfg: ArchConfig, params: Dict[str, Any], train: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.params = ParamTree(params)
+        self.params = ParamTree(params, trainable=train)
 
     @property
     def device(self) -> torch.device:
         return self.params["final_norm"]["scale"].device
+
+    # -- training form -----------------------------------------------------
+    def train_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters as a flat {name: tensor} dict (names relative to
+        the parameter tree, "stack.groups.0.layers.0.attn.wq"): the masters
+        of the training form, and AdamW's tree."""
+        return dict(self.params.named_parameters())
+
+    def _call(self, params: Dict[str, torch.Tensor], *args):
+        cast = cast_for_forward(self.cfg, params)
+        # a wrapper a call (kept on the model it would make a reference cycle,
+        # and the model's parameters would wait for the garbage collector)
+        return torch.func.functional_call(_LossCall(self), {f"params.{k}": v for k, v in cast.items()}, args)
+
+    def loss_of(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
+        """``loss`` over ``params`` (a dict of ``train_params()``'s names) in
+        place of the model's own tensors, after ``cast_for_forward``.  Take
+        gradients through ``value_and_grad``: a backward outside the call
+        would recompute rematerialised blocks with the model's own tensors."""
+        return self._call(params, batch)
+
+    def value_and_grad(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
+        """``((loss, metrics), grads)``, the reference's ``jax.value_and_grad(
+        loss, has_aux=True)``: ``grads`` maps each name of ``params`` to the
+        gradient of the loss with respect to that (master) tensor, zeros
+        where the loss does not depend on it.  Functional: nothing
+        accumulates into ``.grad``."""
+        # fresh leaves over the same storage: the gradients are taken with
+        # respect to them, whether or not the caller's tensors require grad
+        leaves = {k: v.detach().requires_grad_(v.is_floating_point()) for k, v in params.items()}
+        names = [k for k, v in leaves.items() if v.requires_grad]
+        with torch.enable_grad():
+            loss, metrics, grads = self._call(leaves, batch, [leaves[k] for k in names])
+        return (loss, metrics), dict(zip(names, grads))
 
     # -- embedding / head --------------------------------------------------
     def embed_batch(self, batch: Dict[str, torch.Tensor], positions: torch.Tensor) -> torch.Tensor:
@@ -147,7 +280,7 @@ class Model(nn.Module):
         upcast, which copies the head."""
         w = self._head_weight().to(self.cfg.compute_dtype)
         if w.is_cuda and h.dtype == w.dtype == torch.bfloat16:
-            out = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
+            out = _Bf16Head.apply(h.reshape(-1, h.shape[-1]), w)
             return out.reshape(*h.shape[:-1], w.shape[-1])
         with fp32_matmul():
             return h.float() @ w.float()
@@ -180,22 +313,32 @@ class Model(nn.Module):
         h, aux = stack_apply(self.cfg, self.params["stack"], h, positions, cache, cache_pos)
         return norm_apply(self.cfg, self.params["final_norm"], h), cache, aux
 
+    def _chunk_stats(self, hh: torch.Tensor, yy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits = self.lm_logits(hh)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, yy[..., None])[..., 0]
+        return (lse - gold).sum(), (logits.argmax(-1) == yy).sum()
+
     def chunked_xent(self, h: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-entropy over sequence chunks of ``cfg.loss_chunk``, so the
-        (B, S, V) float32 logits never exist whole.  Returns (mean loss,
-        token accuracy)."""
+        (B, S, V) float32 logits never exist whole; under grad each chunk is
+        rematerialised, so the backward recomputes its logits instead of
+        keeping them (the reference's ``jax.checkpoint``).  Returns (mean
+        loss, token accuracy)."""
         B, S, D = h.shape
         c = min(self.cfg.loss_chunk, S)
         if S % c != 0:
             c = S
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
         acc = torch.zeros((), dtype=torch.int64, device=h.device)
+        grad = torch.is_grad_enabled() and (h.requires_grad or self._head_weight().requires_grad)
         for hh, yy in zip(h.split(c, dim=1), labels.long().split(c, dim=1)):
-            logits = self.lm_logits(hh)
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, yy[..., None])[..., 0]
-            tot = tot + (lse - gold).sum()
-            acc = acc + (logits.argmax(-1) == yy).sum()
+            if grad:
+                l, a = checkpoint(self._chunk_stats, hh, yy, use_reentrant=False, preserve_rng_state=False)
+            else:
+                l, a = self._chunk_stats(hh, yy)
+            tot = tot + l
+            acc = acc + a
         n = B * S
         return tot / n, acc.float() / n
 
@@ -231,35 +374,43 @@ class Model(nn.Module):
         return param_counts(self.cfg)
 
 
-def _load(cfg: ArchConfig, template, params, device, path: str = ""):
+def _load(cfg: ArchConfig, template, params, device, path: str = "", cast=_cast_at_load):
     """``params`` (the template's tree of tensors or arrays) checked
-    against the template's shapes and cast at load, on ``device``."""
+    against the template's shapes and cast (``cast``) at load, on
+    ``device``."""
     if isinstance(template, PSpec):
         t = torch.as_tensor(params)
         if tuple(t.shape) != template.shape:
             raise ValueError(f"parameter {path}: shape {tuple(t.shape)} != template {template.shape}")
-        return _cast_at_load(cfg, t.to(device), path)
+        return cast(cfg, t.to(device), path)
     if isinstance(template, dict):
-        return {k: _load(cfg, v, params[k], device, f"{path}/{k}") for k, v in template.items()}
+        return {k: _load(cfg, v, params[k], device, f"{path}/{k}", cast) for k, v in template.items()}
     if len(params) != len(template):
         raise ValueError(f"parameter list {path}: {len(params)} entries != template {len(template)}")
-    return [_load(cfg, v, p, device, f"{path}/{i}") for i, (v, p) in enumerate(zip(template, params))]
+    return [_load(cfg, v, p, device, f"{path}/{i}", cast) for i, (v, p) in enumerate(zip(template, params))]
 
 
 def build_model(cfg: ArchConfig, params: Optional[Dict[str, Any]] = None, *, seed: int = 0,
-                device=None) -> Model:
+                device=None, train: bool = False) -> Model:
     """A ``Model`` of ``cfg`` on ``device`` (CUDA unless the caller passes
     another; raises without it).  ``params`` is a tree in the port's layout
     (``models/convert.py`` makes one from the JAX package's); without it
     the weights are drawn by the JAX package's init rules from a
     ``torch.Generator`` seeded with ``seed``, on the device, each leaf cast
-    as soon as it is drawn."""
+    as soon as it is drawn.  ``train`` builds the training form: fp32
+    masters that require grad, never cast (module docstring).  On the
+    ``meta`` device nothing is drawn: the model is a structure for
+    ``loss_of`` and ``value_and_grad``, whose parameters the caller
+    passes."""
     template = model_template(cfg)
     dev = resolve_device(device)
-    if params is None:
+    rule = _master if train else _cast_at_load
+    if dev.type == "meta":
+        params = map_template(template, lambda s, path: rule(cfg, torch.empty(s.shape, dtype=cfg.param_dtype,
+                                                                               device=dev), path))
+    elif params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = map_template(template, lambda s, path: _cast_at_load(cfg, init_tensor(s, gen, cfg.param_dtype, dev),
-                                                                        path))
+        params = map_template(template, lambda s, path: rule(cfg, init_tensor(s, gen, cfg.param_dtype, dev), path))
     else:
-        params = _load(cfg, template, params, dev)
-    return Model(cfg, params)
+        params = _load(cfg, template, params, dev, cast=rule)
+    return Model(cfg, params, train=train)

@@ -25,18 +25,31 @@ has a KV cache a group).  Group ``g`` reads and writes its slice ``[g]``
 in place: attention writes its K/V rows into the slice, and a recurrent
 layer's new state is copied into it.
 
-Not ported, by design: ``remat`` and ``scan_layers`` (rematerialisation
-and the compiled scan are JAX training mechanisms; the port runs eagerly,
-forward only), ``cast_in_scan`` and ``MoeCtx``'s sharding anchors
-(multi-chip layouts, ROADMAP A12).
+``cfg.remat`` wraps each group body (its layers and the shared block) as
+the reference's ``_remat_wrap`` does, when no cache is passed and autograd
+records (``records``): ``full`` keeps only the group's input and
+recomputes the rest in the backward, ``dots`` also keeps the outputs of
+the products without batch dimensions (``aten.mm``/``addmm``: the
+reference's ``checkpoint_dots_with_no_batch_dims``), ``none`` keeps
+everything.  It
+uses ``torch.utils.checkpoint`` without reentry and without saving the RNG
+state (no layer draws random numbers, and reading the CUDA RNG state is
+not allowed while a CUDA graph captures the step).
+
+Not ported, by design: ``scan_layers`` (the port loops over the groups),
+``cast_in_scan`` (it only moves the reference's convert; the values are
+the same) and ``MoeCtx``'s sharding anchors (multi-chip layouts, ROADMAP
+A12).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ArchConfig
 from .attention import attention_apply, attention_template, init_kv_cache
@@ -199,6 +212,52 @@ def _slice(cache, g: int):
     return None if cache is None else {k: t[g] for k, t in cache.items()}
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def records(*tensors) -> bool:
+    """True when autograd records an op on these tensors: grad is enabled
+    and one of them requires grad.  A checkpoint is taken only then (a
+    frozen model's forward takes none: a checkpoint that records nothing
+    still holds its function and inputs in a reference cycle until the
+    garbage collector runs)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def remat(cfg: ArchConfig, fn, *args, params=()):
+    """``fn(*args)`` under ``cfg.remat`` (module docstring) when autograd
+    records on ``args`` or ``params`` (the tensors ``fn`` reads besides its
+    arguments); a plain call otherwise."""
+    if cfg.remat == "none" or not records(*(a for a in args if torch.is_tensor(a)), *params):
+        return fn(*args)
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _group_apply(cfg, layout, p_g, shared, g: int, x, positions, cache, cache_pos):
+    """One group's layers, then the shared block where the family has one.
+    Returns (hidden, the group's summed MoE aux loss)."""
+    aux: List[torch.Tensor] = []
+    for i, desc in enumerate(layout):
+        c_i = None if cache is None else _slice(cache["layers"][i], g)
+        x = _layer_apply(cfg, desc, p_g["layers"][i], x, positions, c_i, cache_pos, aux)
+    if shared is not None:
+        c_s = None if cache is None else _slice(cache["shared"], g)
+        x = _layer_apply(cfg, SHARED, shared, x, positions, c_s, cache_pos)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in aux:
+        total = total + a
+    return x, total
+
+
 def stack_apply(
     cfg: ArchConfig,
     stack,
@@ -208,19 +267,19 @@ def stack_apply(
     cache_pos=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the layer groups in order, each followed by the shared block
-    where the family has one.  Returns (hidden, the summed MoE aux loss);
-    the cache (if any) is updated in place."""
+    where the family has one, each group under ``cfg.remat`` when no cache
+    is passed.  Returns (hidden, the summed MoE aux loss, group by group as
+    the reference's scan carries it); the cache (if any) is updated in
+    place."""
     layout = group_layout(cfg)
     shared = stack["shared"] if has_shared_block(cfg) else None
-    aux: List[torch.Tensor] = []
-    for g, p_g in enumerate(stack["groups"]):
-        for i, desc in enumerate(layout):
-            c_i = None if cache is None else _slice(cache["layers"][i], g)
-            x = _layer_apply(cfg, desc, p_g["layers"][i], x, positions, c_i, cache_pos, aux)
-        if shared is not None:
-            c_s = None if cache is None else _slice(cache["shared"], g)
-            x = _layer_apply(cfg, SHARED, shared, x, positions, c_s, cache_pos)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for a in aux:
-        total = total + a
+    for g, p_g in enumerate(stack["groups"]):
+        body = partial(_group_apply, cfg, layout, p_g, shared, g)
+        if cache is None:
+            params = [*p_g.parameters(), *(shared.parameters() if shared is not None else ())]
+            x, aux = remat(cfg, body, x, positions, None, cache_pos, params=params)
+        else:
+            x, aux = body(x, positions, cache, cache_pos)
+        total = total + aux
     return x, total
