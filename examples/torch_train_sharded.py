@@ -1,0 +1,292 @@
+"""Sharded LM training with the PyTorch port over a ``torch.distributed``
+mesh (the launch layer: ``launch/sharding.py``, ``launch/steps.py``).
+
+Each rank holds its blocks of the fp32 masters and AdamW moments, as the
+resolver places them on the mesh (FSDP over ``data``, storage over
+``model``), builds only its own rows of the deterministic batch, gathers
+each layer group's bf16 weights whole where the group runs (again in the
+rematerialised backward) and reduce-scatters their gradients.
+
+Three parts, each on the same seeded init:
+
+(a) one step of the model (``--layers``, default 2) on a (world, 1) mesh,
+    then, on rank 0 alone, the same step on one device from the same seed
+    and batch: the loss within ``LOSS_TOL`` (relative), the gradient norm
+    within ``GNORM_TOL``, every leaf's gradient within ``GRAD_TOL``
+    relative L2 and every leaf's update (the step's change of the
+    parameter) within ``UPDATE_TOL``.  The gradient is read from Adam's
+    first moment after the first step, (1 - b1) g in fp32 from zero
+    moments: the same scaling on both sides, before Adam divides it by its
+    size (at step 1 the update is lr g / (|g| + eps), which a wrong scale
+    of a leaf's gradient does not move).  The sharded step sums bf16
+    gradient blocks over the ranks where one device sums them in one
+    product, so the updates of elements whose gradient is within rounding
+    of zero move apart;
+(b) that state saved (every rank gathers, rank 0 writes the unsharded
+    layout) and restored onto a (world / 2, 2) mesh: every leaf bit for
+    bit the saved one;
+(c) ``--steps`` steps of the model at ``--train-layers`` (default: all of
+    the configuration's) on the (world, 1) mesh, no checkpoint: per-card
+    peak memory, step ms, tokens/s, MFU (``model_flops`` / step / (world
+    x 989 TFLOP/s)) and the loss.
+
+    PYTHONPATH=src python examples/torch_train_sharded.py            # 2 CPU ranks, gloo, reduced starcoder2-7b
+    torchrun --standalone --nproc-per-node 4 examples/torch_train_sharded.py --cuda
+    torchrun --standalone --nproc-per-node 4 examples/torch_train_sharded.py --cuda --layers 0   # (c) alone
+"""
+
+import argparse
+import dataclasses
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+# relative; GRAD_TOL and UPDATE_TOL are relative L2 a leaf (their sound and
+# faulty readings: PERF.md, the four-card run)
+LOSS_TOL, GNORM_TOL, GRAD_TOL, UPDATE_TOL = 1e-3, 1e-5, 5e-2, 5e-2
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak of one H100 SXM
+
+
+def _cfg(args):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(args.arch)
+    return cfg if args.cuda else cfg.reduced()
+
+
+def _state(cfg, plan, opt_cfg, device):
+    from repro_torch.launch import steps as st
+    from repro_torch.models import build_model
+
+    shardings = plan.in_shardings[0] if plan.in_shardings is not None and plan.mesh.size() > 1 else None
+    blocks = build_model(cfg, seed=0, device=device, train=True, shardings=shardings).train_params()
+    return st.train_state(plan, blocks, opt_cfg)
+
+
+def _batch(cfg, shape, plan, device):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset, sharded_batches
+
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len, global_batch=shape.global_batch))
+    split = plan.mesh is not None and plan.mesh.size() > 1
+    return sharded_batches(ds, device, embeds_cfg=cfg, shardings=plan.in_shardings[2] if split else None)
+
+
+def _whole(x):
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _on_rank0(tree, rank):
+    """Every leaf gathered whole (all ranks take part), kept on rank 0's host."""
+    out = {}
+    for k, v in tree.items():
+        w = _whole(v)
+        if rank == 0:
+            out[k] = w.detach().to("cpu", copy=True)
+    return out
+
+
+def _rel(a, b) -> float:
+    return (a.double() - b.double()).norm().item() / max(b.double().norm().item(), 1e-30)
+
+
+def _say(rank, *parts):
+    if rank == 0:
+        print(*parts, flush=True)
+
+
+def part_a_b(args, rank, world, device, device_type, mesh, work):
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import Checkpointer
+
+    cfg = dataclasses.replace(_cfg(args), n_layers=args.layers)
+    shape = ShapeConfig("train", args.seq, args.batch, "train")
+    opt_cfg = optim.AdamWConfig(lr=3e-4, clip_norm=0.0, state_dtype=cfg.optim_state_dtype)
+    plan = st.make_train_step(cfg, mesh, shape, opt_cfg, device=device)
+    p, o = _state(cfg, plan, opt_cfg, device)
+    init = _on_rank0(p, rank)
+    batch = next(_batch(cfg, shape, plan, device))
+    t0 = time.perf_counter()
+    _, _, met = plan.jitted()(p, o, batch)
+    loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+    step_s = time.perf_counter() - t0
+    after = _on_rank0(p, rank)
+    moment = _on_rank0(o["m"], rank)
+    _say(rank, f"(a) {cfg.name} {cfg.n_layers} layers, B={shape.global_batch} S={shape.seq_len}, mesh "
+               f"{tuple(mesh.shape)} {device_type}: loss={loss:.6f} grad_norm={gnorm:.6e} step_s={step_s:.3f} "
+               "(eager: the first step)")
+
+    # (b) save on this mesh, restore onto (world / 2, 2)
+    ck = Checkpointer(os.path.join(work, "ckpt"))
+    t0 = time.perf_counter()
+    ck.save(1, {"params": p, "opt": o})
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    mesh22 = make_local_mesh(model=2, device_type=device_type)
+    plan22 = st.make_train_step(cfg, mesh22, shape, opt_cfg, device=device)
+    t0 = time.perf_counter()
+    state, step_no = ck.restore({"params": plan22.args[0], "opt": plan22.args[1]}, device=device,
+                                shardings={"params": plan22.in_shardings[0], "opt": plan22.in_shardings[1]})
+    restore_s = time.perf_counter() - t0
+    bad = []
+    for tree, ref in ((state["params"], p), (state["opt"]["m"], o["m"]), (state["opt"]["v"], o["v"])):
+        for k in ref:
+            if not torch.equal(_whole(tree[k]), _whole(ref[k])):
+                bad.append(k)
+    if bad:
+        raise AssertionError(f"(b) restored onto {tuple(mesh22.shape)}: {len(bad)} leaves differ, e.g. {bad[:3]}")
+    _say(rank, f"(b) saved on {tuple(mesh.shape)} (step {step_no}, {save_s:.1f} s) and restored onto "
+               f"{tuple(mesh22.shape)} ({restore_s:.1f} s): every parameter and moment leaf bit for bit")
+    del state, p, o, plan, plan22, batch
+    if args.cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (a), continued: the same step on one device, rank 0 alone
+    if rank == 0:
+        one = st.make_train_step(cfg, None, shape, opt_cfg, device=device)
+        p1, o1 = _state(cfg, one, opt_cfg, device)
+        for k, v in p1.items():
+            if not torch.equal(v.cpu(), init[k]):
+                raise AssertionError(f"(a) the sharded init's {k} differs from the one-device init")
+        _, _, met1 = one.jitted()(p1, o1, next(_batch(cfg, shape, one, device)))
+        loss1, gnorm1 = float(met1["loss"]), float(met1["grad_norm"])
+        upd = {k: _rel(after[k] - init[k], v.cpu() - init[k]) for k, v in p1.items()}
+        grad = {k: _rel(moment[k], v.cpu()) for k, v in o1["m"].items()}
+        worst, gworst = max(upd, key=upd.get), max(grad, key=grad.get)
+        print(f"(a) one device: loss={loss1:.6f} grad_norm={gnorm1:.6e}; sharded vs one device: loss rel "
+              f"{abs(loss - loss1) / abs(loss1):.3e} (tol {LOSS_TOL}), grad_norm rel {abs(gnorm - gnorm1) / gnorm1:.3e} "
+              f"(tol {GNORM_TOL}), grad rel_l2 max {grad[gworst]:.3e} ({gworst}; tol {GRAD_TOL}), median "
+              f"{statistics.median(grad.values()):.3e}, update rel_l2 max {upd[worst]:.3e} ({worst}; tol "
+              f"{UPDATE_TOL}), median {statistics.median(upd.values()):.3e}", flush=True)
+        if abs(loss - loss1) > LOSS_TOL * abs(loss1) or abs(gnorm - gnorm1) > GNORM_TOL * gnorm1 \
+                or grad[gworst] > GRAD_TOL or upd[worst] > UPDATE_TOL:
+            raise AssertionError("(a) the sharded step disagrees with one device")
+        del p1, o1, one
+        if args.cuda:
+            torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def part_c(args, rank, world, device, device_type, mesh):
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline
+    from repro_torch.launch import steps as st
+
+    cfg = _cfg(args)
+    if args.train_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.train_layers)
+    shape = ShapeConfig("train", args.seq, args.batch, "train")
+    opt_cfg = optim.AdamWConfig(lr=optim.warmup_cosine(3e-4, 2, args.steps), clip_norm=0.0,
+                                state_dtype=cfg.optim_state_dtype)
+    plan = st.make_train_step(cfg, mesh, shape, opt_cfg, device=device)
+    if args.cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p, o = _state(cfg, plan, opt_cfg, device)
+    if args.cuda:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = sum(x.to_local().numel() * x.to_local().element_size() for t in (p, o["m"], o["v"])
+                   for x in t.values()) / 1e9
+    batches = _batch(cfg, shape, plan, device)
+    step = plan.jitted()
+    times, losses = [], []
+    for i in range(args.steps):
+        batch = next(batches)
+        dist.barrier()
+        t0 = time.perf_counter()
+        _, _, met = step(p, o, batch)
+        loss = float(met["loss"])  # the host waits for the step
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if not torch.isfinite(torch.tensor(loss)):
+            raise AssertionError(f"(c) step {i}: loss {loss}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if args.cuda else float("nan")
+    peaks = [None] * world
+    dist.all_gather_object(peaks, peak)
+    ms = statistics.median(times[1:] if len(times) > 1 else times) * 1e3
+    tokens = shape.global_batch * shape.seq_len
+    flops = roofline.model_flops(cfg, shape)
+    _say(rank, f"(c) {cfg.name} {cfg.n_layers} layers, B={shape.global_batch} S={shape.seq_len}, mesh "
+               f"{tuple(mesh.shape)} {device_type}: init_s={init_s:.1f}, state {state_gb:.2f} GB a rank; "
+               f"step ms first={times[0] * 1e3:.1f} median of the rest={ms:.1f}; tokens_per_s={tokens / ms * 1e3:.1f}; "
+               f"MFU={flops / (ms / 1e3) / (world * H100_BF16_FLOPS):.4f} (model_flops {flops:.4e}); "
+               f"peak GB by rank {[round(x, 2) for x in peaks]}; losses {[round(x, 4) for x in losses]}")
+    if args.cuda and max(peaks) >= 80:
+        raise AssertionError(f"(c) peak {max(peaks):.2f} GB")
+
+
+def rank_main(rank: int, world: int, args, init: str) -> None:
+    from repro_torch.launch.mesh import make_local_mesh
+
+    device_type = "cuda" if args.cuda else "cpu"
+    if args.cuda:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group("nccl", device_id=torch.device("cuda", torch.cuda.current_device()))
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+        dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world)
+    device = "cuda" if args.cuda else "cpu"
+    try:
+        if rank == 0 and args.cuda:
+            print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                 capture_output=True, text=True).stdout.strip())
+            print(subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True).stdout, flush=True)
+        mesh = make_local_mesh(device_type=device_type)
+        with tempfile.TemporaryDirectory() as tmp:
+            work = [tmp]
+            dist.broadcast_object_list(work)  # rank 0's directory: one checkpoint for every rank
+            t0 = time.perf_counter()
+            if args.layers:
+                part_a_b(args, rank, world, device, device_type, mesh, work[0])
+                _say(rank, f"(a, b) s={time.perf_counter() - t0:.1f}")
+            t0 = time.perf_counter()
+            if args.steps:
+                part_c(args, rank, world, device, device_type, mesh)
+                _say(rank, f"(c) s={time.perf_counter() - t0:.1f}")
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cuda", action="store_true", help="a torchrun job, one rank a card, over NCCL")
+    ap.add_argument("--ranks", type=int, default=2, help="CPU ranks (without --cuda)")
+    ap.add_argument("--arch", default="starcoder2-7b")
+    ap.add_argument("--layers", type=int, default=2, help="(a, b): the model's depth; 0 skips them")
+    ap.add_argument("--train-layers", type=int, default=0, help="(c): the depth (0: the configuration's)")
+    ap.add_argument("--steps", type=int, default=None, help="(c): steps (0 skips it; default 8, CPU 3)")
+    ap.add_argument("--batch", type=int, default=None, help="global batch (default 4)")
+    ap.add_argument("--seq", type=int, default=None, help="sequence (default 4096, CPU 32)")
+    args = ap.parse_args()
+    args.batch = args.batch or 4
+    args.seq = args.seq or (4096 if args.cuda else 32)
+    args.steps = (8 if args.cuda else 3) if args.steps is None else args.steps
+    if args.cuda:
+        if "RANK" not in os.environ:
+            raise SystemExit("--cuda runs under torchrun: torchrun --standalone --nproc-per-node N "
+                             "examples/torch_train_sharded.py --cuda")
+        rank_main(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), args, "")
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(rank_main, args=(args.ranks, args, os.path.join(tmp, "init")), nprocs=args.ranks)
+
+
+if __name__ == "__main__":
+    main()

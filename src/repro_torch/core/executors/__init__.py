@@ -8,6 +8,7 @@ from .jit_wave import (
     drain_memo_pressure,
     drain_memo_stats,
     program_cache_stats,
+    release_captured,
     set_drain_memo_capacity,
 )
 from .sharded import ShardExecutor, row_sharding
@@ -29,6 +30,7 @@ __all__ = [
     "group_wave",
     "plan_schedule",
     "program_cache_stats",
+    "release_captured",
     "row_sharding",
     "set_drain_memo_capacity",
 ]

@@ -50,6 +50,7 @@ from ...tree import flatten_with_paths, leaves, tree_map
 from ..data import GData, StackedEpoch
 
 _SIDE: Dict[int, torch.cuda.Stream] = {}  # device index -> warm-up/capture stream
+_CALLS: "weakref.WeakSet[CapturedCall]" = weakref.WeakSet()  # every live CapturedCall (release_calls)
 
 
 class CaptureError(RuntimeError):
@@ -69,6 +70,30 @@ def _restore(snap: List[Dict[str, int]]) -> None:
 
 def _delta(snap: List[Dict[str, int]]) -> List[Dict[str, int]]:
     return [{k: v - s.get(k, 0) for k, v in c.items() if v != s.get(k, 0)} for c, s in zip(COUNTERS, snap)]
+
+
+def _begin_capture(graph: torch.cuda.CUDAGraph):
+    """Begin a capture into a private pool of its own; returns the pool's
+    id (``_abort_capture`` needs it, and a graph gives it only once its
+    capture has succeeded)."""
+    pool = torch.cuda.graph_pool_handle()
+    graph.capture_begin(pool=pool)
+    return pool
+
+
+def _abort_capture(graph: torch.cuda.CUDAGraph, pool, device: torch.device) -> None:
+    """End a capture that failed.  ``capture_end`` ends the stream's capture
+    first and the allocator's after it; when the failure invalidated the
+    stream's capture, ``capture_end`` raises between the two, and the
+    allocator then counts a capture underway for good: from then on no
+    ``empty_cache`` releases a segment (ROADMAP C5: after the capture probe
+    of ``chip_smoke.py``, 82 GB of free segments stayed reserved).  So the
+    allocator's side is ended here."""
+    try:
+        graph.capture_end()
+    except RuntimeError:  # the capture was invalidated by the failure itself
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        torch._C._cuda_endAllocateToPool(index, pool)
 
 
 def _side_stream(device: torch.device) -> torch.cuda.Stream:
@@ -117,14 +142,11 @@ class CapturedProgram:
                 del scratch
                 _restore(snap)
                 graph = torch.cuda.CUDAGraph()
-                graph.capture_begin()
+                pool = _begin_capture(graph)
                 try:
                     self.fn(self.grids, self.idxs)
                 except BaseException as e:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass  # the capture was invalidated by the failure itself
+                    _abort_capture(graph, pool, device)
                     if isinstance(e, torch.cuda.OutOfMemoryError):
                         raise  # pressure, not a capture fault: the server degrades
                     notes = "; ".join(getattr(e, "__notes__", ()))
@@ -252,7 +274,9 @@ class CapturedCall:
     buffer as it is, any other tensor as a clone, so the next replay never
     changes a result the caller holds.  A capture that fails raises
     ``CaptureError`` naming ``name``; nothing falls back to eager on the
-    card.  On the CPU every call runs the function eagerly on the arguments.
+    card.  On the CPU, and with ``eager`` (a step over a mesh of more than
+    one device: capturing collectives is later work), every call runs the
+    function eagerly on the arguments, counting one compile.
 
     The call is bound to its first arguments' signature (``_signature``):
     where ``jax.jit`` would trace again, a later call whose trees differ in
@@ -262,16 +286,23 @@ class CapturedCall:
     broadcast, cast or land in the wrong buffer).
     """
 
-    def __init__(self, fn, name: str, donate: Sequence[bool] = ()):
+    def __init__(self, fn, name: str, donate: Sequence[bool] = (), eager: bool = False):
         self.fn = fn
         self.name = name
         self.donate = tuple(donate)
+        self.eager = eager
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static = None
         self.outputs = None
         self.compiles = 0  # captures (one a call site, as jax.jit's compile)
         self.graph_replays = 0
         self.signature = None
+        _CALLS.add(self)
+
+    def release(self) -> None:
+        """Drop the graph, its pool and the static buffers: the next call
+        on the card captures again (one more compile)."""
+        self.graph = self.static = self.outputs = None
 
     @property
     def captured(self) -> bool:
@@ -280,7 +311,7 @@ class CapturedCall:
     def __call__(self, *args):
         self._check(args)
         first = next((x for x in leaves(args) if torch.is_tensor(x)), None)
-        if first is None or first.device.type != "cuda":
+        if first is None or first.device.type != "cuda" or self.eager:
             self.compiles += self.compiles == 0
             return self.fn(*args)
         if self.graph is None:
@@ -304,14 +335,11 @@ class CapturedCall:
         torch.cuda.empty_cache()  # the graph's private pool takes what the warm-up freed
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream):
-            graph.capture_begin()
+            pool = _begin_capture(graph)
             try:
                 self.outputs = self.fn(*self.static)
             except BaseException as e:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture was invalidated by the failure itself
+                _abort_capture(graph, pool, device)
                 if isinstance(e, torch.cuda.OutOfMemoryError):
                     raise
                 raise CaptureError(f"capturing {self.name} failed: {type(e).__name__}: {e}") from e
@@ -344,3 +372,9 @@ class CapturedCall:
     def _hand_out(self, outputs):
         own = {id(x) for x in leaves(self.static) if torch.is_tensor(x)}
         return tree_map(lambda x: x if not torch.is_tensor(x) or id(x) in own else x.clone(), outputs)
+
+
+def release_calls() -> None:
+    """``release`` every live ``CapturedCall``."""
+    for call in list(_CALLS):
+        call.release()

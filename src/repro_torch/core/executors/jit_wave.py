@@ -32,6 +32,7 @@ place.
 
 from __future__ import annotations
 
+import gc
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -194,6 +195,24 @@ def clear_compile_cache() -> None:
     _GROUP_FN_CACHE.clear()
     _PROGRAMS.clear()
     _DRAIN_MEMO.clear()
+
+
+def release_captured() -> None:
+    """Release every captured program and its pool: the compile caches
+    (``clear_compile_cache``; the next drain of each key compiles and
+    captures again), every live ``CapturedCall``'s graph and static buffers
+    (its next call captures again), the cuBLAS workspaces of the capture
+    streams, and then the caching allocator's free segments.  Memory the
+    caller's tensors hold stays."""
+    from .captured import release_calls
+
+    clear_compile_cache()
+    release_calls()
+    gc.collect()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
 
 
 @dataclass(frozen=True)

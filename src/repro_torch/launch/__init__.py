@@ -1,4 +1,6 @@
-"""Launch layer of the port: step plans (``steps.py``), the analytic
+"""Launch layer of the port: meshes (``mesh.py``), the logical-axis
+sharding resolver and placement on a ``DeviceMesh`` (``sharding.py``), the
+train, prefill and decode step plans (``steps.py``), the analytic
 useful-FLOPs model (``roofline.py``) and the training entry point
-(``train.py``).  Meshes, sharding rules, the prefill and decode plans and
-the compiled-artifact cost model are ROADMAP A12."""
+(``train.py``).  The dry run over a faked production mesh and the
+compiled-artifact cost model are ROADMAP A12c."""

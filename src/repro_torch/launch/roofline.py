@@ -6,7 +6,7 @@ MODEL_FLOPS (useful compute) comes from the exact parameter template:
 sequence-mixing term per family (causal-aware).  A training step's model
 FLOPs over its time and the card's peak rate give its MFU.  The HLO-based
 three-term roofline waits for the port's compiled-artifact cost model
-(ROADMAP A12).
+(ROADMAP A12c).
 """
 
 from __future__ import annotations

@@ -2,13 +2,18 @@
 
     python -m repro_torch.launch.train --arch qwen3-32b --shape train_4k \\
         --steps 1000 --ckpt-dir DIR --ckpt-every 100 [--reduced] [--device cpu]
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --distributed ...
 
-Runs ``Trainer`` (the captured step, async checkpoints, resume) on one
-device, CUDA unless ``--device`` names another.  ``--reduced`` trains the
-reduced configuration at sequence 128, batch 8 (the reference's CPU
-harness shape); without it, the published configuration at ``--shape``.
-The reference's ``--production-mesh``, ``--multi-pod`` and
-``--distributed`` (multi-chip meshes) are ROADMAP A12.
+Runs ``Trainer`` (async checkpoints, resume) on one device, CUDA unless
+``--device`` names another, where the step is one captured CUDA graph.
+``--distributed`` joins the job torchrun started (its environment:
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``...; NCCL on the card, gloo on
+the CPU) and trains over ``make_local_mesh()``, a (world, 1) mesh over
+every rank, as the reference does without ``--production-mesh``.
+``--reduced`` trains the reduced configuration at sequence 128, batch 8
+(the reference's CPU harness shape); without it, the published
+configuration at ``--shape``.  ``--production-mesh`` and ``--multi-pod``
+parse and raise: their dry run is ROADMAP A12c.
 """
 
 from __future__ import annotations
@@ -17,9 +22,12 @@ import argparse
 import os
 import tempfile
 
+import torch
+
 from .. import optim
 from ..configs import get_arch, get_shape
 from ..configs.base import ShapeConfig
+from ..core.data import resolve_device
 from ..train import Trainer, TrainerConfig
 
 
@@ -33,7 +41,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_launch_train"))
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument("--distributed", action="store_true", help="train over every rank of a torchrun job")
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
+    if args.production_mesh or args.multi_pod:
+        raise NotImplementedError("--production-mesh/--multi-pod: the dry run over a faked 256/512-rank job is "
+                                  "ROADMAP A12c")
 
     cfg = get_arch(args.arch)
     shape = get_shape(args.shape)
@@ -41,8 +55,21 @@ def main(argv=None) -> dict:
         cfg = cfg.reduced()
         shape = ShapeConfig("reduced_train", seq_len=128, global_batch=8, kind="train")
 
+    mesh, started = None, False
+    if args.distributed:
+        import torch.distributed as dist
+
+        from .mesh import make_local_mesh
+
+        dev = resolve_device(args.device)
+        if not dist.is_initialized():
+            if dev.type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+            started = True
+        mesh = make_local_mesh(device_type=dev.type)
     trainer = Trainer(
-        cfg, shape, None,
+        cfg, shape, mesh,
         TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir),
         opt_cfg=optim.AdamWConfig(
             lr=optim.warmup_cosine(3e-4, warmup=min(100, args.steps // 10 + 1), total=args.steps),
@@ -50,7 +77,11 @@ def main(argv=None) -> dict:
         ),
         device=args.device,
     )
-    out = trainer.train()
+    try:
+        out = trainer.train()
+    finally:
+        if started:
+            dist.destroy_process_group()
     print(f"finished at step {out['step']}; stragglers={out['stragglers']} failures={out['failures']}")
     return out
 

@@ -35,6 +35,14 @@ Two forms, chosen by ``build_model(..., train=...)``:
   runs ``loss`` through ``torch.func.functional_call``: the gradients land
   in the fp32 masters, as the reference's backward through its convert
   does.
+
+Over a mesh every method takes ``moe_ctx`` (``models/moe.py`` ``MoeCtx``):
+the parameters are this rank's blocks, each gathered whole at use (the
+embedding, the head once a loss, each group in its rematerialised body;
+``models/spmd.py``), and the batch is this rank's rows.  Without it
+nothing is gathered, as on one device.  ``call(params, method, ...)`` runs
+``prefill``/``decode_step``/``forward`` over a flat dict of parameters, as
+``loss_of`` runs ``loss``.
 """
 
 from __future__ import annotations
@@ -186,6 +194,19 @@ def cast_for_forward(cfg: ArchConfig, params: Dict[str, torch.Tensor]) -> Dict[s
     return {k: p.to(cfg.compute_dtype) if _casts(p, k.split(".")) else p for k, p in params.items()}
 
 
+class _MethodCall(nn.Module):
+    """A ``Model`` method as a module call for ``functional_call`` (see
+    ``_LossCall``)."""
+
+    def __init__(self, model: "Model", method: str):
+        super().__init__()
+        self.params = model.params
+        object.__setattr__(self, "_fn", getattr(model, method))  # not a submodule
+
+    def forward(self, *args, **kwargs):
+        return self._fn(*args, **kwargs)
+
+
 class _LossCall(nn.Module):
     """``Model.loss`` as a module call for ``torch.func.functional_call``.
     It registers the model's ``ParamTree`` under the same attribute, so a
@@ -201,8 +222,8 @@ class _LossCall(nn.Module):
         self.params = model.params
         object.__setattr__(self, "_model", model)  # not a submodule
 
-    def forward(self, batch, wrt=None):
-        loss, metrics = self._model.loss(batch)
+    def forward(self, batch, wrt=None, moe_ctx=None):
+        loss, metrics = self._model.loss(batch, moe_ctx=moe_ctx)
         if wrt is None:
             return loss, metrics
         grads = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
@@ -226,20 +247,28 @@ class Model(nn.Module):
         of the training form, and AdamW's tree."""
         return dict(self.params.named_parameters())
 
-    def _call(self, params: Dict[str, torch.Tensor], *args):
+    def _call(self, params: Dict[str, torch.Tensor], *args, moe_ctx=None):
         cast = cast_for_forward(self.cfg, params)
         # a wrapper a call (kept on the model it would make a reference cycle,
         # and the model's parameters would wait for the garbage collector)
-        return torch.func.functional_call(_LossCall(self), {f"params.{k}": v for k, v in cast.items()}, args)
+        return torch.func.functional_call(_LossCall(self), {f"params.{k}": v for k, v in cast.items()}, args,
+                                          {"moe_ctx": moe_ctx})
 
-    def loss_of(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
+    def call(self, params: Dict[str, torch.Tensor], method: str, *args, **kwargs):
+        """``method`` (``prefill``, ``decode_step``, ``forward``...) over
+        ``params`` (a flat dict of ``train_params()``'s names, in the dtypes
+        the method should compute with) in place of the model's tensors."""
+        return torch.func.functional_call(_MethodCall(self, method), {f"params.{k}": v for k, v in params.items()},
+                                          args, kwargs)
+
+    def loss_of(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], moe_ctx=None):
         """``loss`` over ``params`` (a dict of ``train_params()``'s names) in
         place of the model's own tensors, after ``cast_for_forward``.  Take
         gradients through ``value_and_grad``: a backward outside the call
         would recompute rematerialised blocks with the model's own tensors."""
-        return self._call(params, batch)
+        return self._call(params, batch, moe_ctx=moe_ctx)
 
-    def value_and_grad(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
+    def value_and_grad(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], moe_ctx=None):
         """``((loss, metrics), grads)``, the reference's ``jax.value_and_grad(
         loss, has_aux=True)``: ``grads`` maps each name of ``params`` to the
         gradient of the loss with respect to that (master) tensor, zeros
@@ -250,16 +279,23 @@ class Model(nn.Module):
         leaves = {k: v.detach().requires_grad_(v.is_floating_point()) for k, v in params.items()}
         names = [k for k, v in leaves.items() if v.requires_grad]
         with torch.enable_grad():
-            loss, metrics, grads = self._call(leaves, batch, [leaves[k] for k in names])
+            loss, metrics, grads = self._call(leaves, batch, [leaves[k] for k in names], moe_ctx=moe_ctx)
         return (loss, metrics), dict(zip(names, grads))
 
     # -- embedding / head --------------------------------------------------
-    def embed_batch(self, batch: Dict[str, torch.Tensor], positions: torch.Tensor) -> torch.Tensor:
+    def _param(self, name: str, moe_ctx=None) -> torch.Tensor:
+        """A top-level parameter, gathered whole over a mesh."""
+        p = self.params[name]
+        if moe_ctx is not None and moe_ctx.params is not None:
+            p = moe_ctx.params.leaf(name, p)
+        return p
+
+    def embed_batch(self, batch: Dict[str, torch.Tensor], positions: torch.Tensor, moe_ctx=None) -> torch.Tensor:
         cfg = self.cfg
         if "embeds" in batch:
             h = batch["embeds"].to(cfg.compute_dtype)
         else:
-            h = F.embedding(batch["tokens"].long(), self.params["embed"]).to(cfg.compute_dtype)
+            h = F.embedding(batch["tokens"].long(), self._param("embed", moe_ctx)).to(cfg.compute_dtype)
         if cfg.embed_scale:
             # the scale rounded to h's dtype, as jnp.asarray(..., h.dtype), a host scalar
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype).item()
@@ -267,18 +303,18 @@ class Model(nn.Module):
             h = h + sinusoidal_embed(positions, cfg.d_model).to(h.dtype)
         return h
 
-    def _head_weight(self) -> torch.Tensor:
+    def _head_weight(self, moe_ctx=None) -> torch.Tensor:
         if "lm_head" in self.params:
-            return self.params["lm_head"]  # (D, V)
-        return self.params["embed"].T  # tied
+            return self._param("lm_head", moe_ctx)  # (D, V)
+        return self._param("embed", moe_ctx).T  # tied
 
-    def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
+    def lm_logits(self, h: torch.Tensor, moe_ctx=None, w: Optional[torch.Tensor] = None) -> torch.Tensor:
         """float32 logits: bf16 operands give an fp32 product (the JAX
         ``preferred_element_type=float32``).  On the card a bf16 GEMM with an
         fp32 accumulator and fp32 output computes it from the bf16 head as
         it lies; elsewhere (the CPU has no such GEMM) the operands are
-        upcast, which copies the head."""
-        w = self._head_weight().to(self.cfg.compute_dtype)
+        upcast, which copies the head.  ``w``: the head, already gathered."""
+        w = (self._head_weight(moe_ctx) if w is None else w).to(self.cfg.compute_dtype)
         if w.is_cuda and h.dtype == w.dtype == torch.bfloat16:
             out = _Bf16Head.apply(h.reshape(-1, h.shape[-1]), w)
             return out.reshape(*h.shape[:-1], w.shape[-1])
@@ -292,12 +328,13 @@ class Model(nn.Module):
         positions: Optional[torch.Tensor] = None,
         cache=None,
         cache_pos=None,
+        moe_ctx=None,
     ):
         """Returns (hidden (B, S, D), cache); the cache is updated in place."""
-        h, cache, _ = self.forward_aux(batch, positions, cache, cache_pos)
+        h, cache, _ = self.forward_aux(batch, positions, cache, cache_pos, moe_ctx)
         return h, cache
 
-    def forward_aux(self, batch: Dict[str, torch.Tensor], positions=None, cache=None, cache_pos=None):
+    def forward_aux(self, batch: Dict[str, torch.Tensor], positions=None, cache=None, cache_pos=None, moe_ctx=None):
         """``forward`` that also returns the summed MoE aux loss, as the JAX
         package's ``forward`` does: (hidden, cache, aux)."""
         x0 = batch["embeds"] if "embeds" in batch else batch["tokens"]
@@ -309,43 +346,45 @@ class Model(nn.Module):
             elif cache_pos:
                 positions = positions + cache_pos
             positions = positions.expand(B, S)
-        h = self.embed_batch(batch, positions)
-        h, aux = stack_apply(self.cfg, self.params["stack"], h, positions, cache, cache_pos)
+        h = self.embed_batch(batch, positions, moe_ctx)
+        h, aux = stack_apply(self.cfg, self.params["stack"], h, positions, cache, cache_pos, moe_ctx)
         return norm_apply(self.cfg, self.params["final_norm"], h), cache, aux
 
-    def _chunk_stats(self, hh: torch.Tensor, yy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = self.lm_logits(hh)
+    def _chunk_stats(self, hh: torch.Tensor, yy: torch.Tensor, w: Optional[torch.Tensor] = None):
+        logits = self.lm_logits(hh, w=w)
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, yy[..., None])[..., 0]
         return (lse - gold).sum(), (logits.argmax(-1) == yy).sum()
 
-    def chunked_xent(self, h: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def chunked_xent(self, h: torch.Tensor, labels: torch.Tensor, moe_ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-entropy over sequence chunks of ``cfg.loss_chunk``, so the
         (B, S, V) float32 logits never exist whole; under grad each chunk is
         rematerialised, so the backward recomputes its logits instead of
-        keeping them (the reference's ``jax.checkpoint``).  Returns (mean
-        loss, token accuracy)."""
+        keeping them (the reference's ``jax.checkpoint``).  Over a mesh the
+        head is gathered once, before the chunks.  Returns (mean loss, token
+        accuracy)."""
         B, S, D = h.shape
         c = min(self.cfg.loss_chunk, S)
         if S % c != 0:
             c = S
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
         acc = torch.zeros((), dtype=torch.int64, device=h.device)
+        w = self._head_weight(moe_ctx) if moe_ctx is not None and moe_ctx.params is not None else None
         grad = torch.is_grad_enabled() and (h.requires_grad or self._head_weight().requires_grad)
         for hh, yy in zip(h.split(c, dim=1), labels.long().split(c, dim=1)):
             if grad:
-                l, a = checkpoint(self._chunk_stats, hh, yy, use_reentrant=False, preserve_rng_state=False)
+                l, a = checkpoint(self._chunk_stats, hh, yy, w, use_reentrant=False, preserve_rng_state=False)
             else:
-                l, a = self._chunk_stats(hh, yy)
+                l, a = self._chunk_stats(hh, yy, w)
             tot = tot + l
             acc = acc + a
         n = B * S
         return tot / n, acc.float() / n
 
-    def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, batch: Dict[str, torch.Tensor], moe_ctx=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
-        h, _, aux = self.forward_aux(batch)
-        loss, acc = self.chunked_xent(h, batch["labels"])
+        h, _, aux = self.forward_aux(batch, moe_ctx=moe_ctx)
+        loss, acc = self.chunked_xent(h, batch["labels"], moe_ctx)
         metrics = {"xent": loss, "accuracy": acc}
         if cfg.is_moe:
             n_moe = sum(1 for d in group_layout(cfg) if d.moe) * n_groups(cfg)
@@ -355,17 +394,17 @@ class Model(nn.Module):
         metrics["loss"] = loss
         return loss, metrics
 
-    def prefill(self, batch: Dict[str, torch.Tensor], cache):
+    def prefill(self, batch: Dict[str, torch.Tensor], cache, moe_ctx=None):
         """Run the prompt filling ``cache`` from position 0.  Returns
         (last-token logits (B, V), cache)."""
-        h, cache = self.forward(batch, cache=cache, cache_pos=0)
-        return self.lm_logits(h[:, -1]), cache
+        h, cache = self.forward(batch, cache=cache, cache_pos=0, moe_ctx=moe_ctx)
+        return self.lm_logits(h[:, -1], moe_ctx), cache
 
-    def decode_step(self, cache, batch: Dict[str, torch.Tensor], pos):
+    def decode_step(self, cache, batch: Dict[str, torch.Tensor], pos, moe_ctx=None):
         """One decode step at ``pos`` (a scalar, or (B,) per-row positions).
         Returns (logits (B, V), cache)."""
-        h, cache = self.forward(batch, cache=cache, cache_pos=pos)
-        return self.lm_logits(h[:, -1]), cache
+        h, cache = self.forward(batch, cache=cache, cache_pos=pos, moe_ctx=moe_ctx)
+        return self.lm_logits(h[:, -1], moe_ctx), cache
 
     def init_cache(self, batch: int, max_seq: int):
         return init_cache(self.cfg, batch, max_seq, device=self.device)
@@ -391,7 +430,7 @@ def _load(cfg: ArchConfig, template, params, device, path: str = "", cast=_cast_
 
 
 def build_model(cfg: ArchConfig, params: Optional[Dict[str, Any]] = None, *, seed: int = 0,
-                device=None, train: bool = False) -> Model:
+                device=None, train: bool = False, shardings: Optional[Dict[str, Any]] = None) -> Model:
     """A ``Model`` of ``cfg`` on ``device`` (CUDA unless the caller passes
     another; raises without it).  ``params`` is a tree in the port's layout
     (``models/convert.py`` makes one from the JAX package's); without it
@@ -401,10 +440,21 @@ def build_model(cfg: ArchConfig, params: Optional[Dict[str, Any]] = None, *, see
     masters that require grad, never cast (module docstring).  On the
     ``meta`` device nothing is drawn: the model is a structure for
     ``loss_of`` and ``value_and_grad``, whose parameters the caller
-    passes."""
+    passes.
+
+    ``shardings`` ({name: ``launch.sharding.NamedSharding``}, the flat
+    dict's names) keeps only this rank's block of each leaf: each leaf is
+    drawn (or loaded) whole, cast, cut and freed before the next, so the
+    blocks are the one-device model's, bit for bit, and no rank holds more
+    than one whole leaf at a time."""
     template = model_template(cfg)
     dev = resolve_device(device)
     rule = _master if train else _cast_at_load
+    if shardings is not None and dev.type != "meta":
+        from ..launch.sharding import shard
+
+        whole = rule
+        rule = lambda cfg, t, path: shard(whole(cfg, t, path), shardings[path.lstrip("/").replace("/", ".")]).clone()
     if dev.type == "meta":
         params = map_template(template, lambda s, path: rule(cfg, torch.empty(s.shape, dtype=cfg.param_dtype,
                                                                                device=dev), path))

@@ -1,6 +1,13 @@
-"""Mixture-of-Experts layer: top-k router and two single-device dispatch
-strategies (the JAX package's ``models/moe.py``).
+"""Mixture-of-Experts layer: top-k router and three dispatch strategies
+(the JAX package's ``models/moe.py``).
 
+``ep``     (over a mesh): expert parallelism.  Tokens stay on their data
+           shard, experts are split over the ``model`` mesh axis; every
+           model rank routes its shard's tokens, builds the capacity buffer
+           of *its* experts only (capacity sized on the shard's tokens) and
+           the combine is one sum over the ``model`` group (the GShard
+           dataflow).  The experts' FSDP'd ``embed`` dim arrives gathered
+           over the data axes (gather at use, ``models/spmd.py``).
 ``gather`` (the default): capacity-bounded scatter/gather permutation,
            O(T·k·D) data movement, linear in tokens.
 ``dense``  : Mesh-TF style one-hot dispatch products, O(T·E·C) FLOPs, kept
@@ -17,21 +24,59 @@ way.  The order matters: a token's slot in its expert's buffer is a
 cumulative count over the flattened (T·k) assignments, so another order
 would move tokens across the capacity cut.
 
-Not ported here: the JAX package's ``MoeCtx`` and ``_moe_ep`` (expert
-parallelism under ``shard_map``), which are multi-chip (ROADMAP A12).
-The expert products are batched matrix products, as the reference's XLA
-einsums are; no hand-written kernel is involved.
+``MoeCtx`` is the parallel context the plans over a mesh pass down the
+model (``launch/steps.py`` ``moe_ctx_for``).  The reference's layout
+anchors only guide its partitioner and have no counterpart here
+(``src/repro_torch/DESIGN.md``).  The expert products are batched matrix
+products, as the reference's XLA einsums are; no hand-written kernel is
+involved.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from .layers import PSpec, _gelu
+from .spmd import copy_to, mean_value, reduce_from
+
+
+@dataclass(frozen=True)
+class MoeCtx:
+    """Parallel context: the EP dispatch's axes, and gather at use.
+
+    ``batch_axes``: mesh axes the token batch dim is sharded over (the
+    rules' candidates; ``rows_axes`` those the rows of this call are split
+    over).  ``model_axis``: the axis experts are sharded over.  ``params``
+    gathers each parameter at use (``models/spmd.py`` ``ParamGather``).
+    """
+
+    mesh: Any
+    batch_axes: Tuple[str, ...] = ("data",)
+    model_axis: Optional[str] = "model"
+    rows_axes: Tuple[str, ...] = ()
+    params: Optional[Any] = None
+
+    def _size(self, axes) -> int:
+        from ..launch.sharding import mesh_sizes
+
+        sizes = mesh_sizes(self.mesh)
+        return math.prod(sizes[a] for a in axes)
+
+    def group(self, axis: str):
+        from ..launch.sharding import mesh_names
+
+        return self.mesh.get_group(mesh_names(self.mesh).index(axis))
+
+    def index(self, axis: str) -> int:
+        from ..launch.sharding import mesh_names
+
+        return self.mesh.get_coordinate()[mesh_names(self.mesh).index(axis)]
 
 
 def moe_template(cfg: ArchConfig) -> Dict[str, PSpec]:
@@ -140,14 +185,85 @@ def _shared_expert(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     return up @ p["shared_wo"].to(x.dtype)
 
 
-def moe_apply(cfg: ArchConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux loss)."""
+def use_ep(cfg: ArchConfig, ctx: Optional[MoeCtx]) -> bool:
+    """The reference's rule: EP whenever a mesh has the model axis and it
+    divides the experts."""
+    from ..launch.sharding import mesh_names, mesh_sizes
+
+    return (
+        ctx is not None
+        and ctx.mesh is not None
+        and ctx.model_axis is not None
+        and ctx.model_axis in mesh_names(ctx.mesh)
+        and cfg.n_experts % mesh_sizes(ctx.mesh)[ctx.model_axis] == 0
+    )
+
+
+def moe_apply(cfg: ArchConfig, p, x: torch.Tensor, ctx: Optional[MoeCtx] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) (this rank's rows over a mesh) -> (out, aux loss)."""
     B, S, D = x.shape
-    xf = x.reshape(B * S, D)
-    gates, idx, aux = _router(cfg, p["router"], xf)
-    C = _capacity(cfg, B * S)
-    dispatch = _dense_dispatch if cfg.moe_dispatch == "dense" else _gather_dispatch
-    out = dispatch(cfg, p, xf, gates, idx, C).reshape(B, S, D)
+    if use_ep(cfg, ctx):
+        out, aux = _moe_ep(cfg, p, x, ctx)
+    else:
+        if ctx is not None and ctx.mesh is not None and ctx._size(ctx.rows_axes) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.n_experts} experts do not divide the model axis, and the local dispatch over "
+                f"rows split on {ctx.rows_axes} would size capacity per shard where the reference sizes it on the "
+                "whole batch")
+        xf = x.reshape(B * S, D)
+        gates, idx, aux = _router(cfg, p["router"], xf)
+        C = _capacity(cfg, B * S)
+        dispatch = _dense_dispatch if cfg.moe_dispatch == "dense" else _gather_dispatch
+        out = dispatch(cfg, p, xf, gates, idx, C).reshape(B, S, D)
     if cfg.shared_expert:
         out = out + _shared_expert(cfg, p, x)
     return out, aux
+
+
+def _moe_ep(cfg: ArchConfig, p, x: torch.Tensor, ctx: MoeCtx):
+    """Expert parallelism (module docstring) on this rank's rows: the
+    reference's ``shard_map`` body.  ``p``'s expert leaves hold this model
+    rank's ``E // tp`` experts."""
+    from ..launch.sharding import mesh_names
+
+    maxis = ctx.model_axis
+    tp = ctx._size((maxis,))
+    E, k = cfg.n_experts, cfg.top_k
+    E_loc = E // tp
+    B, S, D = x.shape
+    rows = ctx._size(ctx.rows_axes)
+    # the reference's axes of the global batch: all of them, or none
+    baxes = tuple(a for a in ctx.batch_axes if a in mesh_names(ctx.mesh))
+    if (B * rows) % ctx._size(baxes) != 0:
+        baxes = ()
+    if ctx._size(baxes) != rows:
+        raise NotImplementedError(f"EP over batch axes {baxes}, the rows are split over {ctx.rows_axes}")
+    T = B * S
+    C = _capacity(cfg, T)
+    xf = x.reshape(T, D)
+    gates, idx, aux = _router(cfg, p["router"], xf)
+    e0 = ctx.index(maxis) * E_loc
+    flat_e = idx.reshape(-1)  # (T*k,)
+    local = (flat_e >= e0) & (flat_e < e0 + E_loc)
+    le = torch.where(local, flat_e - e0, E_loc)  # E_loc: the "overflow expert"
+    pos = torch.cumsum(F.one_hot(le, E_loc + 1).T.contiguous(), dim=1) - 1  # (E_loc + 1, T*k)
+    pos = pos.gather(0, le[None])[0]
+    keep = local & (pos < C)
+    dest = torch.where(keep, le * C + pos, E_loc * C)
+    if tp > 1:
+        group = ctx.group(maxis)
+        xf, gates = copy_to(xf, group), copy_to(gates, group)
+    src = xf.repeat_interleave(k, dim=0) if k > 1 else xf
+    buf = torch.zeros(E_loc * C + 1, D, dtype=xf.dtype, device=xf.device)
+    buf = buf.index_copy(0, dest, src)
+    gated = cfg.mlp_type in ("swiglu", "geglu")
+    h = _expert_ffn(cfg, p["wi"], p["wg"] if gated else None, p["wo"], buf[: E_loc * C].reshape(E_loc, C, D))
+    hflat = torch.cat([h.reshape(E_loc * C, D), h.new_zeros(1, D)])
+    back = hflat[dest] * gates.reshape(-1)[:, None].to(h.dtype)
+    out = back.reshape(T, k, D).sum(1)
+    if tp > 1:
+        out = reduce_from(out, ctx.group(maxis))  # combine the expert shards
+    for a in baxes:
+        if ctx._size((a,)) > 1:
+            aux = mean_value(aux, ctx.group(a), ctx._size((a,)))
+    return out.reshape(B, S, D), aux

@@ -36,10 +36,15 @@ uses ``torch.utils.checkpoint`` without reentry and without saving the RNG
 state (no layer draws random numbers, and reading the CUDA RNG state is
 not allowed while a CUDA graph captures the step).
 
-Not ported, by design: ``scan_layers`` (the port loops over the groups),
-``cast_in_scan`` (it only moves the reference's convert; the values are
-the same) and ``MoeCtx``'s sharding anchors (multi-chip layouts, ROADMAP
-A12).
+Over a mesh (``ctx``, a ``MoeCtx`` with ``params``) each group's
+parameters are gathered whole at use, inside the rematerialised body, so
+the recompute gathers again (``models/spmd.py``); MoE layers get the
+context for expert parallelism.  ``cache_logical`` gives the cache's
+logical axes, as the reference's.
+
+Not ported, by design: ``scan_layers`` (the port loops over the groups)
+and ``cast_in_scan`` (it only moves the reference's convert; the values
+are the same).
 """
 
 from __future__ import annotations
@@ -163,6 +168,29 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None):
     return cache
 
 
+def _layer_cache_logical(cfg: ArchConfig, desc: LayerDesc) -> Dict[str, Tuple[Optional[str], ...]]:
+    """One layer's cache leaves' logical axes, without the leading
+    ``"layers"`` dim (the reference's ``_layer_cache_shape``)."""
+    if desc.kind == "rwkv":
+        return {"wkv": ("batch", "heads", "head_dim", None), "shift_tm": ("batch", "embed"),
+                "shift_cm": ("batch", "embed")}
+    if desc.kind == "mamba":
+        return {"ssm": ("batch", "heads", "state", "head_dim"), "conv_x": ("batch", None, "heads", "head_dim"),
+                "conv_b": ("batch", None, None, "state"), "conv_c": ("batch", None, None, "state")}
+    ax = ("batch", "seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax}
+
+
+def cache_logical(cfg: ArchConfig):
+    """The logical axes of ``init_cache``'s leaves, in its tree: every leaf
+    led by ``"layers"`` (its ``n_groups`` dim)."""
+    lead = lambda t: {k: ("layers",) + v for k, v in t.items()}
+    out: Dict[str, Any] = {"layers": [lead(_layer_cache_logical(cfg, d)) for d in group_layout(cfg)]}
+    if has_shared_block(cfg):
+        out["shared"] = lead(_layer_cache_logical(cfg, SHARED))
+    return out
+
+
 def cache_leaves(cache) -> List[torch.Tensor]:
     """Every leaf of a cache, layout (G, B, ...)."""
     return [t for c in cache["layers"] + [cache.get("shared", {})] for t in c.values()]
@@ -180,6 +208,7 @@ def _layer_apply(
     cache: Optional[Dict[str, torch.Tensor]],
     cache_pos,
     aux: Optional[List[torch.Tensor]] = None,
+    ctx=None,
 ) -> torch.Tensor:
     """One layer; ``cache`` (this group's slice of the layer's state) is
     updated in place.  An MoE layer appends its aux loss to ``aux`` when
@@ -201,7 +230,7 @@ def _layer_apply(
     x = x + h
     h2 = norm_apply(cfg, p["ln2"], x)
     if desc.moe:
-        out, a = moe_apply(cfg, p["mlp"], h2)
+        out, a = moe_apply(cfg, p["mlp"], h2, ctx)
         if aux is not None:
             aux.append(a)
         return x + out
@@ -242,13 +271,19 @@ def remat(cfg: ArchConfig, fn, *args, params=()):
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
-def _group_apply(cfg, layout, p_g, shared, g: int, x, positions, cache, cache_pos):
+def _group_apply(cfg, layout, p_g, shared, g: int, x, positions, cache, cache_pos, ctx=None):
     """One group's layers, then the shared block where the family has one.
-    Returns (hidden, the group's summed MoE aux loss)."""
+    Returns (hidden, the group's summed MoE aux loss).  With a context that
+    gathers parameters, the group's (and the shared block's) are gathered
+    first."""
+    if ctx is not None and ctx.params is not None:
+        p_g = ctx.params.tree(p_g, f"stack.groups.{g}")
+        if shared is not None:
+            shared = ctx.params.tree(shared, "stack.shared")
     aux: List[torch.Tensor] = []
     for i, desc in enumerate(layout):
         c_i = None if cache is None else _slice(cache["layers"][i], g)
-        x = _layer_apply(cfg, desc, p_g["layers"][i], x, positions, c_i, cache_pos, aux)
+        x = _layer_apply(cfg, desc, p_g["layers"][i], x, positions, c_i, cache_pos, aux, ctx)
     if shared is not None:
         c_s = None if cache is None else _slice(cache["shared"], g)
         x = _layer_apply(cfg, SHARED, shared, x, positions, c_s, cache_pos)
@@ -265,6 +300,7 @@ def stack_apply(
     positions: torch.Tensor,  # (B, S)
     cache: Optional[Dict[str, Any]] = None,
     cache_pos=None,
+    ctx=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the layer groups in order, each followed by the shared block
     where the family has one, each group under ``cfg.remat`` when no cache
@@ -275,7 +311,7 @@ def stack_apply(
     shared = stack["shared"] if has_shared_block(cfg) else None
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for g, p_g in enumerate(stack["groups"]):
-        body = partial(_group_apply, cfg, layout, p_g, shared, g)
+        body = partial(_group_apply, cfg, layout, p_g, shared, g, ctx=ctx)
         if cache is None:
             params = [*p_g.parameters(), *(shared.parameters() if shared is not None else ())]
             x, aux = remat(cfg, body, x, positions, None, cache_pos, params=params)

@@ -53,12 +53,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(grads, state, params, cfg: AdamWConfig) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+def update(grads, state, params, cfg: AdamWConfig, gnorm=None) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Returns (new_params, new_state, metrics); ``params`` and ``state``
-    are updated in place and returned."""
+    are updated in place and returned.  ``gnorm``: the gradient's global
+    norm where ``grads`` are blocks of a tree split over ranks (the step
+    over a mesh computes it); ``global_norm(grads)`` otherwise."""
     count = state["count"]
     count.add_(1)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0) if cfg.clip_norm else 1.0
     lr = cfg.lr(count) if callable(cfg.lr) else torch.full((), cfg.lr, dtype=torch.float32, device=count.device)
     b1, b2 = cfg.b1, cfg.b2

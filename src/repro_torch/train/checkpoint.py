@@ -18,8 +18,10 @@ its bits: it is written as ``uint16`` with ``bfloat16`` recorded in
     (tmp dir + rename; restore scans only completed dirs).
   * **async**    — ``save_async`` copies the tensors to the host, then
     writes on a background thread (one save in flight); training continues.
-  * **elastic**  — leaves are stored whole, so ``restore`` places them on
-    any device (placement over a mesh is ROADMAP A12).
+  * **elastic**  — leaves are stored whole: a ``DTensor`` leaf (a state
+    split over a mesh) is gathered leaf by leaf, every rank taking part,
+    and rank 0 alone writes; ``restore(..., shardings=)`` cuts each rank's
+    block for any mesh, another than the saver's included.
   * **self-validating** — per-leaf CRCs catch torn/corrupt files.
   * **GC**       — keeps the most recent ``keep`` checkpoints.
 """
@@ -64,6 +66,19 @@ def _to_host(x):
     return np.asarray(x)
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _whole(x):
+    """A ``DTensor`` leaf gathered whole (a collective); anything else as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def _crc(a: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
 
@@ -78,15 +93,26 @@ class Checkpointer:
 
     # -- save ----------------------------------------------------------------
     def save(self, step: int, state: Any, block: bool = True) -> None:
+        """Every rank calls it where ``state`` holds ``DTensor``s; rank 0
+        writes."""
         dtypes = {k: BF16 for k, v in flatten_with_paths(state).items()
                   if torch.is_tensor(v) and v.dtype == torch.bfloat16}
         if not block:
             self.wait()  # one in-flight save at a time
-        # copied off the device before any thread starts; the writer owns
+        # copied off the device before any thread starts, leaf by leaf (a
+        # split leaf gathered whole only while it is copied); the writer owns
         # the only reference, and drops each leaf once it is in the file
-        host = flatten_with_paths(tree_map(_to_host, state))
+        rank0 = _rank() == 0
+
+        def leaf(x):
+            x = _whole(x)
+            return _to_host(x) if rank0 else None
+
+        host = flatten_with_paths(tree_map(leaf, state))
         if any(torch.is_tensor(v) and v.is_cuda for v in flatten_with_paths(state).values()):
             torch.cuda.synchronize()  # the pinned copies have landed
+        if not rank0:
+            return
         structure = _structure(state)
         if block:
             self._write(step, host, dtypes, structure)
@@ -162,10 +188,13 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, target: Any, step: Optional[int] = None, device=None,
-                validate: bool = True) -> Tuple[Any, int]:
+                validate: bool = True, shardings: Optional[Any] = None) -> Tuple[Any, int]:
         """Restore into the structure, shapes and dtypes of ``target`` (a
         tree of tensors, meta-device ones included), on ``device`` (CUDA
-        unless the caller names another)."""
+        unless the caller names another).  ``shardings``: a tree of
+        ``launch.sharding.NamedSharding``s over ``target``'s structure; each
+        leaf is then this rank's block, placed as a ``DTensor`` (elastic: the
+        mesh need not be the saver's)."""
         dev = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -178,6 +207,7 @@ class Checkpointer:
             for k, crc in meta["crc"].items():
                 if _crc(arrays[k]) != crc:
                     raise IOError(f"checkpoint {d} leaf {k}: CRC mismatch")
+        flat_s = flatten_with_paths(shardings) if shardings is not None else {}
         out = {}
         for k, tgt in flatten_with_paths(target).items():
             if k not in arrays:
@@ -189,7 +219,13 @@ class Checkpointer:
                 t = torch.from_numpy(np.array(v).view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(v))
-            out[k] = t.to(device=dev, dtype=tgt.dtype)
+            if k in flat_s:
+                from ..launch import sharding as sh
+
+                out[k] = sh.place(sh.shard(t, flat_s[k]).to(device=dev, dtype=tgt.dtype, copy=True), flat_s[k],
+                                  tuple(tgt.shape))
+            else:
+                out[k] = t.to(device=dev, dtype=tgt.dtype)
         return unflatten_like(target, out), step
 
 

@@ -13,10 +13,20 @@ Fault-tolerance model (scaled from the 1000-node design to this harness):
     non-finite loss with ``abort_on_nan``) triggers restore-from-last-
     checkpoint and replay; ``max_failures`` bounds the retry budget.  A
     failed capture (``CaptureError``) is no step failure: it raises.
-    Failures are injectable for tests (``inject_failure``).
+    Failures are injectable for tests (``inject_failure``).  Over a mesh
+    of more than one device a ``RuntimeError`` may be one rank's alone
+    (an OOM, a fault on one card) while the other ranks wait in the step's
+    collectives, where no rank can recover on its own: the rank re-raises
+    once its checkpoint write has finished, the job ends (a peer's
+    collective fails once the rank is gone) and its restart resumes from
+    the latest checkpoint (torchrun's restart, ``restore(shardings=)``).
+    A non-finite loss is the global batch's, so every rank sees it at the
+    same step and all recover together.
   * **straggler watchdog** — per-step wall times feed a rolling median;
     steps slower than ``straggler_factor`` x median are counted.
-  * **preemption** — SIGTERM triggers a synchronous final checkpoint.
+  * **preemption** — SIGTERM triggers a synchronous final checkpoint;
+    over a mesh the ranks agree after every step whether any was
+    signalled, so all stop after the same step.
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ from ..configs.base import ArchConfig, ShapeConfig
 from ..core.data import resolve_device
 from ..core.executors.captured import CaptureError
 from ..data.pipeline import DataConfig, SyntheticLMDataset, sharded_batches
-from ..launch.steps import StepPlan, check_mesh, make_train_step
+from ..launch.steps import StepPlan, make_train_step, train_state
 from ..models.model import build_model
 from .checkpoint import Checkpointer
 
@@ -72,8 +82,13 @@ class StepStats:
 
 class Trainer:
     """Trains ``cfg`` at ``shape`` on ``device`` (CUDA unless the caller
-    names another; raises without it).  ``mesh`` is None or a one-device
-    ``DeviceMesh`` (sharded training is ROADMAP A12)."""
+    names another; raises without it).  ``mesh``: None, or a
+    ``DeviceMesh`` over ("data", "model") (every rank builds the same
+    ``Trainer``).  Over more than one device the state is ``DTensor``s split
+    as the plan places them: each rank draws the seeded init leaf by leaf
+    and keeps its blocks (bit for bit the one-device init's), the batches
+    are each rank's rows, checkpoints are written whole by rank 0 and
+    restored onto whatever mesh the resuming trainer has."""
 
     def __init__(
         self,
@@ -85,7 +100,6 @@ class Trainer:
         data_cfg: Optional[DataConfig] = None,
         device=None,
     ):
-        check_mesh(mesh)
         self.cfg = cfg
         self.shape = shape
         self.mesh = mesh
@@ -108,8 +122,34 @@ class Trainer:
     def init_state(self):
         """Masters drawn from a generator seeded with ``tcfg.seed``, on the
         trainer's device, and AdamW's zero state."""
-        params = build_model(self.cfg, seed=self.tcfg.seed, device=self.device, train=True).train_params()
-        return params, optim.init(params, self.opt_cfg)
+        if not self._split:
+            params = build_model(self.cfg, seed=self.tcfg.seed, device=self.device, train=True).train_params()
+            return params, optim.init(params, self.opt_cfg)
+        blocks = build_model(self.cfg, seed=self.tcfg.seed, device=self.device, train=True,
+                             shardings=self.plan.in_shardings[0]).train_params()
+        return train_state(self.plan, blocks, self.opt_cfg)
+
+    @property
+    def _split(self) -> bool:
+        return self.mesh is not None and self.mesh.size() > 1
+
+    def _barrier(self) -> None:
+        """Every rank at once (a checkpoint rank 0 wrote is complete)."""
+        if self._split:
+            import torch.distributed as dist
+
+            dist.barrier()
+
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank (every rank calls it)."""
+        if not self._split:
+            return flag
+        import torch
+        import torch.distributed as dist
+
+        x = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        return bool(x.item())
 
     # -- fault handling ---------------------------------------------------------
     def _install_sigterm(self):
@@ -123,7 +163,8 @@ class Trainer:
             return None  # non-main thread (tests)
 
     def _batches(self, start: int):
-        return sharded_batches(self.dataset, self.device, start_index=start, embeds_cfg=self.cfg)
+        shardings = self.plan.in_shardings[2] if self._split else None
+        return sharded_batches(self.dataset, self.device, start_index=start, embeds_cfg=self.cfg, shardings=shardings)
 
     # -- loop ------------------------------------------------------------------
     def train(
@@ -153,7 +194,8 @@ class Trainer:
         batches = self._batches(start_step)
         failures = 0
         step = start_step
-        while step < t.steps and not self._preempted:
+        stop = self._any_rank(self._preempted)  # SIGTERM, agreed by every rank
+        while step < t.steps and not stop:
             batch = next(batches)
             t0 = time.time()
             try:
@@ -167,11 +209,17 @@ class Trainer:
                 raise
             except (RuntimeError, FloatingPointError) as e:
                 failures += 1
+                if self._split and not isinstance(e, FloatingPointError):
+                    print(f"[trainer] step {step} failed ({e}) on a mesh; the job restarts "
+                          "from the latest checkpoint")
+                    self.ckpt.wait()
+                    raise
                 print(f"[trainer] step {step} failed ({e}); "
                       f"restoring (failure {failures}/{t.max_failures})")
                 if failures > t.max_failures:
                     raise
                 self.ckpt.wait()
+                self._barrier()
                 if self.ckpt.latest_step() is not None:
                     params, opt_state, step = self._restore()
                 else:
@@ -187,6 +235,7 @@ class Trainer:
             self.metrics_log.append({"step": step, **m})
             if on_metrics:
                 on_metrics(step, m)
+            stop = self._any_rank(self._preempted)
             if step % t.log_every == 0 or step == t.steps:
                 print(
                     f"[trainer] step {step:5d} loss={m['loss']:.4f} "
@@ -194,12 +243,13 @@ class Trainer:
                     f"gnorm={m.get('grad_norm', 0):.2f} {dt*1e3:.0f}ms"
                     + (" STRAGGLER" if slow else "")
                 )
-            if step % t.ckpt_every == 0 or step == t.steps or self._preempted:
+            if step % t.ckpt_every == 0 or step == t.steps or stop:
                 self.ckpt.save_async(step, {"params": params, "opt": opt_state})
         self.ckpt.wait()
-        if self._preempted:
+        if stop:
             self.ckpt.save(step, {"params": params, "opt": opt_state})
             print(f"[trainer] preempted; checkpointed step {step}")
+        self._barrier()
         return {
             "params": params,
             "opt_state": opt_state,
@@ -211,6 +261,10 @@ class Trainer:
 
     def _restore(self):
         target = {"params": self.plan.args[0], "opt": self.plan.args[1]}
+        if self._split:
+            shardings = {"params": self.plan.in_shardings[0], "opt": self.plan.in_shardings[1]}
+            state, step = self.ckpt.restore(target, device=self.device, shardings=shardings)
+            return state["params"], state["opt"], step
         state, step = self.ckpt.restore(target, device=self.device)
         for p in state["params"].values():
             p.requires_grad_(p.is_floating_point())

@@ -460,13 +460,18 @@ def test_jitted_step_refuses_another_signature(change):
 
 
 def test_step_plan_mesh_and_device():
+    """A mesh whose axes the rule tables do not know is refused (plans over
+    ("data", "model") meshes: tests/test_torch_launch*.py); a batch on
+    another device than the plan's raises."""
     class TwoDevices:
+        mesh_dim_names = ("x",)
+
         def size(self):
             return 2
 
     cfg = ARCHS["qwen3-32b"].reduced()
     shape = ShapeConfig("t", 16, 4, "train")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="mesh axes"):
         make_train_step(cfg, TwoDevices(), shape, device="cpu")
     plan = make_train_step(cfg, None, shape, device="cpu")
     p = build_model(cfg, device="cpu", train=True).train_params()
