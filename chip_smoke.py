@@ -190,6 +190,19 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    mesh-less plan, both captured: equal but for the embedding leaf's
    atomics; 9d granite's prefill plan through expert parallelism against
    ``Model.prefill``'s local dispatch, routers fp32.
+10. The dry run (``launch/dryrun.py``): its traces run on the host's CPU,
+   in a process of its own (``chip_smoke.py --phase 10-dry``) that ``main``
+   starts at the outset, beside phase 8: 9c's 2-layer train plan on a
+   faked (1, 1) job (fake tensors, no card), phase 8's configuration
+   (8 layers, B = 4, S = 4096) on (1, 1) and the whole 32-layer model on a
+   faked (4, 1) job, as ``examples/torch_train_sharded.py --cuda`` trains
+   it on four cards.  Then, on the card, one eager call of the same
+   2-layer plan over a world-size-1 NCCL mesh under ``FlopCounterMode``,
+   after ``reset_peak_memory_stats``: its FLOPs must equal the dry run's
+   exactly, and the dry run's predicted peak must lie within ``DRY_TOL``
+   of the measured one (``max_memory_allocated`` less what was allocated
+   before the step's state).  The other two peaks are printed beside
+   PERF.md's measured 48.67 and 33.65 GB.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing it.
@@ -3664,6 +3677,124 @@ def plan_path(torch) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 10: the dry run against the card
+# --------------------------------------------------------------------------
+DRY_TOL = 0.2  # the predicted peak within 20 % of the measured one
+# (name, layers (0: all 32), mesh, batch, PERF.md's measured peak in GB a card, its origin)
+DRY_CELLS = (("9c", PLAN_TRAIN["layers"], (1, 1), PLAN_TRAIN["batch"], None, ""),
+             ("phase 8", TRAIN_LAYERS, (1, 1), TRAIN_BATCH, 48.67, "phase 8's captured step, PERF.md"),
+             ("four cards", 0, (4, 1), 4, 33.65, "examples/torch_train_sharded.py --cuda (c), PERF.md"))
+
+
+def dry_cfg(layers: int):
+    """starcoder2-7b at its published widths, ``layers`` of them (0: all),
+    remat ``full`` and ``use_pallas`` off (the configuration's defaults, as
+    9c, phase 8 and the four-card run train it)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(LM)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def dry_phase() -> int:
+    """Phase 10's traces, on the CPU, in the process ``main`` starts for them
+    (``chip_smoke.py --phase 10-dry``): one JSON line of their records."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for name, layers, mesh, batch, _, _ in DRY_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(dry_cfg(layers), ShapeConfig("train_4k", TRAIN_SEQ, batch, "train"), name,
+                              mesh_shape=mesh, out=None)
+        out[name] = {"flops": rec["hlo_flops"], "memory": rec["memory"], "bottleneck": rec["bottleneck"],
+                     "collectives": rec["collectives"], "s": time.perf_counter() - t0, "ops": rec["ops"]}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def start_dry_phase():
+    """Starts phase 10's traces in a process of their own (CPU only)."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase", "10-dry"],
+                            stdout=subprocess.PIPE, text=True)
+
+
+def dryrun_path(torch, proc) -> None:
+    """Phase 10: the dry run's 2-layer train step against one eager call of
+    the same plan on the card (module docstring)."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset, sharded_batches
+    from repro_torch.launch import steps as st
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    stdout, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 10: the dry run's process exited {proc.returncode}")
+    dry = json.loads(stdout.strip().splitlines()[-1])
+    print(f"phase 10 dry runs (CPU, fake tensors): waited {time.perf_counter() - t0:.2f} s; trace s "
+          + ", ".join(f"{k} {v['s']:.1f} ({v['ops']} ops)" for k, v in dry.items()))
+    name, layers, mesh_shape, batch, _, _ = DRY_CELLS[0]
+    cfg = dry_cfg(layers)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, batch, "train")
+    opt_cfg = optim.AdamWConfig(state_dtype=cfg.optim_state_dtype)  # the plan's default, as the dry run's
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len, global_batch=shape.global_batch))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = one_device_mesh(torch, tmp)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            plan = st.make_train_step(cfg, mesh, shape, opt_cfg, device="cuda")
+            p, o = st.train_state(plan, build_model(cfg, seed=0, device="cuda", train=True).train_params(), opt_cfg)
+            batch_t = next(sharded_batches(ds, "cuda"))
+            torch.cuda.synchronize()
+            with FlopCounterMode(display=False) as fc:
+                _, _, met = plan.fn(p, o, batch_t)
+                loss = float(met["loss"])
+            torch.cuda.synchronize()
+            measured = torch.cuda.max_memory_allocated() - base
+            flops = fc.get_total_flops()
+            del p, o, batch_t, met, plan
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dry[name]
+    predicted = want["memory"]["total"]
+    ratio = predicted / measured
+    print(f"phase 10 {LM} {cfg.n_layers} layers, B={shape.global_batch} S={shape.seq_len}, mesh {mesh_shape}: "
+          f"FLOPs dry run={want['flops']:.6e} card (FlopCounterMode, one eager call)={flops:.6e} "
+          f"equal={want['flops'] == flops}; peak predicted={predicted / 1e9:.3f} GB (argument "
+          f"{want['memory']['argument_size_in_bytes'] / 1e9:.3f}, temp {want['memory']['temp_size_in_bytes'] / 1e9:.3f})"
+          f" measured={measured / 1e9:.3f} GB (max_memory_allocated less {base / 1e9:.3f} GB allocated before) "
+          f"ratio={ratio:.4f} (tol {DRY_TOL}); loss={loss:.6f}")
+    for name, layers, mesh_shape, batch, gb, origin in DRY_CELLS[1:]:
+        m = dry[name]["memory"]
+        print(f"phase 10 dry run {name}: {LM} {dry_cfg(layers).n_layers} layers, B={batch} S={TRAIN_SEQ}, mesh "
+              f"{mesh_shape}: peak a card predicted={m['total'] / 1e9:.3f} GB (argument "
+              f"{m['argument_size_in_bytes'] / 1e9:.3f}, temp {m['temp_size_in_bytes'] / 1e9:.3f}) beside measured "
+              f"{gb} GB ({origin}); ratio={m['total'] / 1e9 / gb:.4f}; FLOPs a card={dry[name]['flops']:.6e}, "
+              f"collectives {dry[name]['collectives']}, bottleneck {dry[name]['bottleneck']}")
+    if want["flops"] != flops:
+        raise AssertionError(f"phase 10: the dry run's FLOPs {want['flops']:.6e} != the card's {flops:.6e}")
+    if abs(ratio - 1) > DRY_TOL:
+        raise AssertionError(f"phase 10: predicted peak {predicted / 1e9:.3f} GB vs measured {measured / 1e9:.3f} GB")
+
+
+# --------------------------------------------------------------------------
 # C5: the allocator after phases 2-7
 # --------------------------------------------------------------------------
 RESERVED_SLACK = 2 << 30  # reserved may exceed allocated by at most this after the release
@@ -3739,6 +3870,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--phase", "10-dry"]:
+        return dry_phase()
+    dry = start_dry_phase()  # phase 10's traces, on the CPU, beside phases 8 and 1-9
+    try:
+        return main_phases(torch, dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+
+
+def main_phases(torch, dry) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
@@ -3800,6 +3943,9 @@ def main() -> int:
     t0 = time.perf_counter()
     plan_paths = plan_path(torch)
     print(f"phase 9 s={time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    dryrun_path(torch, dry)
+    print(f"phase 10 s={time.perf_counter() - t0:.2f}")
     sm90 = lm_kernels[0]
     sm90["paths"] = {LM: sm90["launches"], **flash_paths, **plan_paths}
     sm90["launches"] = sum(sm90["paths"].values())

@@ -11,8 +11,9 @@ environment).
 Production meshes (the reference's dry run over 256 and 512 chips):
 Single pod  : (16, 16)      axes ("data", "model")
 Multi pod   : (2, 16, 16)   axes ("pod", "data", "model")
-``make_production_mesh`` builds them over a job of that many ranks; the
-dry run that fakes such a job on one host is ROADMAP A12c.
+``make_production_mesh`` builds them over a job of that many ranks, real
+or faked in one process (torch's ``fake`` backend: ``launch/dryrun.py``,
+where CUDA is named without a card).
 """
 
 from __future__ import annotations
@@ -22,11 +23,20 @@ from typing import Optional, Tuple
 import torch
 
 
+def fake_job() -> bool:
+    """True in a job faked in one process: the default process group is
+    torch's ``fake`` backend (``launch/dryrun.py``), whose collectives
+    return at once; a mesh there names CUDA without a card."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized() and dist.get_backend() == "fake"
+
+
 def _device_type(device_type: Optional[str]) -> str:
     """CUDA unless the caller names another; raises without it."""
     if device_type is None:
         device_type = "cuda"
-    if device_type == "cuda" and not torch.cuda.is_available():
+    if device_type == "cuda" and not torch.cuda.is_available() and not fake_job():
         raise RuntimeError("a mesh on cuda needs a CUDA device; pass device_type='cpu' to lay it over the CPU")
     return device_type
 
@@ -52,7 +62,7 @@ def make_local_mesh(model: Optional[int] = None, data: Optional[int] = None, dev
         data = n // model
     if data * model != n:
         raise ValueError(f"a ({data}, {model}) mesh over {n} ranks")
-    if dev == "cuda":
+    if dev == "cuda" and not fake_job():
         import torch.distributed as dist
 
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
@@ -69,8 +79,8 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: Optional[str] 
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = _world()
     if n != shape[0] * shape[1] * (shape[2] if multi_pod else 1):
-        raise RuntimeError(f"the production mesh {shape} needs {256 * (2 if multi_pod else 1)} ranks, the job has {n}; "
-                           "the dry run over a faked job of that size is ROADMAP A12c")
+        raise RuntimeError(f"the production mesh {shape} needs {256 * (2 if multi_pod else 1)} ranks, the job has {n} "
+                           "(a dry run fakes such a job: python -m repro_torch.launch.dryrun)")
     return init_device_mesh(_device_type(device_type), shape, mesh_dim_names=axes)
 
 

@@ -12,8 +12,12 @@ the CPU) and trains over ``make_local_mesh()``, a (world, 1) mesh over
 every rank, as the reference does without ``--production-mesh``.
 ``--reduced`` trains the reduced configuration at sequence 128, batch 8
 (the reference's CPU harness shape); without it, the published
-configuration at ``--shape``.  ``--production-mesh`` and ``--multi-pod``
-parse and raise: their dry run is ROADMAP A12c.
+configuration at ``--shape``.  ``--production-mesh`` (with ``--multi-pod``:
+the (2, 16, 16) one) joins the job as ``--distributed`` does and trains the
+published configuration over ``make_production_mesh``, which needs a job of
+256 (512) ranks; with ``--reduced`` the flags are ignored, as the
+reference's are.  ``python -m repro_torch.launch.dryrun`` traces such a job
+without the cards.
 """
 
 from __future__ import annotations
@@ -42,12 +46,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     ap.add_argument("--distributed", action="store_true", help="train over every rank of a torchrun job")
-    ap.add_argument("--production-mesh", action="store_true")
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="train over the (16, 16) mesh of a 256-rank job (joins it as --distributed)")
+    ap.add_argument("--multi-pod", action="store_true", help="with --production-mesh: the (2, 16, 16) mesh")
     args = ap.parse_args(argv)
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError("--production-mesh/--multi-pod: the dry run over a faked 256/512-rank job is "
-                                  "ROADMAP A12c")
+    production = args.production_mesh and not args.reduced
 
     cfg = get_arch(args.arch)
     shape = get_shape(args.shape)
@@ -56,28 +59,31 @@ def main(argv=None) -> dict:
         shape = ShapeConfig("reduced_train", seq_len=128, global_batch=8, kind="train")
 
     mesh, started = None, False
-    if args.distributed:
-        import torch.distributed as dist
-
-        from .mesh import make_local_mesh
-
-        dev = resolve_device(args.device)
-        if not dist.is_initialized():
-            if dev.type == "cuda":
-                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
-            started = True
-        mesh = make_local_mesh(device_type=dev.type)
-    trainer = Trainer(
-        cfg, shape, mesh,
-        TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir),
-        opt_cfg=optim.AdamWConfig(
-            lr=optim.warmup_cosine(3e-4, warmup=min(100, args.steps // 10 + 1), total=args.steps),
-            state_dtype=cfg.optim_state_dtype,
-        ),
-        device=args.device,
-    )
     try:
+        if args.distributed or production:
+            import torch.distributed as dist
+
+            from .mesh import make_local_mesh, make_production_mesh
+
+            dev = resolve_device(args.device)
+            if not dist.is_initialized():
+                if dev.type == "cuda":
+                    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+                dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+                started = True
+            if production:
+                mesh = make_production_mesh(multi_pod=args.multi_pod, device_type=dev.type)
+            else:
+                mesh = make_local_mesh(device_type=dev.type)
+        trainer = Trainer(
+            cfg, shape, mesh,
+            TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir),
+            opt_cfg=optim.AdamWConfig(
+                lr=optim.warmup_cosine(3e-4, warmup=min(100, args.steps // 10 + 1), total=args.steps),
+                state_dtype=cfg.optim_state_dtype,
+            ),
+            device=args.device,
+        )
         out = trainer.train()
     finally:
         if started:

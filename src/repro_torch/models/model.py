@@ -64,11 +64,21 @@ from .layers import (PSpec, count_template, init_tensor, map_template, norm_appl
 from .transformer import group_layout, init_cache, n_groups, stack_apply, stack_template
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """The card's GEMM forms: a CUDA tensor, or a fake one, which stands for
+    a tensor on the card (the dry run traces the card's step on fake CPU
+    tensors, ``launch/dryrun.py``: a CPU build of torch runs no autograd on
+    fake CUDA ones)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return t.is_cuda or isinstance(t, FakeTensor)
+
+
 def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` of bf16 operands with an fp32 accumulator and an fp32
     result: one bf16 GEMM on the card; on the CPU (which has no such GEMM)
     the operands upcast, which is exact."""
-    if a.is_cuda:
+    if _on_card(a):
         return torch.mm(a, b, out_dtype=torch.float32)
     with fp32_matmul():
         return a.float() @ b.float()
@@ -215,18 +225,22 @@ class _LossCall(nn.Module):
     With ``wrt`` it also takes the gradients with respect to those tensors
     inside the call: a rematerialised block recomputes its forward during
     the backward and reads the parameters through the module then, so the
-    backward must run while the substitution holds."""
+    backward must run while the substitution holds.  ``wrt`` is held, not
+    passed as an input: a module tracker's hooks on a call's inputs
+    (``FlopCounterMode``'s, ``MemTracker``'s) cannot run inside
+    ``autograd.grad`` on those same leaves."""
 
-    def __init__(self, model: "Model"):
+    def __init__(self, model: "Model", wrt=None):
         super().__init__()
         self.params = model.params
         object.__setattr__(self, "_model", model)  # not a submodule
+        object.__setattr__(self, "_wrt", wrt)
 
-    def forward(self, batch, wrt=None, moe_ctx=None):
+    def forward(self, batch, moe_ctx=None):
         loss, metrics = self._model.loss(batch, moe_ctx=moe_ctx)
-        if wrt is None:
+        if self._wrt is None:
             return loss, metrics
-        grads = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
+        grads = torch.autograd.grad(loss, self._wrt, allow_unused=True, materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -247,11 +261,11 @@ class Model(nn.Module):
         of the training form, and AdamW's tree."""
         return dict(self.params.named_parameters())
 
-    def _call(self, params: Dict[str, torch.Tensor], *args, moe_ctx=None):
+    def _call(self, params: Dict[str, torch.Tensor], batch, wrt=None, moe_ctx=None):
         cast = cast_for_forward(self.cfg, params)
         # a wrapper a call (kept on the model it would make a reference cycle,
         # and the model's parameters would wait for the garbage collector)
-        return torch.func.functional_call(_LossCall(self), {f"params.{k}": v for k, v in cast.items()}, args,
+        return torch.func.functional_call(_LossCall(self, wrt), {f"params.{k}": v for k, v in cast.items()}, (batch,),
                                           {"moe_ctx": moe_ctx})
 
     def call(self, params: Dict[str, torch.Tensor], method: str, *args, **kwargs):
@@ -279,7 +293,7 @@ class Model(nn.Module):
         leaves = {k: v.detach().requires_grad_(v.is_floating_point()) for k, v in params.items()}
         names = [k for k, v in leaves.items() if v.requires_grad]
         with torch.enable_grad():
-            loss, metrics, grads = self._call(leaves, batch, [leaves[k] for k in names], moe_ctx=moe_ctx)
+            loss, metrics, grads = self._call(leaves, batch, wrt=[leaves[k] for k in names], moe_ctx=moe_ctx)
         return (loss, metrics), dict(zip(names, grads))
 
     # -- embedding / head --------------------------------------------------
@@ -315,7 +329,7 @@ class Model(nn.Module):
         it lies; elsewhere (the CPU has no such GEMM) the operands are
         upcast, which copies the head.  ``w``: the head, already gathered."""
         w = (self._head_weight(moe_ctx) if w is None else w).to(self.cfg.compute_dtype)
-        if w.is_cuda and h.dtype == w.dtype == torch.bfloat16:
+        if _on_card(w) and h.dtype == w.dtype == torch.bfloat16:
             out = _Bf16Head.apply(h.reshape(-1, h.shape[-1]), w)
             return out.reshape(*h.shape[:-1], w.shape[-1])
         with fp32_matmul():

@@ -18,7 +18,12 @@ The world-size-1 plans are also the one-device plans bit for bit.
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 from datetime import timedelta
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +53,7 @@ from repro_torch.tree import leaves
 STEP_TOL = dict(rtol=2e-4, atol=2e-5)
 LM_TOL = dict(rtol=1e-4, atol=1e-4)
 B, S = 2, 32
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -239,16 +245,50 @@ def test_mesh_and_entry_points(mesh):
 
     m = lmesh.make_local_mesh(device_type="cpu")
     assert lmesh.mesh_axes(m) == ("data", "model") and tuple(m.shape) == (1, 1)
-    with pytest.raises(RuntimeError, match="A12c"):
+    # the production meshes need a job of their size: this one has one rank
+    with pytest.raises(RuntimeError, match="needs 256 ranks, the job has 1"):
         lmesh.make_production_mesh(device_type="cpu")
-    for flag in ("--production-mesh", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="A12c"):
-            ltrain.main(["--arch", "qwen3-32b", "--reduced", "--steps", "1", "--device", "cpu", flag])
+    # --production-mesh (--multi-pod) goes through to it, as the reference's
+    for flags, n in ((["--production-mesh"], 256), (["--production-mesh", "--multi-pod"], 512)):
+        with pytest.raises(RuntimeError, match=f"needs {n} ranks, the job has 1"):
+            ltrain.main(["--arch", "qwen3-32b", "--steps", "1", "--device", "cpu", *flags])
+    # over a job of 256 and 512 ranks (faked, in a process of its own: this
+    # module's group is running), the meshes and the entry point's
+    got = json.loads(subprocess.run([sys.executable, "-c", FAKE_JOBS], env=dict(
+        os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])),
+        capture_output=True, text=True, timeout=120, check=True).stdout.splitlines()[-1])
+    assert got == {"256": [[16, 16], ["data", "model"]], "512": [[2, 16, 16], ["pod", "data", "model"]],
+                   "train 256": [[16, 16], "starcoder2-7b", 4096], "train 512": [[2, 16, 16], "starcoder2-7b", 4096]}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             lmesh.make_local_mesh()
     assert st.make_step(ARCHS["qwen3-32b"].reduced(), mesh, ShapeConfig("d", S, B, "decode"),
                         device="cpu").name == "decode_step"
+
+
+FAKE_JOBS = r"""
+import json
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.launch import mesh as lmesh, train as ltrain
+
+class Recorder:
+    def __init__(self, cfg, shape, mesh, *a, **kw):
+        got[f"train {mesh.size()}"] = [list(mesh.shape), cfg.name, shape.seq_len]
+
+    def train(self):
+        return {"step": 0, "stragglers": 0, "failures": 0}
+
+got = {}
+ltrain.Trainer = Recorder
+for n in (256, 512):
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    m = lmesh.make_production_mesh(multi_pod=n == 512)
+    got[str(n)] = [list(m.shape), list(lmesh.mesh_axes(m))]
+    ltrain.main(["--arch", "starcoder2-7b", "--production-mesh", "--device", "cpu"] + (["--multi-pod"] if n == 512 else []))
+    dist.destroy_process_group()
+print(json.dumps(got))
+"""
 
 
 def test_distributed_entry_point_trains(mesh, tmp_path):
