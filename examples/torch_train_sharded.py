@@ -9,7 +9,7 @@ rematerialised backward) and reduce-scatters their gradients.
 
 Three parts, each on the same seeded init:
 
-(a) one step of the model (``--layers``, default 2) on a (world, 1) mesh,
+(a) one step of the model (``--layers``, default 2) on the mesh,
     then, on rank 0 alone, the same step on one device from the same seed
     and batch: the loss within ``LOSS_TOL`` (relative), the gradient norm
     within ``GNORM_TOL``, every leaf's gradient within ``GRAD_TOL``
@@ -26,13 +26,34 @@ Three parts, each on the same seeded init:
     layout) and restored onto a (world / 2, 2) mesh: every leaf bit for
     bit the saved one;
 (c) ``--steps`` steps of the model at ``--train-layers`` (default: all of
-    the configuration's) on the (world, 1) mesh, no checkpoint: per-card
-    peak memory, step ms, tokens/s, MFU (``model_flops`` / step / (world
-    x 989 TFLOP/s)) and the loss.
+    the configuration's) on the mesh, no checkpoint: per-card peak memory,
+    step ms, tokens/s, MFU (``model_flops`` / step / (world x 989
+    TFLOP/s)) and the loss;
+(d) with ``--decode N``: the serving plans on the mesh, the serving form
+    of the whole model: a prefill into a cache (``DECODE_SHAPE``: phase
+    9b's on the card; its seq dim split over ``model``), then N greedy
+    decode steps, ms a step (eager over more than one rank); then the same
+    at ``--layers`` (2 when 0) in float32, and on rank 0 alone those steps
+    on one device fed the same tokens: each step's logits within
+    ``DECODE_TOL`` relative L2.
+
+``--mesh D,M`` lays the ranks out as (data, model), (world, 1) by default;
+over ``model`` the blocks compute as they lie (``models/spmd.py``), and
+the sums over ``model`` round in another order than one device's
+products.  The random model amplifies a rounding difference about 100
+times a layer at published widths (``scripts/tp_divergence.py``: one
+device's own bf16 prefill differs from its float32 one by 0.15 relative
+L2 after one layer, 0.49 after two),
+so where ``model`` > 1 (a) runs in float32, and (d)'s check always does:
+there the ranks' arithmetic agrees with one device's to rounding.  ``scripts/tp_divergence.py`` holds the bf16 step over
+``model`` against one device's float32 step instead.
 
     PYTHONPATH=src python examples/torch_train_sharded.py            # 2 CPU ranks, gloo, reduced starcoder2-7b
     torchrun --standalone --nproc-per-node 4 examples/torch_train_sharded.py --cuda
+    torchrun --standalone --nproc-per-node 4 examples/torch_train_sharded.py --cuda --mesh 1,4
     torchrun --standalone --nproc-per-node 4 examples/torch_train_sharded.py --cuda --layers 0   # (c) alone
+    torchrun --standalone --nproc-per-node 4 examples/torch_train_sharded.py --cuda --mesh 1,4 --layers 0 \
+        --steps 0 --decode 16                                                                    # (d) alone
 """
 
 import argparse
@@ -53,6 +74,9 @@ import torch.multiprocessing as mp
 # relative; GRAD_TOL and UPDATE_TOL are relative L2 a leaf (their sound and
 # faulty readings: PERF.md, the four-card run)
 LOSS_TOL, GNORM_TOL, GRAD_TOL, UPDATE_TOL = 1e-3, 1e-5, 5e-2, 5e-2
+DECODE_TOL = 2e-2  # (d): relative L2 of each step's float32 logits, sharded against one device
+# (d): prompt tokens a row and the cache's length, as chip_smoke.py's phase 9b on the card
+DECODE_SHAPE = {"cuda": (64, 2048), "cpu": (8, 32)}
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak of one H100 SXM
 
 
@@ -100,6 +124,14 @@ def _rel(a, b) -> float:
     return (a.double() - b.double()).norm().item() / max(b.double().norm().item(), 1e-30)
 
 
+def _all_raise(verdict) -> None:
+    """Rank 0's verdict ([None] or [message]) on every rank, raised on every
+    rank together (a check on rank 0 alone would leave the others waiting)."""
+    dist.broadcast_object_list(verdict)
+    if verdict[0] is not None:
+        raise AssertionError(verdict[0])
+
+
 def _say(rank, *parts):
     if rank == 0:
         print(*parts, flush=True)
@@ -113,6 +145,8 @@ def part_a_b(args, rank, world, device, device_type, mesh, work):
     from repro_torch.train import Checkpointer
 
     cfg = dataclasses.replace(_cfg(args), n_layers=args.layers)
+    if mesh.shape[-1] > 1:  # the (data, model) mesh's model axis: float32 (``--mesh``, below)
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float32, cache_dtype=torch.float32)
     shape = ShapeConfig("train", args.seq, args.batch, "train")
     opt_cfg = optim.AdamWConfig(lr=3e-4, clip_norm=0.0, state_dtype=cfg.optim_state_dtype)
     plan = st.make_train_step(cfg, mesh, shape, opt_cfg, device=device)
@@ -156,6 +190,7 @@ def part_a_b(args, rank, world, device, device_type, mesh, work):
     dist.barrier()
 
     # (a), continued: the same step on one device, rank 0 alone
+    verdict = [None]
     if rank == 0:
         one = st.make_train_step(cfg, None, shape, opt_cfg, device=device)
         p1, o1 = _state(cfg, one, opt_cfg, device)
@@ -167,6 +202,10 @@ def part_a_b(args, rank, world, device, device_type, mesh, work):
         upd = {k: _rel(after[k] - init[k], v.cpu() - init[k]) for k, v in p1.items()}
         grad = {k: _rel(moment[k], v.cpu()) for k, v in o1["m"].items()}
         worst, gworst = max(upd, key=upd.get), max(grad, key=grad.get)
+        norms = {k: v for k, v in grad.items() if p1[k].dim() == 1}
+        nworst = max(norms, key=norms.get)
+        print(f"(a) the fp32 norm leaves ({len(norms)}): grad rel_l2 max {norms[nworst]:.3e} ({nworst}), median "
+              f"{statistics.median(norms.values()):.3e}", flush=True)
         print(f"(a) one device: loss={loss1:.6f} grad_norm={gnorm1:.6e}; sharded vs one device: loss rel "
               f"{abs(loss - loss1) / abs(loss1):.3e} (tol {LOSS_TOL}), grad_norm rel {abs(gnorm - gnorm1) / gnorm1:.3e} "
               f"(tol {GNORM_TOL}), grad rel_l2 max {grad[gworst]:.3e} ({gworst}; tol {GRAD_TOL}), median "
@@ -174,11 +213,11 @@ def part_a_b(args, rank, world, device, device_type, mesh, work):
               f"{UPDATE_TOL}), median {statistics.median(upd.values()):.3e}", flush=True)
         if abs(loss - loss1) > LOSS_TOL * abs(loss1) or abs(gnorm - gnorm1) > GNORM_TOL * gnorm1 \
                 or grad[gworst] > GRAD_TOL or upd[worst] > UPDATE_TOL:
-            raise AssertionError("(a) the sharded step disagrees with one device")
+            verdict[0] = "(a) the sharded step disagrees with one device"
         del p1, o1, one
         if args.cuda:
             torch.cuda.empty_cache()
-    dist.barrier()
+    _all_raise(verdict)
 
 
 def part_c(args, rank, world, device, device_type, mesh):
@@ -231,6 +270,91 @@ def part_c(args, rank, world, device, device_type, mesh):
         raise AssertionError(f"(c) peak {max(peaks):.2f} GB")
 
 
+def _decode(args, rank, cfg, device, device_type, mesh, check: bool):
+    """The serving plans on ``mesh``: a prefill into a cache of
+    ``DECODE_SHAPE``, then ``--decode`` greedy steps; with ``check``, the
+    same steps on one device (rank 0), fed the same tokens."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as st
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    (prompt_len, T), B = DECODE_SHAPE[device_type], args.batch
+    pre = st.make_prefill_step(cfg, mesh, ShapeConfig("prefill", T, B, "prefill"), device=device)
+    dec = st.make_decode_step(cfg, mesh, ShapeConfig("decode", T, B, "decode"), device=device)
+    split = mesh.size() > 1
+    p_shard, b_shard, c_shard = pre.in_shardings
+    place = st.place_params if split else (lambda t, s: t)
+    # this rank's blocks of the seeded serving weights, each leaf drawn whole and cut
+    blocks = build_model(cfg, seed=0, device=device, shardings=p_shard if split else None).train_params()
+    params = {k: sh.place(v.detach(), p_shard[k], tuple(pre.args[0][k].shape)) if split else v.detach()
+              for k, v in blocks.items()}
+    del blocks
+    cache = place(tree_map(lambda c: torch.zeros(c.shape, dtype=c.dtype, device=device), st.cache_specs(cfg, B, T)),
+                  c_shard)
+    gen = torch.Generator().manual_seed(10)
+    prompt = torch.randint(0, cfg.vocab, (B, prompt_len), generator=gen, dtype=torch.int32)
+    t0 = time.perf_counter()
+    logits, cache = pre.jitted()(params, place({"tokens": prompt.to(device)}, b_shard), cache)
+    first = _whole(logits).float().cpu()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step = dec.jitted()
+    tok = first.argmax(-1, keepdim=True).to(torch.int32)
+    toks, seq, times = [tok], [first], []
+    for i in range(args.decode):
+        pos = torch.tensor(prompt_len + i, dtype=torch.int32, device=device)
+        if args.cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, place({"tokens": tok.to(device)}, dec.in_shardings[2]), pos)
+        full = _whole(logits).float().cpu()  # the host waits for the step
+        times.append(time.perf_counter() - t0)
+        seq.append(full)
+        tok = full.argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if args.cuda else float("nan")
+    kv = next(c for c in cache["layers"] if "k" in c)["k"]
+    block = tuple(kv.to_local().shape) if split else tuple(kv.shape)
+    ms = statistics.median(times[1:] if len(times) > 1 else times) * 1e3
+    _say(rank, f"(d) {cfg.name} {cfg.n_layers} layers, serving, {str(cfg.compute_dtype).split('.')[-1]}, mesh "
+               f"{tuple(mesh.shape)} {device_type}: B={B} max_seq={T} prompt={prompt_len}; prefill ms="
+               f"{prefill_ms:.1f} (first call); decode ms a step first={times[0] * 1e3:.2f} median of the rest="
+               f"{ms:.3f} ({args.decode} steps, eager); a rank's KV cache block {block}; peak GB rank 0 {peak:.2f}")
+    del params, cache, pre, dec, step
+    if args.cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if not check:
+        return
+    verdict = [None]
+    if rank == 0:  # the same steps on one device, fed the same tokens
+        one = build_model(cfg, seed=0, device=device)
+        c1 = one.init_cache(B, T)
+        with torch.no_grad():
+            want = [one.prefill({"tokens": prompt.to(device)}, c1)[0].float().cpu()]
+            for i in range(args.decode):
+                want.append(one.decode_step(c1, {"tokens": toks[i].to(device)}, prompt_len + i)[0].float().cpu())
+        rel = [_rel(a, b) for a, b in zip(seq, want)]
+        print(f"(d) one device, the same tokens: logits rel_l2 by step max {max(rel):.3e} (tol {DECODE_TOL}), "
+              f"first {rel[0]:.3e}, last {rel[-1]:.3e}", flush=True)
+        if max(rel) > DECODE_TOL:
+            verdict[0] = "(d) the sharded decode disagrees with one device"
+        del one, c1
+        if args.cuda:
+            torch.cuda.empty_cache()
+    _all_raise(verdict)
+
+
+def part_d(args, rank, world, device, device_type, mesh):
+    _decode(args, rank, _cfg(args), device, device_type, mesh, check=False)
+    # the check: --layers (default 2) in float32 (module docstring)
+    small = dataclasses.replace(_cfg(args), n_layers=args.layers or 2, compute_dtype=torch.float32,
+                                cache_dtype=torch.float32)
+    _decode(args, rank, small, device, device_type, mesh, check=True)
+
+
 def rank_main(rank: int, world: int, args, init: str) -> None:
     from repro_torch.launch.mesh import make_local_mesh
 
@@ -247,7 +371,8 @@ def rank_main(rank: int, world: int, args, init: str) -> None:
             print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                                  capture_output=True, text=True).stdout.strip())
             print(subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True).stdout, flush=True)
-        mesh = make_local_mesh(device_type=device_type)
+        data, model = args.mesh if args.mesh else (world, 1)
+        mesh = make_local_mesh(model=model, data=data, device_type=device_type)
         with tempfile.TemporaryDirectory() as tmp:
             work = [tmp]
             dist.broadcast_object_list(work)  # rank 0's directory: one checkpoint for every rank
@@ -259,6 +384,10 @@ def rank_main(rank: int, world: int, args, init: str) -> None:
             if args.steps:
                 part_c(args, rank, world, device, device_type, mesh)
                 _say(rank, f"(c) s={time.perf_counter() - t0:.1f}")
+            t0 = time.perf_counter()
+            if args.decode:
+                part_d(args, rank, world, device, device_type, mesh)
+                _say(rank, f"(d) s={time.perf_counter() - t0:.1f}")
             dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -274,7 +403,10 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=None, help="(c): steps (0 skips it; default 8, CPU 3)")
     ap.add_argument("--batch", type=int, default=None, help="global batch (default 4)")
     ap.add_argument("--seq", type=int, default=None, help="sequence (default 4096, CPU 32)")
+    ap.add_argument("--mesh", default=None, help="D,M: the (data, model) mesh (default: world,1)")
+    ap.add_argument("--decode", type=int, default=0, help="(d): greedy decode steps (0 skips it)")
     args = ap.parse_args()
+    args.mesh = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
     args.batch = args.batch or 4
     args.seq = args.seq or (4096 if args.cuda else 32)
     args.steps = (8 if args.cuda else 3) if args.steps is None else args.steps

@@ -7,13 +7,13 @@ the CPU smoke-test variant (same family, tiny dims).
 
 ``remat`` (``models/transformer.py``) and ``microbatches``
 (``launch/steps.py``) steer the port's training step as the reference's;
-``fsdp`` its placement over a mesh (``launch/sharding.py``).  The
-sequence-parallel, layer-scan and layout-anchor knobs (``seq_parallel``,
-``anchor_*``, ``cast_in_scan``, ``cast_params``, ``scan_layers``,
+``fsdp`` its placement over a mesh (``launch/sharding.py``);
+``seq_parallel`` splits the residual stream on seq over ``model`` where S
+divides it (``models/spmd.py``).  The layer-scan and layout-anchor knobs
+(``anchor_*``, ``cast_in_scan``, ``cast_params``, ``scan_layers``,
 ``windowed_cache``) steer the JAX package's compiled programs; they are
 kept so both packages read the same configuration, and have no effect in
-the port, which casts as ``models/model.py`` says (``seq_parallel`` waits
-for compute over the ``model`` axis, ROADMAP A12b).
+the port, which casts as ``models/model.py`` says.
 """
 
 from __future__ import annotations

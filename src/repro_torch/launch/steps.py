@@ -16,15 +16,18 @@ are arguments the capture adopts as they are (the serving weights: the
 caller passes the same tensors every call, so nothing is copied).
 
 Over a mesh of more than one device (explicit SPMD, ``models/spmd.py``):
-every argument is a ``DTensor`` (or this rank's block of it): parameters
-and optimizer state split as the resolver places them, the batch and the
-caches' rows over the data axes.  Each rank runs the model on its rows, gathering each
-parameter whole at use; gradients come back as this rank's blocks, summed
-over the ranks of the batch axes and divided by their number; AdamW runs
-on the blocks with the global gradient norm; the metrics are the global
-batch's.  The step returns the caller's trees, updated in place.  On a
-one-device mesh, or with ``mesh=None``, every argument is a plain tensor
-and nothing is gathered.
+every argument is a ``DTensor`` (or this rank's block of it): parameters,
+optimizer state and KV caches split as the resolver places them, the
+batch and the recurrent states' rows over the data axes.  Each rank runs
+the model on its rows, gathering each parameter's data-axis blocks at use
+and computing on its ``model`` blocks (``models/spmd.py``); gradients
+come back as this rank's blocks, summed over the ranks of the batch axes
+(and, under sequence parallelism, over ``model`` for leaves whole there)
+and divided by the number of batch ranks; AdamW runs on the blocks with
+the global gradient norm; the metrics are the global batch's.  The step
+returns the caller's trees, updated in place.  On a one-device mesh, or
+with ``mesh=None``, every argument is a plain tensor and nothing is
+gathered.
 
 The UTP connection (paper §2.1): a step IS the root task of a task tree —
 ``TrainStepOp.split() -> [microbatch fwd/bwd]* -> grad-reduce -> optimizer
@@ -47,9 +50,9 @@ from ..core.data import resolve_device
 from ..core.executors.captured import CapturedCall
 from ..models.layers import PSpec, map_template
 from ..models.model import _casts, build_model, model_template
-from ..models.moe import MoeCtx, use_ep
-from ..models.spmd import ParamGather
-from ..models.transformer import cache_logical, init_cache, n_groups
+from ..models.moe import MoeCtx
+from ..models.spmd import TP, ParamGather, SeqSplit
+from ..models.transformer import cache_logical, group_layout, init_cache, n_groups
 from ..tree import tree_map
 from . import sharding as sh
 
@@ -117,24 +120,27 @@ def param_shardings(cfg: ArchConfig, mesh, rules: sh.Rules) -> Dict[str, sh.Name
     return out
 
 
-def _ep_skip(cfg: ArchConfig, mesh, ctx: MoeCtx, p_shard) -> Dict[str, Tuple[int, ...]]:
-    """Under EP the expert dim stays split (each model rank runs its own
-    experts): the mesh dims it takes, by leaf."""
-    if not use_ep(cfg, ctx):
+def _model_blocks(cfg: ArchConfig, mesh, p_shard) -> Dict[str, Tuple[int, ...]]:
+    """The leaves computed on their ``model`` block (every leaf the resolver
+    splits on ``model`` but the Mamba2 and RWKV6 mixers', which are gathered
+    whole there): the mesh dims they keep split, by leaf."""
+    if "model" not in sh.mesh_names(mesh):
         return {}
-    out = {}
-    for name, s in flat_template(cfg).items():
-        if "experts" in s.logical:
-            d = s.logical.index("experts")
-            out[name] = tuple(i for dd, i in sh.dim_splits(mesh, p_shard[name].spec) if dd == d)
-    return out
+    m = sh.mesh_names(mesh).index("model")
+    recurrent = tuple(f"stack.groups.{g}.layers.{i}." for g in range(n_groups(cfg))
+                      for i, d in enumerate(group_layout(cfg)) if d.kind in ("rwkv", "mamba"))
+    return {name: (m,) for name, s in p_shard.items()
+            if not name.startswith(recurrent) and m in {i for _, i in sh.dim_splits(mesh, s.spec)}}
 
 
-def moe_ctx_for(cfg: ArchConfig, mesh, rules: sh.Rules, p_shard=None, batch: Optional[int] = None
-                ) -> Optional[MoeCtx]:
+def moe_ctx_for(cfg: ArchConfig, mesh, rules: sh.Rules, p_shard=None, batch: Optional[int] = None,
+                seq: Optional[int] = None) -> Optional[MoeCtx]:
     """The parallel context of a plan over ``mesh``: the reference's axes,
     and over more than one device the rows' axes (``batch``: the global
-    batch) and gather at use of the parameters ``p_shard`` places."""
+    batch), gather at use of the parameters ``p_shard`` places and, where
+    ``model`` is larger than one, the split of compute over it (``spmd.TP``;
+    ``seq``: a train step's sequence length, which fixes whether the
+    gathered leaves' gradients are parts or copies over ``model``)."""
     if mesh is None:
         return None
     names = sh.mesh_names(mesh)
@@ -145,8 +151,14 @@ def moe_ctx_for(cfg: ArchConfig, mesh, rules: sh.Rules, p_shard=None, batch: Opt
         rows_axes=sh.batch_axes(mesh, rules, batch) if batch else (),
     )
     if p_shard is not None and _split(mesh):
-        gather = ParamGather.build(p_shard, reduce_axes=ctx.batch_axes, skip=_ep_skip(cfg, mesh, ctx, p_shard))
-        ctx = dataclasses.replace(ctx, params=gather)
+        tp = None
+        if "model" in names and mesh.shape[names.index("model")] > 1:
+            m = names.index("model")
+            tp = TP(mesh.get_group(m), mesh.shape[m], mesh.get_coordinate()[m], cfg.seq_parallel)
+        summed = ("model",) if tp is not None and seq is not None and tp.for_seq(seq).sp else ()
+        gather = ParamGather.build(p_shard, reduce_axes=ctx.batch_axes, skip=_model_blocks(cfg, mesh, p_shard),
+                                   summed=summed)
+        ctx = dataclasses.replace(ctx, params=gather, tp=tp)
     return ctx
 
 
@@ -254,16 +266,21 @@ def make_train_step(
         b_specs, b_shard = batch_specs(cfg, B, shape.seq_len, mesh, rules, with_labels=True)
         in_sh = (p_shard, o_shard, b_shard)
         out_sh = (p_shard, o_shard, None)
-        mctx = moe_ctx_for(cfg, mesh, rules, p_shard, B)
+        mctx = moe_ctx_for(cfg, mesh, rules, p_shard, B, shape.seq_len)
     split = _split(mesh)
     if split:
         red_dims, n_red = _batch_ranks(mesh, mctx.batch_axes)
         names = sh.mesh_names(mesh)
-        # per leaf: the batch-axis mesh dims it is not split over (its
-        # gradient is all-reduced there; the gather's backward summed the
-        # others), and the ranks holding each of its elements
+        # per leaf: the mesh dims its gradient is all-reduced over, those it
+        # is not split over among the batch axes (the gather's backward
+        # summed the others) and, under sequence parallelism, ``model``,
+        # where every rank holds a part of a whole leaf's gradient
+        # (``models/spmd.py``); and the ranks holding each of its elements
         sizes = tuple(mesh.shape)
-        allred = {k: tuple(i for i in red_dims if i not in {j for _, j in sh.dim_splits(mesh, s.spec)})
+        sum_dims = red_dims
+        if mctx.tp is not None and mctx.tp.for_seq(shape.seq_len).sp:
+            sum_dims = red_dims + (names.index("model"),)
+        allred = {k: tuple(i for i in sum_dims if i not in {j for _, j in sh.dim_splits(mesh, s.spec)})
                   for k, s in p_shard.items()}
         copies = {k: mesh.size() // math.prod(sizes[j] for _, j in sh.dim_splits(mesh, s.spec))
                   for k, s in p_shard.items()}
@@ -328,18 +345,40 @@ def cache_specs(cfg: ArchConfig, batch: int, max_seq: int):
 
 def _cache_shardings(cfg: ArchConfig, c_specs, mesh, rules: sh.Rules, rows: Tuple[str, ...]):
     """The cache's placements: the resolver's (``cache_logical`` under
-    ``rules``) cut to the rows' dim (dim 1, after the groups').  Until
-    attention is partitioned over ``model`` (ROADMAP A12b) each rank attends
-    over its rows' whole cache, so the other dims stay whole on every rank
-    instead of being gathered every step."""
+    ``rules``).  Attention attends over its K/V as they are placed (on a
+    seq dim split over ``model`` by ``serve_rules``, each rank holds
+    Smax / model positions: ``models/attention.py``); the recurrent states'
+    placements are cut to the rows' dim (dim 1, after the groups'), since
+    their mixers run whole on every ``model`` rank."""
 
-    def cut(s: sh.NamedSharding) -> sh.NamedSharding:
+    def cut(s: sh.NamedSharding, kv: bool) -> sh.NamedSharding:
         row = s.spec[1] if len(s.spec) > 1 else None
         if sh.spec_axes(row) != tuple(rows):
             raise NotImplementedError(f"cache batch dim placed on {row}, the rows on {rows}")
-        return sh.NamedSharding(mesh, sh.P(None, row))
+        return s if kv else sh.NamedSharding(mesh, sh.P(None, row))
 
-    return tree_map(cut, sh.tree_shardings(cache_logical(cfg), c_specs, mesh, rules))
+    def walk(t, kv=False):
+        if isinstance(t, dict):
+            return {k: walk(v, k in ("k", "v")) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return cut(t, kv)
+
+    return walk(sh.tree_shardings(cache_logical(cfg), c_specs, mesh, rules))
+
+
+def _kv_seq(mesh, c_shard) -> Optional[SeqSplit]:
+    """The KV caches' seq split (dim 2 of a (G, B, Smax, Hkv, hd) leaf), or
+    None when it is whole."""
+    kv = [c for c in c_shard["layers"] + [c_shard.get("shared", {})] if "k" in c]
+    if not kv:
+        return None
+    names, sizes, coord = sh.mesh_names(mesh), tuple(mesh.shape), mesh.get_coordinate()
+    dims = [i for d, i in sh.dim_splits(mesh, kv[0]["k"].spec) if d == 2 and sizes[i] > 1]
+    if not dims:
+        return None
+    return SeqSplit(tuple(mesh.get_group(i) for i in dims), tuple(sizes[i] for i in dims),
+                    tuple(coord[i] for i in dims))
 
 
 def _serve_param_specs(model, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
@@ -394,6 +433,8 @@ def _serve_plan(kind: str, cfg: ArchConfig, mesh, shape: ShapeConfig, rules, dev
         l_shard = sh.batch_sharding(mesh, rules, B, 2)
         mctx = moe_ctx_for(cfg, mesh, rules, p_shard, B)
         c_shard = _cache_shardings(cfg, c_specs, mesh, rules, mctx.rows_axes)
+        if _split(mesh):
+            mctx = dataclasses.replace(mctx, kv_seq=_kv_seq(mesh, c_shard))
     run = _serve_call(model, mctx, kind)
     split = _split(mesh)
     out = lambda logits: sh.place(logits, l_shard, (B, cfg.vocab)) if split else logits

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from .spmd import tp_of
 
 
 @dataclass(frozen=True)
@@ -170,7 +171,15 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, ctx=None) -> torch.Tensor:
+    """x: the residual stream's layout, (B, S, D) or this rank's chunk of
+    the sequence under SP.  Over ``model`` (``models/spmd.py``) ``wi``/``wg``
+    split on ``mlp`` are column-parallel and ``wo`` row-parallel; whole, the
+    MLP runs on this rank's rows as they are."""
+    tp = tp_of(ctx)
+    split = tp is not None and p["wi"].shape[-1] != cfg.d_ff
+    if split:
+        x = tp.enter(x)
     h = x @ p["wi"].to(x.dtype)
     if cfg.mlp_type == "swiglu":
         g = x @ p["wg"].to(x.dtype)
@@ -184,4 +193,5 @@ def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
         h = _gelu(h.float()).to(x.dtype)
     else:
         raise ValueError(cfg.mlp_type)
-    return h @ p["wo"].to(x.dtype)
+    out = h @ p["wo"].to(x.dtype)
+    return tp.leave(out) if split else out

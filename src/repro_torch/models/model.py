@@ -37,10 +37,13 @@ Two forms, chosen by ``build_model(..., train=...)``:
   does.
 
 Over a mesh every method takes ``moe_ctx`` (``models/moe.py`` ``MoeCtx``):
-the parameters are this rank's blocks, each gathered whole at use (the
-embedding, the head once a loss, each group in its rematerialised body;
-``models/spmd.py``), and the batch is this rank's rows.  Without it
-nothing is gathered, as on one device.  ``call(params, method, ...)`` runs
+the parameters are this rank's blocks, gathered over the data axes at use
+(the embedding, the head once a loss, each group in its rematerialised
+body; ``models/spmd.py``), and the batch is this rank's rows.  Over
+``model`` the embedding, the head and the loss are vocab-parallel where
+the vocab divides it, and under sequence parallelism ``forward`` returns
+this rank's chunk of the sequence.  Without it nothing is gathered, as on
+one device.  ``call(params, method, ...)`` runs
 ``prefill``/``decode_step``/``forward`` over a flat dict of parameters, as
 ``loss_of`` runs ``loss``.
 """
@@ -61,6 +64,7 @@ from ..kernels.ref import fp32_matmul
 from .frontend import uses_stub_frontend
 from .layers import (PSpec, count_template, init_tensor, map_template, norm_apply, norm_template, sinusoidal_embed,
                      template_leaves)
+from .spmd import all_gather, all_reduce, reduce_from, tp_of
 from .transformer import group_layout, init_cache, n_groups, stack_apply, stack_template
 
 
@@ -244,6 +248,14 @@ class _LossCall(nn.Module):
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _for_batch(moe_ctx, batch: Dict[str, torch.Tensor]):
+    """The parallel context for a batch's sequence length (``MoeCtx.for_seq``)."""
+    if moe_ctx is None:
+        return None
+    x0 = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    return moe_ctx.for_seq(x0.shape[1])
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, params: Dict[str, Any], train: bool = False):
         super().__init__()
@@ -305,11 +317,27 @@ class Model(nn.Module):
         return p
 
     def embed_batch(self, batch: Dict[str, torch.Tensor], positions: torch.Tensor, moe_ctx=None) -> torch.Tensor:
+        """(B, S, D), this rank's chunk of the sequence under SP.  An
+        embedding split on vocab over ``model`` looks up the ids in this
+        rank's range, zeros elsewhere, and sums the ranks' results (the
+        reference's ``constrain_logits`` layout): each id's row lies on one
+        rank, so the sum is exact."""
         cfg = self.cfg
+        tp = tp_of(moe_ctx)
+        own = tp.own if tp is not None else (lambda t: t)
         if "embeds" in batch:
-            h = batch["embeds"].to(cfg.compute_dtype)
+            h = own(batch["embeds"].to(cfg.compute_dtype))
         else:
-            h = F.embedding(batch["tokens"].long(), self._param("embed", moe_ctx)).to(cfg.compute_dtype)
+            w, tok = self._param("embed", moe_ctx), batch["tokens"].long()
+            if tp is not None and w.shape[0] != cfg.vocab:
+                ids = tok - tp.rank * w.shape[0]
+                inside = (ids >= 0) & (ids < w.shape[0])
+                e = F.embedding(ids.clamp(0, w.shape[0] - 1), w)
+                h = tp.leave(torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device)))
+            else:
+                h = F.embedding(own(tok), w)
+            h = h.to(cfg.compute_dtype)
+        positions = own(positions)
         if cfg.embed_scale:
             # the scale rounded to h's dtype, as jnp.asarray(..., h.dtype), a host scalar
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype).item()
@@ -360,15 +388,32 @@ class Model(nn.Module):
             elif cache_pos:
                 positions = positions + cache_pos
             positions = positions.expand(B, S)
+        moe_ctx = _for_batch(moe_ctx, batch)
         h = self.embed_batch(batch, positions, moe_ctx)
         h, aux = stack_apply(self.cfg, self.params["stack"], h, positions, cache, cache_pos, moe_ctx)
         return norm_apply(self.cfg, self.params["final_norm"], h), cache, aux
 
-    def _chunk_stats(self, hh: torch.Tensor, yy: torch.Tensor, w: Optional[torch.Tensor] = None):
+    def _chunk_stats(self, hh: torch.Tensor, yy: torch.Tensor, w: Optional[torch.Tensor] = None, tp=None):
+        """(summed token loss, correct tokens) of a chunk; with ``tp`` the
+        head is this rank's vocab block (``chunked_xent``)."""
         logits = self.lm_logits(hh, w=w)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, yy[..., None])[..., 0]
-        return (lse - gold).sum(), (logits.argmax(-1) == yy).sum()
+        if tp is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, yy[..., None])[..., 0]
+            return (lse - gold).sum(), (logits.argmax(-1) == yy).sum()
+        Vl = logits.shape[-1]
+        v0 = tp.rank * Vl
+        m, arg = logits.detach().max(-1)  # the first of equal maxima, as argmax
+        M = all_reduce(m.clone(), tp.group, "max")
+        lse = M + torch.log(reduce_from(torch.exp(logits - M[..., None]).sum(-1), tp.group))
+        ids = yy - v0
+        inside = (ids >= 0) & (ids < Vl)
+        gold = logits.gather(-1, ids.clamp(0, Vl - 1)[..., None])[..., 0]
+        gold = reduce_from(torch.where(inside, gold, torch.zeros((), dtype=gold.dtype, device=gold.device)),
+                           tp.group)
+        # argmax over the ranks: the lowest index among the ranks at the max
+        top = all_reduce(torch.where(m == M, arg + v0, self.cfg.vocab), tp.group, "min")
+        return (lse - gold).sum(), (top == yy).sum()
 
     def chunked_xent(self, h: torch.Tensor, labels: torch.Tensor, moe_ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-entropy over sequence chunks of ``cfg.loss_chunk``, so the
@@ -377,26 +422,38 @@ class Model(nn.Module):
         keeping them (the reference's ``jax.checkpoint``).  Over a mesh the
         head is gathered once, before the chunks.  Returns (mean loss, token
         accuracy)."""
+        n = labels.numel()
+        labels = labels.long()
+        w = self._head_weight(moe_ctx) if moe_ctx is not None and moe_ctx.params is not None else None
+        tp = tp_of(moe_ctx)
+        vocab_tp = None
+        if tp is not None:
+            if w.shape[-1] != self.cfg.vocab:  # the head split on vocab: every token, this rank's columns
+                h, vocab_tp = tp.enter(h), tp
+            else:  # the whole head on this rank's tokens (its chunk under SP)
+                labels = tp.own(labels)
         B, S, D = h.shape
         c = min(self.cfg.loss_chunk, S)
         if S % c != 0:
             c = S
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
         acc = torch.zeros((), dtype=torch.int64, device=h.device)
-        w = self._head_weight(moe_ctx) if moe_ctx is not None and moe_ctx.params is not None else None
         grad = torch.is_grad_enabled() and (h.requires_grad or self._head_weight().requires_grad)
-        for hh, yy in zip(h.split(c, dim=1), labels.long().split(c, dim=1)):
+        for hh, yy in zip(h.split(c, dim=1), labels.split(c, dim=1)):
             if grad:
-                l, a = checkpoint(self._chunk_stats, hh, yy, w, use_reentrant=False, preserve_rng_state=False)
+                l, a = checkpoint(self._chunk_stats, hh, yy, w, vocab_tp, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                l, a = self._chunk_stats(hh, yy, w)
+                l, a = self._chunk_stats(hh, yy, w, vocab_tp)
             tot = tot + l
             acc = acc + a
-        n = B * S
+        if tp is not None and tp.sp and vocab_tp is None:  # the ranks' tokens summed
+            tot, acc = reduce_from(tot, tp.group), all_reduce(acc, tp.group)
         return tot / n, acc.float() / n
 
     def loss(self, batch: Dict[str, torch.Tensor], moe_ctx=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
+        moe_ctx = _for_batch(moe_ctx, batch)
         h, _, aux = self.forward_aux(batch, moe_ctx=moe_ctx)
         loss, acc = self.chunked_xent(h, batch["labels"], moe_ctx)
         metrics = {"xent": loss, "accuracy": acc}
@@ -408,17 +465,32 @@ class Model(nn.Module):
         metrics["loss"] = loss
         return loss, metrics
 
+    def _last_logits(self, h: torch.Tensor, moe_ctx=None) -> torch.Tensor:
+        """(B, V) logits of the last position of ``forward``'s hidden states
+        (over ``model``: under SP the last rank's chunk holds it; a head
+        split on vocab gives this rank's columns, gathered)."""
+        tp = tp_of(moe_ctx)
+        last = h[:, -1]
+        if tp is not None and tp.sp:
+            last = all_gather(h[:, -1:], 1, tp.group, tp.n)[:, -1]
+        logits = self.lm_logits(last, moe_ctx)
+        if tp is not None and logits.shape[-1] != self.cfg.vocab:
+            logits = all_gather(logits, 1, tp.group, tp.n)
+        return logits
+
     def prefill(self, batch: Dict[str, torch.Tensor], cache, moe_ctx=None):
         """Run the prompt filling ``cache`` from position 0.  Returns
         (last-token logits (B, V), cache)."""
+        moe_ctx = _for_batch(moe_ctx, batch)
         h, cache = self.forward(batch, cache=cache, cache_pos=0, moe_ctx=moe_ctx)
-        return self.lm_logits(h[:, -1], moe_ctx), cache
+        return self._last_logits(h, moe_ctx), cache
 
     def decode_step(self, cache, batch: Dict[str, torch.Tensor], pos, moe_ctx=None):
         """One decode step at ``pos`` (a scalar, or (B,) per-row positions).
         Returns (logits (B, V), cache)."""
+        moe_ctx = _for_batch(moe_ctx, batch)
         h, cache = self.forward(batch, cache=cache, cache_pos=pos, moe_ctx=moe_ctx)
-        return self.lm_logits(h[:, -1], moe_ctx), cache
+        return self._last_logits(h, moe_ctx), cache
 
     def init_cache(self, batch: int, max_seq: int):
         return init_cache(self.cfg, batch, max_seq, device=self.device)

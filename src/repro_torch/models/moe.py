@@ -25,17 +25,17 @@ cumulative count over the flattened (T·k) assignments, so another order
 would move tokens across the capacity cut.
 
 ``MoeCtx`` is the parallel context the plans over a mesh pass down the
-model (``launch/steps.py`` ``moe_ctx_for``).  The reference's layout
-anchors only guide its partitioner and have no counterpart here
-(``src/repro_torch/DESIGN.md``).  The expert products are batched matrix
-products, as the reference's XLA einsums are; no hand-written kernel is
-involved.
+model (``launch/steps.py`` ``moe_ctx_for``), with the split of compute
+over ``model`` (``tp``: the reference's layout anchors as explicit
+collectives, ``src/repro_torch/DESIGN.md``).  The expert products are
+batched matrix products, as the reference's XLA einsums are; no
+hand-written kernel is involved.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -43,7 +43,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from .layers import PSpec, _gelu
-from .spmd import copy_to, mean_value, reduce_from
+from .spmd import copy_to, mean_value, tp_of
 
 
 @dataclass(frozen=True)
@@ -53,7 +53,10 @@ class MoeCtx:
     ``batch_axes``: mesh axes the token batch dim is sharded over (the
     rules' candidates; ``rows_axes`` those the rows of this call are split
     over).  ``model_axis``: the axis experts are sharded over.  ``params``
-    gathers each parameter at use (``models/spmd.py`` ``ParamGather``).
+    gathers each parameter's data-axis blocks at use (``models/spmd.py``
+    ``ParamGather``); ``tp`` splits compute over ``model`` (``spmd.TP``,
+    None when that axis is 1); ``kv_seq`` the KV caches' seq dim
+    (``spmd.SeqSplit``, serving).
     """
 
     mesh: Any
@@ -61,6 +64,12 @@ class MoeCtx:
     model_axis: Optional[str] = "model"
     rows_axes: Tuple[str, ...] = ()
     params: Optional[Any] = None
+    tp: Optional[Any] = None
+    kv_seq: Optional[Any] = None
+
+    def for_seq(self, S: int) -> "MoeCtx":
+        """This context for a call of sequence length ``S`` (``TP.for_seq``)."""
+        return self if self.tp is None else replace(self, tp=self.tp.for_seq(S))
 
     def _size(self, axes) -> int:
         from ..launch.sharding import mesh_sizes
@@ -200,36 +209,78 @@ def use_ep(cfg: ArchConfig, ctx: Optional[MoeCtx]) -> bool:
 
 
 def moe_apply(cfg: ArchConfig, p, x: torch.Tensor, ctx: Optional[MoeCtx] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) (this rank's rows over a mesh) -> (out, aux loss)."""
+    """x: (B, S, D) (this rank's rows over a mesh; its chunk of the
+    sequence under SP) -> (out, aux loss).
+
+    Over ``model`` (``ctx.tp``, ``models/spmd.py``) the layer routes the
+    whole sequence of its rows (gathered first under SP) on every model
+    rank, runs its experts (EP) or its ``mlp`` block of every expert, and
+    the shared expert's ``mlp`` block, and sums the parts over ``model``
+    (reduce-scattered on seq under SP).  Without SP the experts' input
+    enters through ``copy_to`` after the router, so the router's gradient
+    is every rank's; with it the gates do not, and every rank passes back
+    1/n of the aux loss's gradient (``TP.shared``)."""
     B, S, D = x.shape
-    if use_ep(cfg, ctx):
-        out, aux = _moe_ep(cfg, p, x, ctx)
+    ep = use_ep(cfg, ctx)
+    if not ep and ctx is not None and ctx.mesh is not None and ctx._size(ctx.rows_axes) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_experts} experts do not divide the model axis, and the local dispatch over "
+            f"rows split on {ctx.rows_axes} would size capacity per shard where the reference sizes it on the "
+            "whole batch")
+    tp = tp_of(ctx)
+    if tp is None:
+        if ep:
+            out, aux = _moe_ep(cfg, p, x, ctx)
+        else:
+            xf = x.reshape(B * S, D)
+            gates, idx, aux = _router(cfg, p["router"], xf)
+            out = _dispatch(cfg, p, xf, gates, idx, _capacity(cfg, B * S)).reshape(B, S, D)
+        if cfg.shared_expert:
+            out = out + _shared_expert(cfg, p, x)
+        return out, aux
+    split = ep or p["wi"].shape[-1] != cfg.d_ff  # each rank computes a part of every token's output
+    shared_split = cfg.shared_expert and p["shared_wi"].shape[-1] != cfg.d_ff
+    if not split:  # the whole layer on every model rank
+        out, aux = moe_apply(cfg, p, tp.whole(x))
+        return tp.own(out), tp.shared(aux)
+    xe = tp.enter(x)  # under SP the whole sequence; its gradient summed over model
+    xr = xe if tp.sp else x  # the router's input: without SP its gradient is every rank's (module docstring)
+    if ep:
+        out, aux = _moe_ep(cfg, p, xe, ctx, tp, xr)
     else:
-        if ctx is not None and ctx.mesh is not None and ctx._size(ctx.rows_axes) > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.n_experts} experts do not divide the model axis, and the local dispatch over "
-                f"rows split on {ctx.rows_axes} would size capacity per shard where the reference sizes it on the "
-                "whole batch")
-        xf = x.reshape(B * S, D)
-        gates, idx, aux = _router(cfg, p["router"], xf)
-        C = _capacity(cfg, B * S)
-        dispatch = _dense_dispatch if cfg.moe_dispatch == "dense" else _gather_dispatch
-        out = dispatch(cfg, p, xf, gates, idx, C).reshape(B, S, D)
-    if cfg.shared_expert:
+        Bs, Ss, _ = xe.shape
+        gates, idx, aux = _router(cfg, p["router"], xr.reshape(Bs * Ss, D))
+        if not tp.sp:
+            gates = copy_to(gates, tp.group)
+        out = _dispatch(cfg, p, xe.reshape(Bs * Ss, D), gates, idx, _capacity(cfg, Bs * Ss)).reshape(xe.shape)
+    if shared_split:
+        out = out + _shared_expert(cfg, p, xe)
+    out = tp.leave(out)
+    if cfg.shared_expert and not shared_split:
         out = out + _shared_expert(cfg, p, x)
-    return out, aux
+    return out, tp.shared(aux)
 
 
-def _moe_ep(cfg: ArchConfig, p, x: torch.Tensor, ctx: MoeCtx):
+def _dispatch(cfg: ArchConfig, p, xf, gates, idx, C):
+    dispatch = _dense_dispatch if cfg.moe_dispatch == "dense" else _gather_dispatch
+    return dispatch(cfg, p, xf, gates, idx, C)
+
+
+def _moe_ep(cfg: ArchConfig, p, x: torch.Tensor, ctx: MoeCtx, tp=None, xr=None):
     """Expert parallelism (module docstring) on this rank's rows: the
     reference's ``shard_map`` body.  ``p``'s expert leaves hold this model
-    rank's ``E // tp`` experts."""
+    rank's ``E // tp`` experts.  With ``tp`` (``models/spmd.py``) the
+    result is this rank's part, which the caller sums over ``model``, and
+    ``x`` has entered the split part (``TP.enter``); ``xr``: the router's
+    input (default ``x``).  Without ``tp`` the model axis is 1."""
     from ..launch.sharding import mesh_names
 
     maxis = ctx.model_axis
-    tp = ctx._size((maxis,))
     E, k = cfg.n_experts, cfg.top_k
-    E_loc = E // tp
+    if tp is None and ctx._size((maxis,)) > 1:
+        raise ValueError(f"EP over a model axis of {ctx._size((maxis,))} needs the context's tp (launch/steps.py "
+                         "moe_ctx_for)")
+    E_loc = E // (tp.n if tp is not None else 1)
     B, S, D = x.shape
     rows = ctx._size(ctx.rows_axes)
     # the reference's axes of the global batch: all of them, or none
@@ -241,7 +292,7 @@ def _moe_ep(cfg: ArchConfig, p, x: torch.Tensor, ctx: MoeCtx):
     T = B * S
     C = _capacity(cfg, T)
     xf = x.reshape(T, D)
-    gates, idx, aux = _router(cfg, p["router"], xf)
+    gates, idx, aux = _router(cfg, p["router"], xf if xr is None else xr.reshape(T, D))
     e0 = ctx.index(maxis) * E_loc
     flat_e = idx.reshape(-1)  # (T*k,)
     local = (flat_e >= e0) & (flat_e < e0 + E_loc)
@@ -250,9 +301,8 @@ def _moe_ep(cfg: ArchConfig, p, x: torch.Tensor, ctx: MoeCtx):
     pos = pos.gather(0, le[None])[0]
     keep = local & (pos < C)
     dest = torch.where(keep, le * C + pos, E_loc * C)
-    if tp > 1:
-        group = ctx.group(maxis)
-        xf, gates = copy_to(xf, group), copy_to(gates, group)
+    if tp is not None and not tp.sp:
+        gates = copy_to(gates, tp.group)
     src = xf.repeat_interleave(k, dim=0) if k > 1 else xf
     buf = torch.zeros(E_loc * C + 1, D, dtype=xf.dtype, device=xf.device)
     buf = buf.index_copy(0, dest, src)
@@ -261,8 +311,6 @@ def _moe_ep(cfg: ArchConfig, p, x: torch.Tensor, ctx: MoeCtx):
     hflat = torch.cat([h.reshape(E_loc * C, D), h.new_zeros(1, D)])
     back = hflat[dest] * gates.reshape(-1)[:, None].to(h.dtype)
     out = back.reshape(T, k, D).sum(1)
-    if tp > 1:
-        out = reduce_from(out, ctx.group(maxis))  # combine the expert shards
     for a in baxes:
         if ctx._size((a,)) > 1:
             aux = mean_value(aux, ctx.group(a), ctx._size((a,)))

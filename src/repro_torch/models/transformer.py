@@ -37,10 +37,13 @@ state (no layer draws random numbers, and reading the CUDA RNG state is
 not allowed while a CUDA graph captures the step).
 
 Over a mesh (``ctx``, a ``MoeCtx`` with ``params``) each group's
-parameters are gathered whole at use, inside the rematerialised body, so
-the recompute gathers again (``models/spmd.py``); MoE layers get the
-context for expert parallelism.  ``cache_logical`` gives the cache's
-logical axes, as the reference's.
+parameters are gathered over the data axes at use, inside the
+rematerialised body, so the recompute gathers again; over ``model`` each
+layer computes on its blocks (``ctx.tp``, ``models/spmd.py``), and under
+sequence parallelism the residual stream between layers is this rank's
+chunk of the sequence (a recurrent layer gathers the sequence and keeps
+its chunk after).  ``cache_logical`` gives the cache's logical axes, as
+the reference's.
 
 Not ported, by design: ``scan_layers`` (the port loops over the groups)
 and ``cast_in_scan`` (it only moves the reference's convert; the values
@@ -61,6 +64,7 @@ from .attention import attention_apply, attention_template, init_kv_cache
 from .layers import mlp_apply, mlp_template, norm_apply, norm_template
 from .moe import moe_apply, moe_template
 from .rwkv import rwkv_block_apply, rwkv_cache_shape, rwkv_template
+from .spmd import tp_of
 from .ssm import mamba_apply, mamba_cache_shape, mamba_template
 
 
@@ -214,18 +218,23 @@ def _layer_apply(
     updated in place.  An MoE layer appends its aux loss to ``aux`` when
     the caller passes a list."""
     if desc.kind in ("rwkv", "mamba"):
+        # the recurrent mixers run whole on every model rank, over the whole
+        # sequence (under SP gathered first, this rank's chunk kept after)
+        tp = tp_of(ctx)
+        whole, own = (tp.whole, tp.own) if tp is not None else (_same, _same)
         if desc.kind == "rwkv":
-            x, new = rwkv_block_apply(cfg, p, x, cache)
+            y, new = rwkv_block_apply(cfg, p, whole(x), cache)
+            x = own(y)
         else:
-            h, new = mamba_apply(cfg, p["mamba"], norm_apply(cfg, p["ln1"], x), cache)
-            x = x + h
+            h, new = mamba_apply(cfg, p["mamba"], whole(norm_apply(cfg, p["ln1"], x)), cache)
+            x = x + own(h)
         if cache is not None:
             for k, t in new.items():
                 cache[k].copy_(t)
         return x
     h, _ = attention_apply(
         cfg, p["attn"], norm_apply(cfg, p["ln1"], x), positions,
-        window=desc.window, cache=cache, cache_pos=cache_pos,
+        window=desc.window, cache=cache, cache_pos=cache_pos, ctx=ctx,
     )
     x = x + h
     h2 = norm_apply(cfg, p["ln2"], x)
@@ -234,7 +243,11 @@ def _layer_apply(
         if aux is not None:
             aux.append(a)
         return x + out
-    return x + mlp_apply(cfg, p["mlp"], h2)
+    return x + mlp_apply(cfg, p["mlp"], h2, ctx)
+
+
+def _same(x):
+    return x
 
 
 def _slice(cache, g: int):
@@ -286,7 +299,7 @@ def _group_apply(cfg, layout, p_g, shared, g: int, x, positions, cache, cache_po
         x = _layer_apply(cfg, desc, p_g["layers"][i], x, positions, c_i, cache_pos, aux, ctx)
     if shared is not None:
         c_s = None if cache is None else _slice(cache["shared"], g)
-        x = _layer_apply(cfg, SHARED, shared, x, positions, c_s, cache_pos)
+        x = _layer_apply(cfg, SHARED, shared, x, positions, c_s, cache_pos, ctx=ctx)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for a in aux:
         total = total + a

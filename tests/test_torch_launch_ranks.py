@@ -5,9 +5,9 @@ Each job starts its ranks as separate processes (this file run as a script,
 method under the test's temporary directory, run every case on a
 ``DeviceMesh`` of that shape and write their results to a file; a job has
 its own time limit (``JOB_TIMEOUT_S``) and fails, killing its ranks,
-instead of hanging.  Jobs run in the order (2, 1), (1, 1), (1, 2), (2, 2):
-the (2, 1) job writes a checkpoint and a trainer's checkpoints that the
-later ones restore.
+instead of hanging.  Jobs run in the order (2, 1), (1, 1), (1, 2), (2, 2),
+(1, 4): the (2, 1) job writes a checkpoint and a trainer's checkpoints that
+the later ones restore.
 
 World size 1 (a (1, 1) mesh: plain tensors, nothing gathered) is the
 reference for the train, prefill and decode plans on reduced float32
@@ -18,7 +18,17 @@ sums the squares of each rank's blocks: rwkv6's, at 338, moves by 1.1e-5
 relative), and a ``Trainer``'s parameters after three steps at lr 1e-3
 to ``JAX_TOL`` (Adam divides each gradient element by its own size plus
 eps, so an element near 0 moves apart: one embedding element of 16384
-ends 3.1e-6 apart).  granite-moe-1b-a400m on (2, 1) routes each data shard's
+ends 3.1e-6 apart).  Where the ``model`` axis is larger than one the
+ranks split the products over it (``models/spmd.py``): the row-parallel
+products' partial sums, the vocab-split loss and the attention over a
+cache split on seq round in another order than one device's single
+products, so each leaf's first-step gradient is held to ``RANK_TOL`` on
+every mesh, and there the parameters after the steps to ``TP_TOL`` and the
+served logits and caches to ``TP_SERVE_TOL``, each a few times the largest
+reading on the CPU: the parameters need atol 3.0e-6 at rtol 1e-4 (zamba2's
+``mamba.wo``), the served results atol 2.5e-5 at rtol 1e-4 (zamba2's
+Mamba2 state, whose elements reach 534 and which lies 4.2e-7 relative L2
+from world size 1's).  granite-moe-1b-a400m on (2, 1) routes each data shard's
 tokens with capacity sized on the shard (the reference's ``_moe_ep``), so
 there it is held against the JAX package's plan on two fake CPU devices
 (an Auto-axis mesh in a subprocess with ``XLA_FLAGS=
@@ -42,11 +52,14 @@ import torch
 import torch.distributed as dist
 
 JOB_TIMEOUT_S = 120
-MESHES = ((2, 1), (1, 1), (1, 2), (2, 2))
+MESHES = ((2, 1), (1, 1), (1, 2), (2, 2), (1, 4))
 B, S = 4, 16
 RANK_TOL = dict(rtol=1e-5, atol=1e-6)
 METRIC_TOL = dict(rtol=1e-4, atol=1e-6)
 JAX_TOL = dict(rtol=2e-4, atol=2e-5)
+# where model > 1 (module docstring): the state after Adam steps, and served results
+TP_TOL = dict(rtol=1e-4, atol=1e-5)
+TP_SERVE_TOL = dict(rtol=1e-4, atol=5e-5)
 # (arch, steps, config changes): remat "full" gathers inside the
 # rematerialised group, so the recompute gathers again
 TRAIN_CASES = {
@@ -102,13 +115,16 @@ def _train(mesh, arch, steps, kw, params=None):
                           optim.AdamWConfig(state_dtype=cfg.optim_state_dtype))
     batch = st.place_params({k: torch.from_numpy(v) for k, v in _inputs(cfg).items()}, bs)
     step = plan.jitted()
-    metrics = []
+    metrics, grads = [], None
     for _ in range(steps):
         P2, O2, met = step(P, O, batch)
         assert P2 is P and O2 is O
         metrics.append({k: float(v) for k, v in met.items()})
+        if grads is None:  # Adam's first moment after the first step: (1 - b1) g
+            grads = {k: _whole(v) / 0.1 for k, v in O["m"].items()}
     split = {k: (sh.local(v).numel(), v.numel(), ps[k]) for k, v in P.items()}
-    return {"metrics": metrics, "params": {k: _whole(v) for k, v in P.items()}, "compiles": step.compiles,
+    return {"metrics": metrics, "grads": grads, "params": {k: _whole(v) for k, v in P.items()},
+            "compiles": step.compiles,
             "local": {k: (n, t, sh.is_split(s) and [sh.mesh_names(mesh)[i] for _, i in sh.dim_splits(mesh, s.spec)])
                       for k, (n, t, s) in split.items()}}
 
@@ -412,7 +428,17 @@ def _close(got, want, tol):
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
 
 
-@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2)])
+def _state_tol(mesh):
+    """The tolerance of the state after the steps (module docstring)."""
+    return TP_TOL if mesh[1] > 1 else RANK_TOL
+
+
+def _serve_tol(mesh):
+    """The tolerance of served logits and caches (module docstring)."""
+    return TP_SERVE_TOL if mesh[1] > 1 else RANK_TOL
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2), (1, 4)])
 @pytest.mark.parametrize("name", [n for n in TRAIN_CASES if n != GRANITE])
 def test_train_plan_matches_world_size_one(runs, mesh, name):
     (one,) = runs[(1, 1)]
@@ -423,20 +449,22 @@ def test_train_plan_matches_world_size_one(runs, mesh, name):
             assert set(g) == set(w)
             for k in w:
                 np.testing.assert_allclose(g[k], w[k], err_msg=k, **METRIC_TOL)
-        _close(got["params"], want["params"], RANK_TOL)
+        _close(got["grads"], want["grads"], RANK_TOL)
+        _close(got["params"], want["params"], _state_tol(mesh))
         assert got["compiles"] == 1
 
 
 def test_granite_on_the_model_axis_matches_world_size_one(runs):
-    """EP over (1, 2): each model rank runs two of the four experts on every
+    """EP over (1, 2) and (1, 4): each model rank runs its experts on every
     token (capacity sized on the same tokens), so the step is world size
     1's."""
     (one,) = runs[(1, 1)]
     want = one["train"][GRANITE]
-    for res in runs[(1, 2)]:
+    for res in runs[(1, 2)] + runs[(1, 4)]:
         got = res["train"][GRANITE]
         np.testing.assert_allclose(got["metrics"][-1]["loss"], want["metrics"][-1]["loss"], **RANK_TOL)
-        _close(got["params"], want["params"], RANK_TOL)
+        _close(got["grads"], want["grads"], RANK_TOL)
+        _close(got["params"], want["params"], TP_TOL)
 
 
 @pytest.mark.parametrize("mesh", [(2, 1), (1, 2)])
@@ -458,21 +486,21 @@ def test_granite_matches_the_jax_plan_on_two_devices(runs, mesh):
         assert abs(runs[mesh][0]["granite_one_step"]["metrics"][0]["loss"] - one) > 1e-6
 
 
-@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2), (1, 4)])
 @pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_serve_plans_match_world_size_one(runs, mesh, arch):
     (one,) = runs[(1, 1)]
     for res in runs[mesh]:
         for kind in ("prefill", "decode"):
             got, want = res["serve"][arch][kind], one["serve"][arch][kind]
-            np.testing.assert_allclose(got["logits"], want["logits"], **RANK_TOL)
+            np.testing.assert_allclose(got["logits"], want["logits"], **_serve_tol(mesh))
             from repro_torch.tree import leaves
 
             for a, b in zip(leaves(got["cache"]), leaves(want["cache"])):
-                np.testing.assert_allclose(a, b, **RANK_TOL)
+                np.testing.assert_allclose(a, b, **_serve_tol(mesh))
 
 
-@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2), (1, 4)])
 def test_each_rank_holds_only_its_block(runs, mesh):
     n_split = 0
     for res in runs[mesh]:
@@ -499,7 +527,7 @@ def test_sharded_batches_are_the_jax_shards(runs):
         np.testing.assert_array_equal(res["batches"][0]["tokens"], ds.batch(5)["tokens"])
 
 
-@pytest.mark.parametrize("mesh", [(1, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("mesh", [(1, 1), (1, 2), (2, 2), (1, 4)])
 def test_checkpoint_restores_onto_another_mesh(runs, mesh):
     saved = runs[(2, 1)][0]["saved"]
     for res in runs[mesh]:
