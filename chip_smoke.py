@@ -3612,8 +3612,8 @@ def plan_moe(torch, fa, mesh) -> int:
         calls.append(1)
         return real_ep(*a, **kw)
 
-    def router(c, w, xf):
-        out = real_router(c, w, xf)
+    def router(c, w, xf, *rest):
+        out = real_router(c, w, xf, *rest)
         routers.append((w.dtype, out[0].dtype))
         return out
 

@@ -9,7 +9,8 @@ rematerialised backward) and reduce-scatters their gradients.
 
 Three parts, each on the same seeded init:
 
-(a) one step of the model (``--layers``, default 2) on the mesh,
+(a) one step of the model (``--layers``, default 2, rounded up to whole
+    layer groups: zamba2 takes 6) on the mesh,
     then, on rank 0 alone, the same step on one device from the same seed
     and batch: the loss within ``LOSS_TOL`` (relative), the gradient norm
     within ``GNORM_TOL``, every leaf's gradient within ``GRAD_TOL``
@@ -54,6 +55,10 @@ there the ranks' arithmetic agrees with one device's to rounding.  ``scripts/tp_
     torchrun --standalone --nproc-per-node 4 examples/torch_train_sharded.py --cuda --layers 0   # (c) alone
     torchrun --standalone --nproc-per-node 4 examples/torch_train_sharded.py --cuda --mesh 1,4 --layers 0 \
         --steps 0 --decode 16                                                                    # (d) alone
+    torchrun --standalone --nproc-per-node 4 examples/torch_train_sharded.py --cuda --arch zamba2-2.7b \
+        --mesh 1,4 --layers 0 --steps 4 --decode 16                                             # (c), (d)
+    torchrun --standalone --nproc-per-node 4 examples/torch_train_sharded.py --cuda --arch rwkv6-3b \
+        --mesh 1,4 --steps 3 --decode 16                                                         # (a)-(d)
 """
 
 import argparse
@@ -85,6 +90,15 @@ def _cfg(args):
 
     cfg = get_arch(args.arch)
     return cfg if args.cuda else cfg.reduced()
+
+
+def _depth(cfg, n: int) -> int:
+    """``n`` layers rounded up to whole layer groups (zamba2's group is six
+    Mamba2 layers and its shared block)."""
+    from repro_torch.models.transformer import group_layout
+
+    g = len(group_layout(cfg))
+    return -(-n // g) * g
 
 
 def _state(cfg, plan, opt_cfg, device):
@@ -144,7 +158,7 @@ def part_a_b(args, rank, world, device, device_type, mesh, work):
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.train import Checkpointer
 
-    cfg = dataclasses.replace(_cfg(args), n_layers=args.layers)
+    cfg = dataclasses.replace(_cfg(args), n_layers=_depth(_cfg(args), args.layers))
     if mesh.shape[-1] > 1:  # the (data, model) mesh's model axis: float32 (``--mesh``, below)
         cfg = dataclasses.replace(cfg, compute_dtype=torch.float32, cache_dtype=torch.float32)
     shape = ShapeConfig("train", args.seq, args.batch, "train")
@@ -225,10 +239,11 @@ def part_c(args, rank, world, device, device_type, mesh):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import roofline
     from repro_torch.launch import steps as st
+    from repro_torch.launch.sharding import local
 
     cfg = _cfg(args)
     if args.train_layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.train_layers)
+        cfg = dataclasses.replace(cfg, n_layers=_depth(cfg, args.train_layers))
     shape = ShapeConfig("train", args.seq, args.batch, "train")
     opt_cfg = optim.AdamWConfig(lr=optim.warmup_cosine(3e-4, 2, args.steps), clip_norm=0.0,
                                 state_dtype=cfg.optim_state_dtype)
@@ -240,8 +255,7 @@ def part_c(args, rank, world, device, device_type, mesh):
     if args.cuda:
         torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    state_gb = sum(x.to_local().numel() * x.to_local().element_size() for t in (p, o["m"], o["v"])
-                   for x in t.values()) / 1e9
+    state_gb = sum(local(x).numel() * local(x).element_size() for t in (p, o["m"], o["v"]) for x in t.values()) / 1e9
     batches = _batch(cfg, shape, plan, device)
     step = plan.jitted()
     times, losses = [], []
@@ -315,13 +329,14 @@ def _decode(args, rank, cfg, device, device_type, mesh, check: bool):
         tok = full.argmax(-1, keepdim=True).to(torch.int32)
         toks.append(tok)
     peak = torch.cuda.max_memory_allocated() / 1e9 if args.cuda else float("nan")
-    kv = next(c for c in cache["layers"] if "k" in c)["k"]
-    block = tuple(kv.to_local().shape) if split else tuple(kv.shape)
+    # a rank's block of the first KV cache and of the first recurrent state
+    leaves = {k: t for c in cache["layers"] + [cache.get("shared", {})] for k, t in c.items()}
+    block = {k: tuple(sh.local(leaves[k]).shape) for k in ("k", "ssm", "wkv") if k in leaves}
     ms = statistics.median(times[1:] if len(times) > 1 else times) * 1e3
     _say(rank, f"(d) {cfg.name} {cfg.n_layers} layers, serving, {str(cfg.compute_dtype).split('.')[-1]}, mesh "
                f"{tuple(mesh.shape)} {device_type}: B={B} max_seq={T} prompt={prompt_len}; prefill ms="
                f"{prefill_ms:.1f} (first call); decode ms a step first={times[0] * 1e3:.2f} median of the rest="
-               f"{ms:.3f} ({args.decode} steps, eager); a rank's KV cache block {block}; peak GB rank 0 {peak:.2f}")
+               f"{ms:.3f} ({args.decode} steps, eager); a rank's cache blocks {block}; peak GB rank 0 {peak:.2f}")
     del params, cache, pre, dec, step
     if args.cuda:
         torch.cuda.empty_cache()
@@ -350,8 +365,8 @@ def _decode(args, rank, cfg, device, device_type, mesh, check: bool):
 def part_d(args, rank, world, device, device_type, mesh):
     _decode(args, rank, _cfg(args), device, device_type, mesh, check=False)
     # the check: --layers (default 2) in float32 (module docstring)
-    small = dataclasses.replace(_cfg(args), n_layers=args.layers or 2, compute_dtype=torch.float32,
-                                cache_dtype=torch.float32)
+    small = dataclasses.replace(_cfg(args), n_layers=_depth(_cfg(args), args.layers or 2),
+                                compute_dtype=torch.float32, cache_dtype=torch.float32)
     _decode(args, rank, small, device, device_type, mesh, check=True)
 
 
@@ -398,8 +413,10 @@ def main() -> None:
     ap.add_argument("--cuda", action="store_true", help="a torchrun job, one rank a card, over NCCL")
     ap.add_argument("--ranks", type=int, default=2, help="CPU ranks (without --cuda)")
     ap.add_argument("--arch", default="starcoder2-7b")
-    ap.add_argument("--layers", type=int, default=2, help="(a, b): the model's depth; 0 skips them")
-    ap.add_argument("--train-layers", type=int, default=0, help="(c): the depth (0: the configuration's)")
+    ap.add_argument("--layers", type=int, default=2,
+                    help="(a, b) and (d)'s check: the model's depth, in whole layer groups; 0 skips (a, b)")
+    ap.add_argument("--train-layers", type=int, default=0,
+                    help="(c): the depth, in whole layer groups (0: the configuration's)")
     ap.add_argument("--steps", type=int, default=None, help="(c): steps (0 skips it; default 8, CPU 3)")
     ap.add_argument("--batch", type=int, default=None, help="global batch (default 4)")
     ap.add_argument("--seq", type=int, default=None, help="sequence (default 4096, CPU 32)")

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import gc
 import weakref
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -70,6 +71,22 @@ def _restore(snap: List[Dict[str, int]]) -> None:
 
 def _delta(snap: List[Dict[str, int]]) -> List[Dict[str, int]]:
     return [{k: v - s.get(k, 0) for k, v in c.items() if v != s.get(k, 0)} for c, s in zip(COUNTERS, snap)]
+
+
+@contextmanager
+def _collector_off():
+    """Python's cycle collector stopped (after one collection) while a
+    stream captures: a CUDA graph it frees during a capture (a dropped
+    program's, held in a reference cycle) is reset there, which CUDA
+    refuses while a stream captures, and the capture is invalidated."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _begin_capture(graph: torch.cuda.CUDAGraph):
@@ -142,17 +159,18 @@ class CapturedProgram:
                 del scratch
                 _restore(snap)
                 graph = torch.cuda.CUDAGraph()
-                pool = _begin_capture(graph)
-                try:
-                    self.fn(self.grids, self.idxs)
-                except BaseException as e:
-                    _abort_capture(graph, pool, device)
-                    if isinstance(e, torch.cuda.OutOfMemoryError):
-                        raise  # pressure, not a capture fault: the server degrades
-                    notes = "; ".join(getattr(e, "__notes__", ()))
-                    raise CaptureError(f"capturing the launch list failed at {notes or 'an unnamed step'}: "
-                                       f"{type(e).__name__}: {e}") from e
-                graph.capture_end()
+                with _collector_off():
+                    pool = _begin_capture(graph)
+                    try:
+                        self.fn(self.grids, self.idxs)
+                    except BaseException as e:
+                        _abort_capture(graph, pool, device)
+                        if isinstance(e, torch.cuda.OutOfMemoryError):
+                            raise  # pressure, not a capture fault: the server degrades
+                        notes = "; ".join(getattr(e, "__notes__", ()))
+                        raise CaptureError(f"capturing the launch list failed at {notes or 'an unnamed step'}: "
+                                           f"{type(e).__name__}: {e}") from e
+                    graph.capture_end()
             self.tally = _delta(snap)
         finally:
             _restore(snap)
@@ -334,7 +352,7 @@ class CapturedCall:
         gc.collect()
         torch.cuda.empty_cache()  # the graph's private pool takes what the warm-up freed
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), _collector_off():
             pool = _begin_capture(graph)
             try:
                 self.outputs = self.fn(*self.static)

@@ -18,9 +18,9 @@ caller passes the same tensors every call, so nothing is copied).
 Over a mesh of more than one device (explicit SPMD, ``models/spmd.py``):
 every argument is a ``DTensor`` (or this rank's block of it): parameters,
 optimizer state and KV caches split as the resolver places them, the
-batch and the recurrent states' rows over the data axes.  Each rank runs
-the model on its rows, gathering each parameter's data-axis blocks at use
-and computing on its ``model`` blocks (``models/spmd.py``); gradients
+batch's rows over the data axes, the recurrent states by rows and heads.
+Each rank runs the model on its rows, gathering each parameter's data-axis
+blocks at use and computing on its ``model`` blocks (``models/spmd.py``); gradients
 come back as this rank's blocks, summed over the ranks of the batch axes
 (and, under sequence parallelism, over ``model`` for leaves whole there)
 and divided by the number of batch ranks; AdamW runs on the blocks with
@@ -52,7 +52,7 @@ from ..models.layers import PSpec, map_template
 from ..models.model import _casts, build_model, model_template
 from ..models.moe import MoeCtx
 from ..models.spmd import TP, ParamGather, SeqSplit
-from ..models.transformer import cache_logical, group_layout, init_cache, n_groups
+from ..models.transformer import cache_logical, init_cache, n_groups
 from ..tree import tree_map
 from . import sharding as sh
 
@@ -120,27 +120,21 @@ def param_shardings(cfg: ArchConfig, mesh, rules: sh.Rules) -> Dict[str, sh.Name
     return out
 
 
-def _model_blocks(cfg: ArchConfig, mesh, p_shard) -> Dict[str, Tuple[int, ...]]:
+def _model_blocks(mesh, p_shard) -> Dict[str, Tuple[int, ...]]:
     """The leaves computed on their ``model`` block (every leaf the resolver
-    splits on ``model`` but the Mamba2 and RWKV6 mixers', which are gathered
-    whole there): the mesh dims they keep split, by leaf."""
+    splits on ``model``): the mesh dims they keep split, by leaf."""
     if "model" not in sh.mesh_names(mesh):
         return {}
     m = sh.mesh_names(mesh).index("model")
-    recurrent = tuple(f"stack.groups.{g}.layers.{i}." for g in range(n_groups(cfg))
-                      for i, d in enumerate(group_layout(cfg)) if d.kind in ("rwkv", "mamba"))
-    return {name: (m,) for name, s in p_shard.items()
-            if not name.startswith(recurrent) and m in {i for _, i in sh.dim_splits(mesh, s.spec)}}
+    return {name: (m,) for name, s in p_shard.items() if m in {i for _, i in sh.dim_splits(mesh, s.spec)}}
 
 
-def moe_ctx_for(cfg: ArchConfig, mesh, rules: sh.Rules, p_shard=None, batch: Optional[int] = None,
-                seq: Optional[int] = None) -> Optional[MoeCtx]:
+def moe_ctx_for(cfg: ArchConfig, mesh, rules: sh.Rules, p_shard=None, batch: Optional[int] = None) -> Optional[MoeCtx]:
     """The parallel context of a plan over ``mesh``: the reference's axes,
     and over more than one device the rows' axes (``batch``: the global
     batch), gather at use of the parameters ``p_shard`` places and, where
-    ``model`` is larger than one, the split of compute over it (``spmd.TP``;
-    ``seq``: a train step's sequence length, which fixes whether the
-    gathered leaves' gradients are parts or copies over ``model``)."""
+    ``model`` is larger than one, the split of compute over it
+    (``spmd.TP``)."""
     if mesh is None:
         return None
     names = sh.mesh_names(mesh)
@@ -155,9 +149,7 @@ def moe_ctx_for(cfg: ArchConfig, mesh, rules: sh.Rules, p_shard=None, batch: Opt
         if "model" in names and mesh.shape[names.index("model")] > 1:
             m = names.index("model")
             tp = TP(mesh.get_group(m), mesh.shape[m], mesh.get_coordinate()[m], cfg.seq_parallel)
-        summed = ("model",) if tp is not None and seq is not None and tp.for_seq(seq).sp else ()
-        gather = ParamGather.build(p_shard, reduce_axes=ctx.batch_axes, skip=_model_blocks(cfg, mesh, p_shard),
-                                   summed=summed)
+        gather = ParamGather.build(p_shard, reduce_axes=ctx.batch_axes, skip=_model_blocks(mesh, p_shard))
         ctx = dataclasses.replace(ctx, params=gather, tp=tp)
     return ctx
 
@@ -266,7 +258,7 @@ def make_train_step(
         b_specs, b_shard = batch_specs(cfg, B, shape.seq_len, mesh, rules, with_labels=True)
         in_sh = (p_shard, o_shard, b_shard)
         out_sh = (p_shard, o_shard, None)
-        mctx = moe_ctx_for(cfg, mesh, rules, p_shard, B, shape.seq_len)
+        mctx = moe_ctx_for(cfg, mesh, rules, p_shard, B)
     split = _split(mesh)
     if split:
         red_dims, n_red = _batch_ranks(mesh, mctx.batch_axes)
@@ -345,26 +337,27 @@ def cache_specs(cfg: ArchConfig, batch: int, max_seq: int):
 
 def _cache_shardings(cfg: ArchConfig, c_specs, mesh, rules: sh.Rules, rows: Tuple[str, ...]):
     """The cache's placements: the resolver's (``cache_logical`` under
-    ``rules``).  Attention attends over its K/V as they are placed (on a
-    seq dim split over ``model`` by ``serve_rules``, each rank holds
-    Smax / model positions: ``models/attention.py``); the recurrent states'
-    placements are cut to the rows' dim (dim 1, after the groups'), since
-    their mixers run whole on every ``model`` rank."""
+    ``rules``) with the batch dim on the rows' axes ``rows`` (those the
+    activations' rows are split over, ``sh.batch_axes``), where the
+    resolver could place it elsewhere (``src/repro_torch/DESIGN.md``).
+    Attention attends over its K/V as they are placed (on a seq dim split
+    by ``serve_rules``, each rank holds its block of the positions:
+    ``models/attention.py``); a recurrent state keeps only its ``heads``
+    split (``ssm``, ``conv_x``, ``wkv``: this rank's heads, as the mixers
+    compute them) and is whole on every other dim (the shift states and the
+    B/C convolution tails)."""
+    kv_rules = sh.Rules({**rules.table, "batch": tuple(rows)}, rules.min_ndim)
+    state_rules = sh.Rules({"batch": tuple(rows), "heads": rules.lookup("heads")}, rules.min_ndim)
 
-    def cut(s: sh.NamedSharding, kv: bool) -> sh.NamedSharding:
-        row = s.spec[1] if len(s.spec) > 1 else None
-        if sh.spec_axes(row) != tuple(rows):
-            raise NotImplementedError(f"cache batch dim placed on {row}, the rows on {rows}")
-        return s if kv else sh.NamedSharding(mesh, sh.P(None, row))
+    def walk(logical, specs, kv=False):
+        if isinstance(logical, dict):
+            return {k: walk(v, specs[k], k in ("k", "v")) for k, v in logical.items()}
+        if isinstance(logical, list):
+            return [walk(v, sp) for v, sp in zip(logical, specs)]
+        return sh.NamedSharding(mesh, sh.resolve_pspec(logical, tuple(specs.shape), mesh,
+                                                       kv_rules if kv else state_rules))
 
-    def walk(t, kv=False):
-        if isinstance(t, dict):
-            return {k: walk(v, k in ("k", "v")) for k, v in t.items()}
-        if isinstance(t, list):
-            return [walk(v) for v in t]
-        return cut(t, kv)
-
-    return walk(sh.tree_shardings(cache_logical(cfg), c_specs, mesh, rules))
+    return walk(cache_logical(cfg), c_specs)
 
 
 def _kv_seq(mesh, c_shard) -> Optional[SeqSplit]:

@@ -4,8 +4,11 @@
 ``ep``     (over a mesh): expert parallelism.  Tokens stay on their data
            shard, experts are split over the ``model`` mesh axis; every
            model rank routes its shard's tokens, builds the capacity buffer
-           of *its* experts only (capacity sized on the shard's tokens) and
-           the combine is one sum over the ``model`` group (the GShard
+           of *its* experts only (capacity sized on the shard's tokens;
+           where the global batch does not divide the batch axes the
+           reference replicates it, and the port, whose rows stay split,
+           counts slots and capacity in the global batch's order) and the
+           combine is one sum over the ``model`` group (the GShard
            dataflow).  The experts' FSDP'd ``embed`` dim arrives gathered
            over the data axes (gather at use, ``models/spmd.py``).
 ``gather`` (the default): capacity-bounded scatter/gather permutation,
@@ -43,7 +46,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from .layers import PSpec, _gelu
-from .spmd import copy_to, mean_value, tp_of
+from .spmd import all_gather, copy_to, mean_value, tp_of
 
 
 @dataclass(frozen=True)
@@ -120,8 +123,32 @@ def _expert_ffn(cfg: ArchConfig, wi, wg, wo, h: torch.Tensor) -> torch.Tensor:
     return torch.bmm(_act(cfg, up, g), wo.to(h.dtype))
 
 
-def _router(cfg: ArchConfig, router_w: torch.Tensor, xf: torch.Tensor):
-    """xf: (T, D).  Returns (gates (T, k) fp32, idx (T, k), aux loss)."""
+def _rows(ctx: Optional[MoeCtx]) -> Tuple[Tuple[Any, int, int], ...]:
+    """The mesh dims this call's rows are split over (``ctx.rows_axes``
+    larger than one), major to minor: (group, size, this rank's
+    coordinate) each."""
+    if ctx is None or ctx.mesh is None:
+        return ()
+    return tuple((ctx.group(a), ctx._size((a,)), ctx.index(a)) for a in ctx.rows_axes if ctx._size((a,)) > 1)
+
+
+def _before(rows, counts: torch.Tensor) -> torch.Tensor:
+    """``counts`` (one an expert) summed over the ranks of ``rows`` before
+    this one: each rank's rows are a contiguous block of the global batch,
+    in rank order along the rows' dims, so these are the assignments of
+    the global batch's earlier tokens."""
+    every = counts[None]
+    for group, n, _ in reversed(rows):  # (ranks, E) in rank order, the minor dim gathered first
+        every = all_gather(every, 0, group, n)
+    i = 0
+    for _, n, c in rows:
+        i = i * n + c
+    return every[:i].sum(0)
+
+
+def _router(cfg: ArchConfig, router_w: torch.Tensor, xf: torch.Tensor, rows=()):
+    """xf: (T, D).  Returns (gates (T, k) fp32, idx (T, k), aux loss).
+    ``rows`` (``_rows``): the aux loss's means are the global batch's."""
     logits = xf.float() @ router_w.float()
     gates_all = torch.softmax(logits, dim=-1)
     top_vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
@@ -129,8 +156,10 @@ def _router(cfg: ArchConfig, router_w: torch.Tensor, xf: torch.Tensor):
     gates = torch.softmax(top_vals, dim=-1)  # renormalised over the selected
     # load-balance aux (Switch): E * sum_e f_e * P_e, f by top-1 assignment
     E = cfg.n_experts
-    f = F.one_hot(idx[:, 0], E).float().mean(0)
-    aux = E * (f * gates_all.mean(0)).sum()
+    f, pm = F.one_hot(idx[:, 0], E).float().mean(0), gates_all.mean(0)
+    for group, n, _ in rows:  # equal rows a rank: the mean of the ranks' means
+        f, pm = mean_value(torch.stack([f, pm]), group, n).unbind()
+    aux = E * (f * pm).sum()
     return gates, idx, aux
 
 
@@ -138,28 +167,32 @@ def _capacity(cfg: ArchConfig, n_tokens: int) -> int:
     return max(1, int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
 
 
-def _slots(cfg: ArchConfig, idx: torch.Tensor, C: int) -> torch.Tensor:
+def _slots(cfg: ArchConfig, idx: torch.Tensor, C: int, rows=()) -> torch.Tensor:
     """The buffer row of every (token, k) assignment, in the flattened
     (T·k) order: expert e's n-th assignment goes to row e·C + n while
     n < C; the rest go to the overflow row E·C (dropped).  The running
     count is the reference's cumulative sum of one-hots, taken along the
     inner dimension of the (E, T·k) transpose: on the card a scan along
-    the outer dimension of (T·k, E) is two orders of magnitude slower."""
+    the outer dimension of (T·k, E) is two orders of magnitude slower.
+    ``rows`` (``_rows``): n counts in the global batch's order."""
     E = cfg.n_experts
     flat_e = idx.reshape(-1)
     pos_in_e = torch.cumsum(F.one_hot(flat_e, E).T.contiguous(), dim=1) - 1  # (E, T*k): 0-based slot
     pos = pos_in_e.gather(0, flat_e[None])[0]
+    if rows:
+        pos = pos + _before(rows, pos_in_e[:, -1] + 1)[flat_e]
     return torch.where(pos < C, flat_e * C + pos, E * C)
 
 
-def _gather_dispatch(cfg: ArchConfig, p, xf, gates, idx, C):
+def _gather_dispatch(cfg: ArchConfig, p, xf, gates, idx, C, rows=()):
     """Permutation dispatch: scatter tokens to (E, C) slots, gather back.
     The buffer has one real overflow row, sliced off before the experts
-    run, so duplicate writes to it are harmless."""
+    run, so duplicate writes to it are harmless.  ``rows``: the slots are
+    the global batch's, and this rank's buffer holds its tokens' only."""
     T, D = xf.shape
     E, k = cfg.n_experts, cfg.top_k
     gated = cfg.mlp_type in ("swiglu", "geglu")
-    dest = _slots(cfg, idx, C)
+    dest = _slots(cfg, idx, C, rows)
     src = xf.repeat_interleave(k, dim=0) if k > 1 else xf
     buf = torch.zeros(E * C + 1, D, dtype=xf.dtype, device=xf.device)
     buf.index_copy_(0, dest, src)
@@ -169,15 +202,18 @@ def _gather_dispatch(cfg: ArchConfig, p, xf, gates, idx, C):
     return back.reshape(T, k, D).sum(1)
 
 
-def _dense_dispatch(cfg: ArchConfig, p, xf, gates, idx, C):
+def _dense_dispatch(cfg: ArchConfig, p, xf, gates, idx, C, rows=()):
     """One-hot dispatch products (the naive baseline); the one-hots and
-    their cumulative sum in ``xf``'s dtype, as the reference builds them."""
+    their cumulative sum in ``xf``'s dtype, as the reference builds them.
+    ``rows``: the slots are the global batch's."""
     T, D = xf.shape
     E, k = cfg.n_experts, cfg.top_k
     gated = cfg.mlp_type in ("swiglu", "geglu")
     onehot = F.one_hot(idx, E).to(xf.dtype)  # (T, k, E)
-    cum = torch.cumsum(onehot.reshape(T * k, E), dim=0).reshape(T, k, E)
-    slot = ((cum - onehot) * onehot).sum(-1)  # (T, k): 0-based slot id
+    cum = torch.cumsum(onehot.reshape(T * k, E), dim=0)
+    slot = ((cum.reshape(T, k, E) - onehot) * onehot).sum(-1)  # (T, k): 0-based slot id
+    if rows:
+        slot = slot + _before(rows, cum[-1].long())[idx].to(slot.dtype)
     slot_oh = (slot[..., None] == torch.arange(C, device=xf.device, dtype=slot.dtype)).to(xf.dtype)
     slot_oh = slot_oh * (slot < C)[..., None].to(xf.dtype) * onehot.sum(-1, keepdim=True)
     disp = torch.einsum("tke,tkc->ect", onehot, slot_oh)
@@ -212,6 +248,11 @@ def moe_apply(cfg: ArchConfig, p, x: torch.Tensor, ctx: Optional[MoeCtx] = None)
     """x: (B, S, D) (this rank's rows over a mesh; its chunk of the
     sequence under SP) -> (out, aux loss).
 
+    Without EP the reference routes the whole batch: where the rows are
+    split, each rank routes its own and counts slots and sizes capacity in
+    the global batch's order (``_rows``, ``_slots``), and the aux loss
+    takes the global means; no rank holds another's tokens.
+
     Over ``model`` (``ctx.tp``, ``models/spmd.py``) the layer routes the
     whole sequence of its rows (gathered first under SP) on every model
     rank, runs its experts (EP) or its ``mlp`` block of every expert, and
@@ -220,39 +261,25 @@ def moe_apply(cfg: ArchConfig, p, x: torch.Tensor, ctx: Optional[MoeCtx] = None)
     enters through ``copy_to`` after the router, so the router's gradient
     is every rank's; with it the gates do not, and every rank passes back
     1/n of the aux loss's gradient (``TP.shared``)."""
-    B, S, D = x.shape
     ep = use_ep(cfg, ctx)
-    if not ep and ctx is not None and ctx.mesh is not None and ctx._size(ctx.rows_axes) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_experts} experts do not divide the model axis, and the local dispatch over "
-            f"rows split on {ctx.rows_axes} would size capacity per shard where the reference sizes it on the "
-            "whole batch")
+    rows = () if ep else _rows(ctx)
     tp = tp_of(ctx)
     if tp is None:
-        if ep:
-            out, aux = _moe_ep(cfg, p, x, ctx)
-        else:
-            xf = x.reshape(B * S, D)
-            gates, idx, aux = _router(cfg, p["router"], xf)
-            out = _dispatch(cfg, p, xf, gates, idx, _capacity(cfg, B * S)).reshape(B, S, D)
+        out, aux = _moe_ep(cfg, p, x, ctx) if ep else _routed(cfg, p, x, x, rows)
         if cfg.shared_expert:
             out = out + _shared_expert(cfg, p, x)
         return out, aux
     split = ep or p["wi"].shape[-1] != cfg.d_ff  # each rank computes a part of every token's output
     shared_split = cfg.shared_expert and p["shared_wi"].shape[-1] != cfg.d_ff
     if not split:  # the whole layer on every model rank
-        out, aux = moe_apply(cfg, p, tp.whole(x))
+        xw = tp.whole(x)
+        out, aux = _routed(cfg, p, xw, xw, rows)
+        if cfg.shared_expert:
+            out = out + _shared_expert(cfg, p, xw)
         return tp.own(out), tp.shared(aux)
     xe = tp.enter(x)  # under SP the whole sequence; its gradient summed over model
     xr = xe if tp.sp else x  # the router's input: without SP its gradient is every rank's (module docstring)
-    if ep:
-        out, aux = _moe_ep(cfg, p, xe, ctx, tp, xr)
-    else:
-        Bs, Ss, _ = xe.shape
-        gates, idx, aux = _router(cfg, p["router"], xr.reshape(Bs * Ss, D))
-        if not tp.sp:
-            gates = copy_to(gates, tp.group)
-        out = _dispatch(cfg, p, xe.reshape(Bs * Ss, D), gates, idx, _capacity(cfg, Bs * Ss)).reshape(xe.shape)
+    out, aux = _moe_ep(cfg, p, xe, ctx, tp, xr) if ep else _routed(cfg, p, xe, xr, rows, tp)
     if shared_split:
         out = out + _shared_expert(cfg, p, xe)
     out = tp.leave(out)
@@ -261,9 +288,22 @@ def moe_apply(cfg: ArchConfig, p, x: torch.Tensor, ctx: Optional[MoeCtx] = None)
     return out, tp.shared(aux)
 
 
-def _dispatch(cfg: ArchConfig, p, xf, gates, idx, C):
+def _routed(cfg: ArchConfig, p, x: torch.Tensor, xr: torch.Tensor, rows=(), tp=None):
+    """The local dispatch of ``x``'s tokens, routed on ``xr``'s: (out,
+    aux).  ``rows`` (``_rows``): slots and capacity of the global batch.
+    With ``tp`` and without SP the gates enter the split part through
+    ``copy_to``."""
+    B, S, D = x.shape
+    gates, idx, aux = _router(cfg, p["router"], xr.reshape(B * S, D), rows)
+    if tp is not None and not tp.sp:
+        gates = copy_to(gates, tp.group)
+    C = _capacity(cfg, B * S * math.prod(n for _, n, _ in rows))
+    return _dispatch(cfg, p, x.reshape(B * S, D), gates, idx, C, rows).reshape(B, S, D), aux
+
+
+def _dispatch(cfg: ArchConfig, p, xf, gates, idx, C, rows=()):
     dispatch = _dense_dispatch if cfg.moe_dispatch == "dense" else _gather_dispatch
-    return dispatch(cfg, p, xf, gates, idx, C)
+    return dispatch(cfg, p, xf, gates, idx, C, rows)
 
 
 def _moe_ep(cfg: ArchConfig, p, x: torch.Tensor, ctx: MoeCtx, tp=None, xr=None):
@@ -282,23 +322,26 @@ def _moe_ep(cfg: ArchConfig, p, x: torch.Tensor, ctx: MoeCtx, tp=None, xr=None):
                          "moe_ctx_for)")
     E_loc = E // (tp.n if tp is not None else 1)
     B, S, D = x.shape
-    rows = ctx._size(ctx.rows_axes)
-    # the reference's axes of the global batch: all of them, or none
+    n_rows = ctx._size(ctx.rows_axes)
+    # the reference's axes of the global batch: all of them, or none (the
+    # batch replicated, routed whole: the global batch's slots and
+    # capacity where the rows are split, as the local dispatch's)
     baxes = tuple(a for a in ctx.batch_axes if a in mesh_names(ctx.mesh))
-    if (B * rows) % ctx._size(baxes) != 0:
+    if (B * n_rows) % ctx._size(baxes) != 0:
         baxes = ()
-    if ctx._size(baxes) != rows:
-        raise NotImplementedError(f"EP over batch axes {baxes}, the rows are split over {ctx.rows_axes}")
+    rows = _rows(ctx) if ctx._size(baxes) != n_rows else ()
     T = B * S
-    C = _capacity(cfg, T)
+    C = _capacity(cfg, T * math.prod(n for _, n, _ in rows))
     xf = x.reshape(T, D)
-    gates, idx, aux = _router(cfg, p["router"], xf if xr is None else xr.reshape(T, D))
+    gates, idx, aux = _router(cfg, p["router"], xf if xr is None else xr.reshape(T, D), rows)
     e0 = ctx.index(maxis) * E_loc
     flat_e = idx.reshape(-1)  # (T*k,)
     local = (flat_e >= e0) & (flat_e < e0 + E_loc)
     le = torch.where(local, flat_e - e0, E_loc)  # E_loc: the "overflow expert"
-    pos = torch.cumsum(F.one_hot(le, E_loc + 1).T.contiguous(), dim=1) - 1  # (E_loc + 1, T*k)
-    pos = pos.gather(0, le[None])[0]
+    cum = torch.cumsum(F.one_hot(le, E_loc + 1).T.contiguous(), dim=1) - 1  # (E_loc + 1, T*k)
+    pos = cum.gather(0, le[None])[0]
+    if rows:
+        pos = pos + _before(rows, cum[:, -1] + 1)[le]
     keep = local & (pos < C)
     dest = torch.where(keep, le * C + pos, E_loc * C)
     if tp is not None and not tp.sp:

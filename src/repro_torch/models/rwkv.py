@@ -15,6 +15,20 @@ port runs a Python loop.  As in the reference: static token-shift mix
 vectors (RWKV5-style) for r/k/v/g, the full data-dependent LoRA path for
 the decay, and O(1) decode state: the (B, H, K, V) wkv state and one-token
 shift states.
+
+Over ``model`` (``ctx.tp``, ``models/spmd.py``) each half splits where the
+resolver splits its leaves, the time-mix by heads and the channel-mix by
+``mlp``, apart: rwkv6-3b's 40 heads stay whole on a 16-way ``model`` while
+its ``d_ff`` of 8960 splits.  Time-mix: ``wr``, ``wk``, ``wv``, ``wg``,
+``w_lora_b``, ``w0``, ``u`` and ``ln_x`` (a norm over each head's K) are
+column-parallel, ``wo`` row-parallel, ``mu`` and ``w_lora_a`` whole leaves
+(``TP.whole_leaf``).  Channel-mix: ``wk_cm`` column-parallel, ``wv_cm``
+row-parallel; ``rr`` multiplies the sum of ``vv``'s parts, so it is
+computed whole (``wr_cm``, ``mu_cm[1]``) on the rows of the sequence the
+rank keeps.  Each half takes the whole sequence (gathered under sequence
+parallelism) before its token shift, so the first token of a rank's
+chunk reads the last of the chunk before.  The ``wkv`` state holds the
+rank's heads; the shift states are whole.
 """
 
 from __future__ import annotations
@@ -26,6 +40,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from .layers import PSpec, largest_divisor, norm_apply, norm_template, proj, rms_norm
+from .spmd import tp_of
 
 
 def _dims(cfg: ArchConfig):
@@ -100,8 +115,9 @@ def wkv6_chunked(
         lw = log_w[:, c0:c0 + Q]
         l = torch.cumsum(lw, dim=1)  # inclusive log-decay
         l_exc = l - lw  # exclusive
-        # intra: pair[i, j, k] = exp(l_exc[i, k] - l[j, k]), j < i (exponent <= 0)
-        pair = torch.where(tri_strict, torch.exp(l_exc[:, :, None] - l[:, None, :]), 0.0)  # (B, i, j, H, K)
+        # intra: pair[i, j, k] = exp(l_exc[i, k] - l[j, k]), j < i (exponent <= 0),
+        # the rest masked before exp (as ssm.ssd_chunked's decay: no NaN gradient)
+        pair = torch.exp((l_exc[:, :, None] - l[:, None, :]).masked_fill(~tri_strict, float("-inf")))  # (B, i, j, H, K)
         A = torch.einsum("bihk,bijhk,bjhk->bijh", mixed(rc), mixed(pair), mixed(kc))
         A = A + torch.einsum("bihk,hk,bihk->bih", rc, u32, kc)[:, :, None, :] * eye
         y = torch.einsum("bijh,bjhk->bihk", mixed(A), mixed(vc))
@@ -119,18 +135,27 @@ def rwkv_block_apply(
     p,
     x: torch.Tensor,  # (B, S, D)
     cache: Optional[Dict[str, torch.Tensor]] = None,
+    ctx=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """The full RWKV6 layer, time-mix then channel-mix (both with token
-    shift).  Returns (out, new cache), the new cache None without one."""
-    S = x.shape[1]
+    shift).  Returns (out, new cache), the new cache None without one.
+    Over ``model`` (module docstring) ``x`` and ``out`` are in the residual
+    stream's layout and the ``wkv`` state holds this rank's heads."""
+    tp = tp_of(ctx)
+    tm_split = tp is not None and p["wr"].shape[1] != cfg.d_model // cfg.rwkv_head_size
+    cm_split = tp is not None and p["wk_cm"].shape[1] != cfg.d_ff
 
     # ---- time mix (pre-norm: x = x + TM(LN1 x)) ---------------------------
     xa = norm_apply(cfg, p["ln1"], x)
+    if tp is not None:
+        xa = tp.enter(xa) if tm_split else tp.whole(xa)
+    S = xa.shape[1]
     xp = _shift(xa, cache["shift_tm"] if cache is not None else None)
-    mu = p["mu"].to(x.dtype)  # (5, D): r, k, v, w, g
+    mu, w_lora_a = (tp.whole_leaf(p[k]) if tm_split else p[k] for k in ("mu", "w_lora_a"))
+    mu = mu.to(x.dtype)  # (5, D): r, k, v, w, g
     xr, xk, xv, xw, xg = (xa + mu[i] * (xp - xa) for i in range(5))
     r, k, v, g = proj(xr, p["wr"]), proj(xk, p["wk"]), proj(xv, p["wv"]), proj(xg, p["wg"])
-    lora = torch.tanh(xw.float()) @ p["w_lora_a"].float()
+    lora = proj(torch.tanh(xw.float()), w_lora_a.float())
     wexp = p["w0"].float() + proj(torch.tanh(lora), p["w_lora_b"].float())
     log_w = -torch.exp(wexp)  # data-dependent decay, always <= 0
 
@@ -142,23 +167,37 @@ def rwkv_block_apply(
                               mix_dtype=mix_dtype)
     y = rms_norm(y, torch.ones((), dtype=y.dtype, device=y.device)) * p["ln_x"].to(y.dtype)
     y = y * F.silu(g.float()).to(y.dtype)
-    H, K, D = p["wo"].shape
-    x = x + y.reshape(*y.shape[:2], H * K) @ p["wo"].to(y.dtype).reshape(H * K, D)
+    tm = proj(y.flatten(2), p["wo"].flatten(0, 1))
+    if tp is not None:
+        tm = tp.leave(tm) if tm_split else tp.own(tm)
+    x = x + tm
 
     # ---- channel mix (pre-norm) --------------------------------------------
     xb = norm_apply(cfg, p["ln2"], x)
-    xp2 = _shift(xb, cache["shift_cm"] if cache is not None else None)
-    mu_cm = p["mu_cm"].to(x.dtype)
-    xk2 = xb + mu_cm[0] * (xp2 - xb)
-    xr2 = xb + mu_cm[1] * (xp2 - xb)
-    kk = F.relu((xk2 @ p["wk_cm"].to(x.dtype)).float()).square().to(x.dtype)
-    vv = kk @ p["wv_cm"].to(x.dtype)
-    rr = torch.sigmoid((xr2 @ p["wr_cm"].to(x.dtype)).float()).to(x.dtype)
+    xbk = xbr = xb  # the key half's input, and rr's
+    if cm_split:  # the key half computes its part; rr whole on the sequence this rank keeps
+        xbk = tp.enter(xb)
+        xbr = xbk if tp.sp else xb
+    elif tp is not None:
+        xbk = xbr = tp.whole(xb)
+    prev = cache["shift_cm"] if cache is not None else None
+    xpk = _shift(xbk, prev)
+    xpr = xpk if xbr is xbk else _shift(xbr, prev)
+    if tp is not None:
+        xbr, xpr = tp.own(xbr), tp.own(xpr)
+    mu_k = (tp.whole_leaf(p["mu_cm"]) if cm_split else p["mu_cm"])[0].to(x.dtype)
+    xk2 = xbk + mu_k * (xpk - xbk)
+    xr2 = xbr + p["mu_cm"][1].to(x.dtype) * (xpr - xbr)
+    kk = F.relu(proj(xk2, p["wk_cm"]).float()).square().to(x.dtype)
+    vv = proj(kk, p["wv_cm"])
+    if tp is not None:
+        vv = tp.leave(vv) if cm_split else tp.own(vv)
+    rr = torch.sigmoid(proj(xr2, p["wr_cm"]).float()).to(x.dtype)
     out = x + rr * vv
     if cache is None:
         return out, None
     # the shift states carry the normed inputs at the last position
-    return out, {"wkv": s_final, "shift_tm": xa[:, -1], "shift_cm": xb[:, -1]}
+    return out, {"wkv": s_final, "shift_tm": xa[:, -1], "shift_cm": xbk[:, -1]}
 
 
 def rwkv_cache_shape(cfg: ArchConfig, batch: int) -> Dict[str, Tuple[int, ...]]:

@@ -13,12 +13,13 @@ Over ``model`` (Megatron-style tensor parallelism, ``TP``) a leaf the
 resolver splits is used as its block: attention by heads, the MLPs by
 ``mlp`` columns and rows, the experts by expert (EP) or by ``mlp``, the
 embedding and the head by vocab (``models/attention.py``, ``layers.py``,
-``moe.py``, ``model.py``).  Only the Mamba2 and RWKV6 mixers still gather
-their ``model`` blocks whole.  A dim the resolver leaves whole is computed
-whole on every ``model`` rank.  The operators: ``copy_to`` (identity; the
-gradient summed over the group: Megatron's f), ``reduce_from`` (the sum
-over the group; the gradient as it is: g) and ``gather_seq`` (all-gather
-on seq; the gradient reduce-scattered).
+``moe.py``, ``model.py``), the Mamba2 and RWKV6 mixers by heads and
+``mlp`` (``ssm.py``, ``rwkv.py``).  No leaf is gathered over ``model``.
+A dim the resolver leaves whole is computed whole on every ``model`` rank.
+The operators: ``copy_to`` (identity; the gradient summed over the group:
+Megatron's f), ``reduce_from`` (the sum over the group; the gradient as it
+is: g) and ``gather_seq`` (all-gather on seq; the gradient
+reduce-scattered).
 
 A column-parallel block enters through ``TP.enter`` and a row-parallel
 one leaves through ``TP.leave``: without sequence parallelism f and g,
@@ -36,10 +37,8 @@ The gradient rule (``launch/steps.py``): a leaf whole on ``model`` has the
 same gradient on every ``model`` rank without sequence parallelism (a
 whole leaf one rank uses for its own part of a split block enters through
 ``copy_to``, ``TP.whole_leaf``) and a part of it on each rank with it, so
-the step sums it over ``model`` then, and only then.  A leaf gathered over
-``model`` (the recurrent mixers) reduce-scatters its gradient there under
-sequence parallelism and slices it without.  A leaf split on ``model`` is
-never summed there.
+the step sums it over ``model`` then, and only then.  A leaf split on
+``model`` is never summed there.
 
 At world size 1 nothing here runs: every gather is the tensor itself.
 """
@@ -72,33 +71,28 @@ def _reduce_scatter(g: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
-# one split of a leaf: (tensor dim, process group, group size, this rank's
-# index in the group, whether ranks of the group hold different rows)
-Split = Tuple[int, Any, int, int, bool]
+# one split of a leaf over a mesh dim of the batch axes: (tensor dim,
+# process group, group size)
+Split = Tuple[int, Any, int]
 
 
 class _Gather(torch.autograd.Function):
     """The whole tensor from the blocks: all-gathers over the mesh dims from
     the last (the innermost split) to the first; the backward undoes them in
-    the other order, reduce-scattering over dims whose ranks hold different
-    rows or compute different parts of the gradient, and slicing this rank's
-    block over the others (whose ranks compute the same gradient)."""
+    the other order, reduce-scattering (the ranks of a batch axis hold
+    different rows, so each holds a part of the gradient)."""
 
     @staticmethod
     def forward(ctx, x, splits):
         ctx.splits = splits
-        for d, group, n, _, _ in reversed(splits):
+        for d, group, n in reversed(splits):
             x = _all_gather(x, d, group, n)
         return x.contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        for d, group, n, coord, rows in ctx.splits:
-            if rows:
-                g = _reduce_scatter(g, d, group, n)
-            else:
-                c = g.shape[d] // n
-                g = g.narrow(d, coord * c, c)
+        for d, group, n in ctx.splits:
+            g = _reduce_scatter(g, d, group, n)
         return g.contiguous(), None
 
 
@@ -248,7 +242,8 @@ class TP:
     def whole_leaf(self, w: torch.Tensor) -> torch.Tensor:
         """A leaf whole on ``model`` that this rank uses only for its own
         part of a split block (``wk``/``wv`` sliced to the KV heads its
-        query heads read, ``q_norm``): without SP its gradient is summed
+        query heads read, ``q_norm``; Mamba2's B/C projections, RWKV6's
+        token-shift mixes): without SP its gradient is summed
         here, so that every rank holds the same one (the gradient rule)."""
         return w if self.sp else copy_to(w, self.group)
 
@@ -289,8 +284,8 @@ def tp_of(ctx) -> "TP | None":
 
 
 def mean_value(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """The mean of a scalar over ``group`` as the value, this rank's ``x``
-    for the gradient (the step averages the ranks' gradients)."""
+    """The mean of ``x`` over ``group`` as the value, this rank's ``x`` for
+    the gradient (the step averages the ranks' gradients)."""
     import torch.distributed as dist
 
     m = x.detach().clone()
@@ -306,25 +301,23 @@ class ParamGather:
     splits: Dict[str, Tuple[Split, ...]]
 
     @classmethod
-    def build(cls, shardings: Dict[str, Any], reduce_axes: Tuple[str, ...], skip=None,
-              summed: Tuple[str, ...] = ()) -> "ParamGather":
+    def build(cls, shardings: Dict[str, Any], reduce_axes: Tuple[str, ...], skip=None) -> "ParamGather":
         """``reduce_axes``: the mesh axes whose ranks hold different rows
         (the batch axes): the gradient is summed over them.  ``skip``:
         {name: mesh dims} a leaf keeps split (its ``model`` block, used as
-        it is).  ``summed``: the mesh axes whose ranks each compute a part
-        of the gradient of a leaf they gather (``model`` under sequence
-        parallelism): reduce-scattered, as the rows' axes are."""
+        it is).  Every other split of a leaf must be over ``reduce_axes``."""
         from ..launch.sharding import dim_splits, mesh_names
 
         skip = skip or {}
         out = {}
         for name, s in shardings.items():
             mesh = s.mesh
-            names, sizes, coord = mesh_names(mesh), tuple(mesh.shape), mesh.get_coordinate()
-            out[name] = tuple((d, mesh.get_group(i), sizes[i], coord[i],
-                               names[i] in reduce_axes or names[i] in summed)
-                              for d, i in dim_splits(mesh, s.spec)
-                              if sizes[i] > 1 and i not in skip.get(name, ()))
+            names, sizes = mesh_names(mesh), tuple(mesh.shape)
+            splits = [(d, i) for d, i in dim_splits(mesh, s.spec) if sizes[i] > 1 and i not in skip.get(name, ())]
+            for _, i in splits:
+                if names[i] not in reduce_axes:
+                    raise ValueError(f"{name}: gathered over {names[i]!r}, not one of the batch axes {reduce_axes}")
+            out[name] = tuple((d, mesh.get_group(i), sizes[i]) for d, i in splits)
         return cls(out)
 
     def leaf(self, name: str, x: torch.Tensor) -> torch.Tensor:

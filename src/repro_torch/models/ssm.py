@@ -5,10 +5,24 @@ The sequence is processed in chunks: intra-chunk work is a masked (Q x Q)
 product, and only the small per-chunk state (B, H, N, P) is carried from
 one chunk to the next.  The JAX package carries it with ``lax.scan``; the
 port runs a Python loop over the chunks.  Every decay exponent is <= 0 by
-construction, so fp32 ``exp`` never overflows.
+construction, so fp32 ``exp`` never overflows; the chunk's masked half is
+masked before ``exp``, where the reference masks after and its gradient
+is NaN at published widths (a reference caveat in ROADMAP).
 
 Decode keeps O(1) state: the SSM state (B, H, N, P) plus a (ck-1)-deep
 convolution tail per stream.
+
+Over ``model`` (``ctx.tp``, ``models/spmd.py``) the mixer is split by
+heads where the resolver splits them: ``wz``, ``wx``, ``wdt``, ``conv_x``,
+``A_log``, ``dt_bias``, ``D_skip`` and ``norm`` are column-parallel and
+``wo`` row-parallel; ``wb``, ``wc``, ``conv_b`` and ``conv_c`` (one B/C
+group, read by every head) are whole leaves each rank uses for its heads
+(``TP.whole_leaf``).  The scan runs on the rank's heads over the whole
+sequence (gathered under sequence parallelism) and the gated norm reduces
+over each head's P alone, so nothing is exchanged inside the mixer.  The
+cache's ``ssm`` and ``conv_x`` hold the rank's heads; ``conv_b`` and
+``conv_c`` are whole.  Heads that do not divide ``model`` run whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +34,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from .layers import PSpec, largest_divisor, proj, rms_norm
+from .spmd import tp_of
 
 
 def _dims(cfg: ArchConfig):
@@ -85,8 +100,11 @@ def ssd_chunked(
         bc, cc = bs[:, c0:c0 + Q].to(f32), cs[:, c0:c0 + Q].to(f32)
         log_a = dtc * A  # (B, Q, H) <= 0
         l = torch.cumsum(log_a, dim=1)  # inclusive
-        # intra: M[i, j] = exp(l_i - l_j), i >= j (exponent <= 0)
-        M = torch.where(tri, torch.exp(l[:, :, None, :] - l[:, None, :, :]), 0.0)  # (B, Q, Q, H)
+        # intra: M[i, j] = exp(l_i - l_j), i >= j (exponent <= 0); the upper
+        # half's exponents (> 0, past fp32's range at Q = 128) are masked
+        # before exp, not after: a zero cotangent times exp's inf there is a
+        # NaN gradient (the reference's where(tri, exp(.), 0) has it)
+        M = torch.exp((l[:, :, None, :] - l[:, None, :, :]).masked_fill(~tri, float("-inf")))  # (B, Q, Q, H)
         CB = torch.einsum("bqgn,bkgn->bqkg", cc, bc)  # (B, Q, Q, G)
         W = CB.repeat_interleave(hg, dim=-1) * M * dtc[:, None, :, :]
         y = torch.einsum("bqkh,bkhp->bqhp", W, xc)
@@ -106,9 +124,18 @@ def mamba_apply(
     p,
     x: torch.Tensor,  # (B, S, D)
     cache: Optional[Dict[str, torch.Tensor]] = None,
+    ctx=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (out, new cache): the new conv tails and SSM state, or None
-    without a cache."""
+    without a cache.  Over ``model`` (module docstring) ``x`` and ``out``
+    are in the residual stream's layout and the cache holds this rank's
+    heads."""
+    tp = tp_of(ctx)
+    split = tp is not None and p["wx"].shape[1] != cfg.ssm_heads
+    if tp is not None:
+        x = tp.enter(x) if split else tp.whole(x)
+    if split:
+        p = {**p, **{k: tp.whole_leaf(p[k]) for k in ("wb", "wc", "conv_b", "conv_c")}}
     S = x.shape[1]
     ck = cfg.ssm_conv
     z, xs = proj(x, p["wz"]), proj(x, p["wx"])
@@ -135,8 +162,10 @@ def mamba_apply(
     y = y + p["D_skip"].to(y.dtype)[:, None] * xs_c
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), torch.ones((), dtype=y.dtype, device=y.device))
     y = y * p["norm"].to(y.dtype)
-    H, P, D = p["wo"].shape
-    return y.reshape(*y.shape[:2], H * P) @ p["wo"].to(y.dtype).reshape(H * P, D), new_cache
+    out = proj(y.flatten(2), p["wo"].flatten(0, 1))
+    if tp is not None:
+        out = tp.leave(out) if split else tp.own(out)
+    return out, new_cache
 
 
 def mamba_cache_shape(cfg: ArchConfig, batch: int) -> Dict[str, Tuple[int, ...]]:

@@ -41,9 +41,10 @@ parameters are gathered over the data axes at use, inside the
 rematerialised body, so the recompute gathers again; over ``model`` each
 layer computes on its blocks (``ctx.tp``, ``models/spmd.py``), and under
 sequence parallelism the residual stream between layers is this rank's
-chunk of the sequence (a recurrent layer gathers the sequence and keeps
-its chunk after).  ``cache_logical`` gives the cache's logical axes, as
-the reference's.
+chunk of the sequence (the recurrent mixers, like attention, take the
+whole sequence and leave their chunk; a recurrent layer's cache holds
+this rank's heads of its states).  ``cache_logical`` gives the cache's
+logical axes, as the reference's.
 
 Not ported, by design: ``scan_layers`` (the port loops over the groups)
 and ``cast_in_scan`` (it only moves the reference's convert; the values
@@ -64,7 +65,6 @@ from .attention import attention_apply, attention_template, init_kv_cache
 from .layers import mlp_apply, mlp_template, norm_apply, norm_template
 from .moe import moe_apply, moe_template
 from .rwkv import rwkv_block_apply, rwkv_cache_shape, rwkv_template
-from .spmd import tp_of
 from .ssm import mamba_apply, mamba_cache_shape, mamba_template
 
 
@@ -218,16 +218,11 @@ def _layer_apply(
     updated in place.  An MoE layer appends its aux loss to ``aux`` when
     the caller passes a list."""
     if desc.kind in ("rwkv", "mamba"):
-        # the recurrent mixers run whole on every model rank, over the whole
-        # sequence (under SP gathered first, this rank's chunk kept after)
-        tp = tp_of(ctx)
-        whole, own = (tp.whole, tp.own) if tp is not None else (_same, _same)
         if desc.kind == "rwkv":
-            y, new = rwkv_block_apply(cfg, p, whole(x), cache)
-            x = own(y)
+            x, new = rwkv_block_apply(cfg, p, x, cache, ctx)
         else:
-            h, new = mamba_apply(cfg, p["mamba"], whole(norm_apply(cfg, p["ln1"], x)), cache)
-            x = x + own(h)
+            h, new = mamba_apply(cfg, p["mamba"], norm_apply(cfg, p["ln1"], x), cache, ctx)
+            x = x + h
         if cache is not None:
             for k, t in new.items():
                 cache[k].copy_(t)
@@ -244,10 +239,6 @@ def _layer_apply(
             aux.append(a)
         return x + out
     return x + mlp_apply(cfg, p["mlp"], h2, ctx)
-
-
-def _same(x):
-    return x
 
 
 def _slice(cache, g: int):

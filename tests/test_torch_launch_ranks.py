@@ -28,7 +28,15 @@ served logits and caches to ``TP_SERVE_TOL``, each a few times the largest
 reading on the CPU: the parameters need atol 3.0e-6 at rtol 1e-4 (zamba2's
 ``mamba.wo``), the served results atol 2.5e-5 at rtol 1e-4 (zamba2's
 Mamba2 state, whose elements reach 534 and which lies 4.2e-7 relative L2
-from world size 1's).  granite-moe-1b-a400m on (2, 1) routes each data shard's
+from world size 1's), both read while the Mamba2 mixers ran whole on every
+rank.  zamba2 runs in float64 (``F64``): its Mamba2 mixers split by heads
+over ``model``, and the reduced model's first layers amplify a float32
+rounding a thousandfold (one device's own first-step embedding gradient
+moves past ``RANK_TOL`` in 2 elements under a relative noise of 1e-8 on
+the parameters, in 280 under 3e-8), so in float32 these checks would
+read the configuration's conditioning, not the split.  In float64 the
+same tolerances hold the split's logic (the Mamba2 scan itself runs in
+float32 in both packages, on the same inputs).  granite-moe-1b-a400m on (2, 1) routes each data shard's
 tokens with capacity sized on the shard (the reference's ``_moe_ep``), so
 there it is held against the JAX package's plan on two fake CPU devices
 (an Auto-axis mesh in a subprocess with ``XLA_FLAGS=
@@ -60,17 +68,20 @@ JAX_TOL = dict(rtol=2e-4, atol=2e-5)
 # where model > 1 (module docstring): the state after Adam steps, and served results
 TP_TOL = dict(rtol=1e-4, atol=1e-5)
 TP_SERVE_TOL = dict(rtol=1e-4, atol=5e-5)
+F64 = {"compute_dtype": torch.float64, "param_dtype": torch.float64, "optim_state_dtype": torch.float64,
+       "cache_dtype": torch.float64}
 # (arch, steps, config changes): remat "full" gathers inside the
 # rematerialised group, so the recompute gathers again
 TRAIN_CASES = {
     "qwen3-32b": (2, {"remat": "full"}),
     "qwen3-32b_m2": (2, {"microbatches": 2}),
-    "zamba2-2.7b": (2, {"remat": "full"}),
+    "zamba2-2.7b": (2, {"remat": "full", **F64}),
     "rwkv6-3b": (2, {}),
     "gemma3-12b": (2, {}),
     "granite-moe-1b-a400m": (2, {"remat": "full"}),
 }
 DECODE_ARCHS = ("starcoder2-7b", "zamba2-2.7b")
+SERVE_KW = {"zamba2-2.7b": F64}
 GRANITE = "granite-moe-1b-a400m"
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -137,7 +148,7 @@ def _serve(mesh, arch):
     from repro_torch.launch import steps as st
     from repro_torch.models import build_model
 
-    cfg = _cfg(arch, use_pallas=True)
+    cfg = _cfg(arch, use_pallas=True, **SERVE_KW.get(arch, {}))
     model = build_model(cfg, device="cpu")
     params = {k: v.detach() for k, v in model.train_params().items()}
     out = {}

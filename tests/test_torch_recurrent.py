@@ -166,3 +166,57 @@ def test_ssd_state_carry():
     y2, s2 = ssd_chunked(xs[:, 8:], dt[:, 8:], A, bs[:, 8:], cs[:, 8:], 4, s0=s1)
     _close(torch.cat([y1, y2], 1), y_full)
     _close(s2, s_full)
+
+
+# --------------------------------------------------------------------------
+# the masked half of a chunk's decay exponents, past fp32's range
+# --------------------------------------------------------------------------
+def _grads_port(fn, inp, chunk, wrt):
+    ts = _t(*inp)
+    for i in wrt:
+        ts[i].requires_grad_(True)
+    y, s = fn(*ts, chunk)
+    (y.sum() + s.sum()).backward()
+    return y.detach(), [ts[i].grad for i in wrt]
+
+
+def _grads_jax(fn, inp, chunk, wrt):
+    import jax
+
+    def f(*xs):
+        args = list(_j(*inp))
+        for i, x in zip(wrt, xs):
+            args[i] = x
+        y, s = fn(*args, chunk)
+        return y.sum() + s.sum()
+
+    return jax.grad(f, argnums=tuple(range(len(wrt))))(*(jnp.asarray(inp[i]) for i in wrt))
+
+
+@pytest.mark.parametrize("kind", ["ssd", "wkv6"])
+def test_gradients_stay_finite_where_the_masked_decay_overflows(kind):
+    """zamba2's chunk of 128 (and a steep RWKV6 decay at 16) puts the
+    masked half's exponents past fp32's range: the reference's
+    ``where(tri, exp(.), 0)`` then gives the decay a NaN gradient (a zero
+    cotangent times inf; a reference caveat in ROADMAP), the port, which
+    masks the exponent before ``exp``, a finite one.  Where both are
+    finite they agree: the forward, the gradients that do not pass through
+    the decay at the reference's chunk, and the decay's gradient at a
+    chunk short enough for the reference (8) at ``TOL``."""
+    if kind == "ssd":
+        inp = list(ssd_inputs(50, B=1, S=256, H=2, P=4))
+        inp[1] = (np.abs(inp[1]) + 0.7).astype(np.float32)  # dt: 128 steps reach exp's range
+        fn, jfn, chunk, short, wrt = ssd_chunked, jssd, 128, 8, (0, 1)  # xs, dt
+    else:
+        inp = list(wkv_inputs(60, B=1, S=32))
+        inp[3] = (inp[3] * 8).astype(np.float32)  # log_w: 16 steps reach exp's range
+        fn, jfn, chunk, short, wrt = wkv6_chunked, jwkv6, 16, 4, (2, 3)  # v, log_w
+    y, (g_free, g_decay) = _grads_port(fn, inp, chunk, wrt)
+    j_free, j_decay = _grads_jax(jfn, inp, chunk, wrt)
+    assert not np.isfinite(np.asarray(j_decay)).all()  # the reference's NaN
+    assert torch.isfinite(g_decay).all() and torch.isfinite(g_free).all()
+    _close(y, jfn(*_j(*inp), chunk)[0])
+    _close(g_free, j_free)
+    _, j_short = _grads_jax(jfn, inp, short, wrt)
+    assert np.isfinite(np.asarray(j_short)).all()
+    _close(g_decay, j_short)

@@ -107,10 +107,10 @@ def _router_gaps(tcfg, model, batch):
     gaps = []
     real = moe._router
 
-    def spy(cfg, w, xf):
+    def spy(cfg, w, xf, *rest):
         logits = np.sort(xf.double().numpy() @ w.double().numpy(), axis=-1)[:, ::-1]
         gaps.append((logits[:, cfg.top_k - 1] - logits[:, cfg.top_k]).min())
-        return real(cfg, w, xf)
+        return real(cfg, w, xf, *rest)
 
     moe._router = spy
     try:
