@@ -45,6 +45,16 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    grid left as it was would fail it.  After each 2b/2d timing one more
    call runs under the profiler, and its trace gives what was launched:
    CTAs, threads, registers and shared memory a CTA (``launch`` lines).
+   B5, groups of several segments (each argument a segment table, the
+   group one in-place launch): in 2b the matrix-RHS solve plan's widest
+   GEMMNN group of two segments (961 + 124 tasks, A's grid and b's) and its
+   widest TRSML group, in 2d the stacked matrix-b solve's at the serving
+   shape (b (1024, 128) in 8 x 1, 64 lanes); each held bit for bit against
+   its gather form (gathered segment by segment from the plan's indices,
+   joined, run through ``batched_*``, scattered back) and within tolerance
+   of the plain version, on random grids (where the written grids left as
+   they were must fail) and on the main path's, and timed beside its gather
+   form, its plain version and its bound.
 3. Cholesky main path: blocked Cholesky of a 4096 x 4096 fp32 SPD matrix on
    graph g2p with 32 x 32 partitions (128 x 128 tiles), drained three
    times: the first drain (which captures the launch list into a CUDA
@@ -68,7 +78,18 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    with a vector b once (solution against float64 ``torch.linalg.solve``;
    each seed-0 error within its ACCURACY limit, printed beside earlier
    values), the matrix solve twice on g2, a profiled replay of the
-   matrix-RHS drain, then ``run_inv`` on g1 at n = 256.
+   matrix-RHS drain.  B5: the matrix-RHS solve's launch list built in the
+   gather form (the reference's rule, the port's before this change) and
+   in place, both captured on the same inputs: equal to each other and to
+   ``run_lu_solve``'s result bit for bit, with each replay's device time,
+   busy time, idle share, device ops (graph nodes; the in-place list's must
+   all be tile kernels), gather ops and pool bytes; the same for
+   ``run_inv`` at n = 4096 on g2p (timed, inv @ a against I).  Every g2p
+   matrix solve drain must launch 31 GEMMNN and 31 TRSML over two segments.
+   4c: ``run_lu_solve_batched`` of 64 matrix-b systems (n = 1024 in 8 x 8,
+   b (1024, 128)) in one stacked drain, twice: stacked launches only, 7
+   GEMMNN and 7 TRSML over two segments, solutions against float64.  Then
+   ``run_inv`` on g1 at n = 256.
 4b. Distributed graphs, on a world-size-1 NCCL ``DeviceMesh`` of shape
    (1, 1) with axes ("data", "model"): g4 (two levels, the hand-written
    tile kernels) Cholesky and LU solve with b (4096, 512) at (4, 4) then
@@ -80,7 +101,8 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    same drain on g2p within its tolerance, must run a captured graph for
    every launch list, show the counters and tile-kernel launches that
    ``DIST_PLANS`` and ``DIST_LAUNCHES`` pin (all nine kernels across the g4
-   drains), and prints its wall, host dispatch and launch lists beside
+   drains; the g4 solve's over two segments ``DIST_SEGMENTED``), and prints
+   its wall, host dispatch and launch lists beside
    g2p's.  ``run_cholesky``, ``run_lu`` and ``run_lu_solve`` with
    ``mesh=`` must return, on the mesh's device, their g4 drains' results
    bit for bit.
@@ -617,9 +639,9 @@ def stacked_checks(torch, tl, rng) -> dict:
 # --------------------------------------------------------------------------
 # Phase 2b: kernel timings at the main paths' shapes
 # --------------------------------------------------------------------------
-def plan_groups(op, specs):
-    """The leaf plan of one root ``op`` over data of ``specs`` = [(shape,
-    partitions), ...], planned without executing."""
+def leaf_plan(op, specs):
+    """The leaf plan (``SchedulePlan``) of one root ``op`` over data of
+    ``specs`` = [(shape, partitions), ...], planned without executing."""
     from repro_torch.core import DepTracker, GData, GTask
     from repro_torch.core.executors import plan_schedule
 
@@ -634,7 +656,12 @@ def plan_groups(op, specs):
     tracker = DepTracker()
     for t in children:
         tracker.add(t)
-    return list(plan_schedule(tracker.waves(), tracker.dag()).groups())
+    return plan_schedule(tracker.waves(), tracker.dag())
+
+
+def plan_groups(op, specs):
+    """The groups of ``leaf_plan(op, specs)``, in launch order."""
+    return list(leaf_plan(op, specs).groups())
 
 
 def arith_route(tl, name: str, tiles, n: int, lanes: int = 1) -> str:
@@ -651,15 +678,17 @@ def arith_route(tl, name: str, tiles, n: int, lanes: int = 1) -> str:
 
 def bound(tl, name: str, w: int, g, grids, lanes: int = 1):
     """Least time (ms) for one group on ``lanes`` lanes: distinct input
-    blocks read once, the written blocks written once, against the
+    blocks (of every segment's grids) read once, the written blocks written
+    once, against the
     operations at the peak rate of the kernel's arithmetic route: FLOPs at
     the fp32 peak, or for 3xTF32 three TF32 products a FLOP at the TF32
     peak.  Returns (ms, what bounds it, route)."""
-    slots = g.segments[0][0]
-    reads = set()
-    for s, ix in zip(slots, g.idxs):
-        reads |= {(s, int(r), int(c)) for r, c in ix}
-    tile = [tuple(grids[s].shape[-2:]) for s in slots]
+    reads, off = set(), 0
+    for slots, size in g.segments:
+        for s, ix in zip(slots, g.idxs):
+            reads |= {(s, int(r), int(c)) for r, c in ix[off : off + size]}
+        off += size
+    tile = [tuple(grids[s].shape[-2:]) for s in g.segments[0][0]]
     nbytes = (sum(grids[s].shape[-2] * grids[s].shape[-1] for s, _, _ in reads)
               + g.size * tile[w][0] * tile[w][1]) * 4 * lanes
     flops = g.size * FLOPS[name](tile) * lanes
@@ -913,6 +942,246 @@ def stacked_timings(torch, tl, rng) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Phases 2b and 2d: groups of several segments (B5)
+# --------------------------------------------------------------------------
+_WP = "src/repro/core/executors/wave_program.py"
+MULTISEG_REPLACES = (f"{_TL}:367 make_grid_fused (kernel :382, kernel_stacked :388, pallas_call :433) for a group "
+                     f"of several segments, which the reference gathers ({_WP}:421-427 build_program)")
+# the matrix-RHS solve's groups of two segments, per drain: 31 GEMMNN (A's
+# trailing update and the forward solve's update of b) and 31 TRSML
+SOLVE_SEGMENTED = {"gemmnn": 31, "trsml": 31}
+# 2d's and 4c's stacked matrix-b solves: b (SN, SB) in SP x 1 blocks (the
+# serving shape's 128 x 128 tiles), LANES systems
+SB = 128
+STACKED_SOLVE_SEGMENTED = {"gemmnn": 7, "trsml": 7}  # per stacked drain: the template plan's groups of two
+# the multi-segment forms in the kernels line: entry -> (kernel, stacked)
+MULTISEG = {"gemmnn_multiseg": ("gemmnn", False), "trsml_multiseg": ("trsml", False),
+            "gemmnn_multiseg_stacked": ("gemmnn", True), "trsml_multiseg_stacked": ("trsml", True)}
+
+
+def segments_of(g, grids):
+    """A group's segments over ``grids`` (one per root slot): (its grids, its
+    task count) each, as the launch list passes them to the fused call."""
+    return [(tuple(grids[s] for s in slots), size) for slots, size in g.segments]
+
+
+def gather_form(torch, tl, name: str, idxs, segments) -> None:
+    """The gather path of one group (the reference's rule for a group of
+    several segments, and the port's before B5's redesign): each argument's
+    blocks gathered segment by segment from its grids and joined, the batched
+    entry point ``batched_<name>`` on the joined stack (one launch), the
+    result scattered back into each segment's written grid.  Stacked grids
+    gather (B, size) blocks and flatten the two batch axes."""
+    w = tl.GRID_FUSED[name][1]
+    stacked = segments[0][0][0].dim() == 5
+    stacks = []
+    for a, ix in enumerate(idxs):
+        parts, off = [], 0
+        for grids, size in segments:
+            r, c = ix[off : off + size].long().unbind(1)
+            parts.append(grids[a][:, r, c] if stacked else grids[a][r, c])
+            off += size
+        stack = torch.cat(parts, dim=1 if stacked else 0)
+        stacks.append(stack.flatten(0, 1) if stacked else stack)
+    out = getattr(tl, f"batched_{name}")(*stacks)
+    if stacked:
+        out = out.reshape(segments[0][0][0].shape[0], idxs[0].shape[0], *out.shape[1:])
+    off = 0
+    for grids, size in segments:
+        r, c = idxs[w][off : off + size].long().unbind(1)
+        if stacked:
+            grids[w][:, r, c] = out[:, off : off + size]
+        else:
+            grids[w][r, c] = out[off : off + size]
+        off += size
+
+
+def gather_form_program(torch, tl, plan):
+    """``plan``'s launch list as the port built it before B5's redesign (and
+    the reference builds it): a group of one segment on its fused grid
+    kernel, a group of several on ``gather_form``; a fn (grids, flat
+    indices) like ``build_program``'s."""
+    steps, base = [], 0
+    for g in plan.groups():
+        steps.append((g.op.name, tuple(g.segments), len(g.arg_slots), g.size, base))
+        base += len(g.arg_slots) * g.size
+
+    def program(grids, idxs):
+        for name, segs, n_args, size, b0 in steps:
+            gidx = [idxs[b0 + a * size : b0 + (a + 1) * size] for a in range(n_args)]
+            segments = [(tuple(grids[s] for s in slots), n) for slots, n in segs]
+            if len(segments) == 1:
+                tl.GRID_FUSED[name][0](gidx, segments[0][0])
+            else:
+                gather_form(torch, tl, name, gidx, segments)
+
+    return program
+
+
+def multiseg_grids(torch, rng, name: str, g, grids):
+    """Random 0.3-scale grids of ``grids``' shapes, the factor argument's
+    blocks of every segment made as 2a makes them (per lane where stacked)."""
+    import numpy as np
+
+    torch.manual_seed(int(rng.integers(2**31)))
+    g0 = [0.3 * torch.randn(x.shape, device=x.device) for x in grids]
+    off = 0
+    for slots, size in g.segments:
+        x = g0[slots[0]]
+        blk = np.unique(g.idxs[0][off : off + size], axis=0)
+        off += size
+        lanes, b = (x.shape[0] if x.dim() == 5 else 1), x.shape[-1]
+        tiles = special_tiles(name, rng, lanes * len(blk), b)
+        if tiles is None:
+            continue
+        r, c = torch.from_numpy(blk).long().cuda().unbind(1)
+        t = torch.from_numpy(tiles).cuda()
+        if x.dim() == 5:
+            x[:, r, c] = t.view(lanes, len(blk), b, b)
+        else:
+            x[r, c] = t
+    return g0
+
+
+def written_slots(tl, name: str, g):
+    """The root slots a group writes, one per segment (two segments may
+    write one grid)."""
+    wa = tl.GRID_FUSED[name][1]
+    return sorted({slots[wa] for slots, _ in g.segments})
+
+
+def multiseg_check(torch, tl, rng, name: str, g, grids) -> float:
+    """One group of several segments on random grids (``multiseg_grids``):
+    the fused call must be exactly one launch, counted as a segmented one,
+    equal the gather form bit for bit and the plain version within TOL; the
+    written grids left as they were must fail that check, and no grid it
+    only reads may change.  Returns the error against the plain version."""
+    g0 = multiseg_grids(torch, rng, name, g, grids)
+    idxs = [torch.from_numpy(ix).cuda() for ix in g.idxs]
+    gk, gg, gp = ([x.clone() for x in g0] for _ in range(3))
+    counter = tl.STACKED_LAUNCHES if g0[0].dim() == 5 else tl.LAUNCHES
+    before = (counter[name], tl.SEGMENTED_LAUNCHES[name])
+    getattr(tl, f"grid_{name}")(idxs, segments_of(g, gk))
+    launched = (counter[name] - before[0], tl.SEGMENTED_LAUNCHES[name] - before[1])
+    gather_form(torch, tl, name, idxs, segments_of(g, gg))
+    getattr(tl, f"grid_{name}_plain")(idxs, segments_of(g, gp))
+    torch.cuda.synchronize()
+    if launched != (1, 1):
+        raise AssertionError(f"{name} over {len(g.segments)} segments: (launches, segmented) {launched} != (1, 1)")
+    if not all(torch.equal(x, y) for x, y in zip(gk, gg)):
+        diff = max((x - y).abs().max().item() for x, y in zip(gk, gg))
+        raise AssertionError(f"{name} over {len(g.segments)} segments differs from its gather form by {diff:.3e}")
+    err = max(close(x, y, TOL[name]) for x, y in zip(gk, gp))
+    written = written_slots(tl, name, g)
+    for w in written:
+        unchanged_fails(name, g0[w], gp[w])
+    for k in range(len(g0)):
+        if k not in written and not torch.equal(gk[k], g0[k]):
+            raise AssertionError(f"{name} over {len(g.segments)} segments wrote a grid it only reads")
+    return err
+
+
+def multiseg_timing(torch, tl, rng, name: str, g, grids, label: str) -> dict:
+    """A group of several segments (B5): checked on random grids
+    (``multiseg_check``), then on ``grids`` (the main path's values) the
+    fused call, one in-place launch, against the gather form built from the
+    plan's indices and the batched entry point (bit for bit) and the plain
+    version (TOL); each timed on the same fresh grids (the written blocks put
+    back before each call, untimed) beside the bound.  The gather form's time
+    stands in the library column: no single PyTorch call gathers, computes
+    and scatters over grids."""
+    err_random = multiseg_check(torch, tl, rng, name, g, grids)
+    stacked = grids[0].dim() == 5
+    idxs = [torch.from_numpy(ix).cuda() for ix in g.idxs]
+    wa = tl.GRID_FUSED[name][1]
+    fresh, off = [], 0
+    for slots, size in g.segments:
+        r, c = idxs[wa][off : off + size].long().unbind(1)
+        fresh.append((slots[wa], r, c, (grids[slots[wa]][:, r, c] if stacked else grids[slots[wa]][r, c]).clone()))
+        off += size
+    gk, gg, gp = ([x.clone() for x in grids] for _ in range(3))
+    kern = lambda: getattr(tl, f"grid_{name}")(idxs, segments_of(g, gk))
+    gath = lambda: gather_form(torch, tl, name, idxs, segments_of(g, gg))
+    plain = lambda: getattr(tl, f"grid_{name}_plain")(idxs, segments_of(g, gp))
+    kern()
+    gath()
+    plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(gk, gg)):
+        raise AssertionError(f"{name}{label} differs from its gather form on the main path's grids")
+    err = max(close(gk[w], gp[w], TOL[name]) for w in written_slots(tl, name, g))
+
+    def restore(x):
+        def put():
+            for w, r, c, f in fresh:
+                if stacked:
+                    x[w][:, r, c] = f
+                else:
+                    x[w][r, c] = f
+
+        return put
+
+    lanes = grids[0].shape[0] if stacked else 1
+    ms = cuda_ms_fresh(kern, restore(gk), 20)
+    gather_ms = cuda_ms_fresh(gath, restore(gg), 10)
+    plain_ms = cuda_ms_fresh(plain, restore(gp), 3)
+    bound_ms, bound_by, route = bound(tl, name, wa, g, [x[0] for x in grids] if stacked else grids, lanes)
+    sizes = "+".join(str(n) for _, n in g.segments)
+    tiles = "x".join(f"{r}:{c}" for r, c in (tuple(grids[s].shape[-2:]) for s in g.segments[0][0]))
+    print(f"time  {name:6s}{label} tiles={tiles} tasks={g.size} ({sizes}) lanes={lanes}: kernel_ms={ms:.4f} "
+          f"gather_form_ms={gather_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, {route}) "
+          f"max_abs_err={err:.3e} random_grids_max_abs_err={err_random:.3e} equal_to_gather_form=bit_for_bit")
+    return dict(tasks=g.size, segments=[n for _, n in g.segments], err=max(err, err_random), ms=ms,
+                plain_ms=plain_ms, library_ms=gather_ms, gather_ms=gather_ms, bound_ms=bound_ms, bound_by=bound_by,
+                arith=route, lanes=lanes, launch=(name, f"{name}{label} tasks={g.size}", kern))
+
+
+def multiseg_group(groups, name: str):
+    """The widest group of ``name`` over several segments."""
+    return max((g for g in groups if g.op.name == name and len(g.segments) > 1), key=lambda g: g.size)
+
+
+def multiseg_timings(torch, tl, rng) -> dict:
+    """Phase 2b, B5: the matrix-RHS solve plan's widest GEMMNN group of two
+    segments (961 + 124 tasks: A's trailing update and the forward solve's
+    update of b) and its widest TRSML group of two, on the n = N solve's
+    grids (A dd, b (N, RHS) in P x RHS_P blocks)."""
+    from repro_torch.core import dd_matrix
+    from repro_torch.core.data import to_grid
+    from repro_torch.linalg import LUSOLVE
+
+    b = N // P
+    solve = plan_groups(LUSOLVE, [((N, N), ((P, P),)), ((N, RHS), ((P, RHS_P),))])
+    grids = [to_grid(dd_matrix(N, seed=1), b, b),
+             to_grid(0.3 * torch.randn(N, RHS, generator=torch.Generator().manual_seed(1)).cuda(), b, RHS // RHS_P)]
+    out = {}
+    for name in ("gemmnn", "trsml"):
+        out[f"{name}_multiseg"] = multiseg_timing(torch, tl, rng, name, multiseg_group(solve, name), grids,
+                                                  " (solve, segments)")
+    traced_launches(torch, out, "2b_multiseg")
+    return out
+
+
+def stacked_multiseg_timings(torch, tl, rng) -> dict:
+    """Phase 2d, B5: the widest GEMMNN and TRSML groups of two segments of
+    the stacked matrix-b solve at the serving shape (n = SN in SP x SP, b
+    (SN, SB) in SP x 1, LANES lanes)."""
+    from repro_torch.core import dd_matrix
+    from repro_torch.linalg import LUSOLVE
+
+    b = SN // SP
+    solve = plan_groups(LUSOLVE, [((SN, SN), ((SP, SP),)), ((SN, SB), ((SP, 1),))])
+    grids = [lane_grids(torch, dd_matrix, SN, b, LANES),
+             torch.randn(LANES, SP, 1, b, SB, generator=torch.Generator().manual_seed(4)).cuda()]
+    out = {}
+    for name in ("gemmnn", "trsml"):
+        out[f"{name}_multiseg_stacked"] = multiseg_timing(torch, tl, rng, name, multiseg_group(solve, name), grids,
+                                                          f"_stacked B={LANES} (matrix-b solve, segments)")
+    traced_launches(torch, out, "2d_multiseg")
+    return out
+
+
+# --------------------------------------------------------------------------
 # Phases 3 and 4: the main paths
 # --------------------------------------------------------------------------
 TASK_BINS = (1, 4, 16, 64, 256, 1024, 4096)  # upper edges of the CTAs-per-launch bins
@@ -1156,15 +1425,17 @@ def replay_idle(torch, graph: str, submit, mesh=None) -> tuple:
 
 
 def drain_checked(torch, tl, label: str, graph: str, submit, inputs, want: tuple, want_launches: dict, error,
-                  tol: float, flops: float, mesh=None):
+                  tol: float, flops: float, mesh=None, want_segmented=None):
     """Drain one program on ``graph`` (over ``mesh`` for a distributed graph)
     between zeroed and read kernel counters; check its structural counters,
-    that every launch list ran a captured graph, its kernel launches and
-    its error, and hold its captured result against the eager launch list
-    on the same ``inputs`` (a one-list drain; None skips it).  Prints
-    whether it ran captured graphs, its host dispatch and wall, and the
-    device's idle share of a replay's span (``replay_idle``); keeps them
-    in DRAIN_TIMES.  Returns the launch counts and the error."""
+    that every launch list ran a captured graph, its kernel launches (and
+    those of them over several segments: ``want_segmented``, none by
+    default) and its error, and hold its captured result against the eager
+    launch list on the same ``inputs`` (a one-list drain; None skips it).
+    Prints whether it ran captured graphs, its host dispatch and wall, and
+    the device's idle share of a replay's span (``replay_idle``); keeps them
+    in DRAIN_TIMES and the segmented launches in SEGMENTED_BY_GRAPH.
+    Returns the launch counts and the error."""
     from repro_torch.core import Dispatcher
 
     d = Dispatcher(graph=graph, mesh=mesh)
@@ -1177,6 +1448,7 @@ def drain_checked(torch, tl, label: str, graph: str, submit, inputs, want: tuple
     d.executor.sync()  # the drain's launch list, still in flight
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in tl.LAUNCHES.items() if v}
+    segmented = {k: v for k, v in tl.SEGMENTED_LAUNCHES.items() if v}
     err = error(*datas)
     diff = None if inputs is None else captured_vs_eager(torch, tl, d, inputs, graph == "g2p", tol)
     busy, span = replay_idle(torch, graph, submit, mesh)
@@ -1187,7 +1459,8 @@ def drain_checked(torch, tl, label: str, graph: str, submit, inputs, want: tuple
           f"slots={st['slots']} compiles={st.get('compiles', 0)} launches={st['launches']} "
           f"memo_hits={d.stats['memo_hits']} graph={'captured' if st.get('graph_replays') else 'eager'} "
           f"graph_replays={st.get('graph_replays', 0)} "
-          f"kernel_launches={counts} wall_ms={wall * 1e3:.3f} host_dispatch_ms={t_host * 1e3:.3f} "
+          f"kernel_launches={counts} of_several_segments={segmented} wall_ms={wall * 1e3:.3f} "
+          f"host_dispatch_ms={t_host * 1e3:.3f} "
           f"gflops={flops / wall / 1e9:.1f} max_abs_err_vs_f64={err:.3e} captured_vs_eager_max_diff={diff_s}; "
           f"a replay traced: device_busy_ms={busy:.3f} device_span_ms={span:.3f} "
           f"idle_share_of_span={1 - busy / span if span else float('nan'):.3f}")
@@ -1199,11 +1472,18 @@ def drain_checked(torch, tl, label: str, graph: str, submit, inputs, want: tuple
         raise AssertionError(f"{label} counters (with graph replays) {got} != {want + (want[5],)}")
     if counts != want_launches:
         raise AssertionError(f"{label} kernel launches {counts} != {want_launches}")
+    if segmented != (want_segmented or {}):
+        raise AssertionError(f"{label} launches over several segments {segmented} != {want_segmented or {}}")
+    by_graph = SEGMENTED_BY_GRAPH.setdefault(graph, {})
+    for k, v in segmented.items():
+        by_graph[k] = by_graph.get(k, 0) + v
     return counts, err
 
 
 # label -> (wall s, host dispatch s, launch lists) of each checked drain
 DRAIN_TIMES = {}
+# graph -> kernel -> launches over several segments, summed over checked drains
+SEGMENTED_BY_GRAPH = {}
 
 # each path's first drain (seed 0), a replay on fresh inputs (seed 1: a
 # replay that skipped its copy-in fails its error check) and a replay on the
@@ -1260,6 +1540,118 @@ def main_path(torch, tl) -> dict:
     if e1 > 2e-4:
         raise AssertionError(f"g1 error {e1:.3e} > 2e-4")
     return launches
+
+
+def pool_bytes(torch, graph) -> tuple:
+    """(reserved, allocated) bytes of a captured graph's private memory pool:
+    its segments in the allocator's snapshot."""
+    pool = tuple(graph.pool())
+    segs = [x for x in torch.cuda.memory._snapshot()["segments"] if tuple(x.get("segment_pool_id") or ()) == pool]
+    return (sum(x["total_size"] for x in segs),
+            sum(b["size"] for x in segs for b in x["blocks"] if b["state"] == "active_allocated"))
+
+
+def lists_compared(torch, tl, label: str, specs, inputs, result) -> None:
+    """B5 on the main path: one LUSOLVE root's launch list over ``specs``
+    (A and b), built in the gather form (``gather_form_program``: the port's
+    list before B5's redesign, the reference's rule) and in place
+    (``build_program``), each captured into a CUDA graph over static grids
+    holding ``inputs``.  Their results must equal each other and the
+    entry point's ``result`` bit for bit.  Prints, for each, a replay's
+    device time (CUDA events, inputs put back before each), and from a
+    traced replay the device busy time, span, idle share, the device ops (the
+    graph's kernel and copy nodes) with the tile kernels' and the rest's (the
+    gathers, joins and scatters) apart, and its pool's bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.data import from_grid, to_grid
+    from repro_torch.core.executors import build_program
+    from repro_torch.core.executors.captured import CapturedProgram
+    from repro_torch.linalg import LUSOLVE
+
+    plan = leaf_plan(LUSOLVE, specs)
+    grid_specs = [((d.shape[0] // br, d.shape[1] // bc, br, bc), d.dtype)
+                  for d, (br, bc) in zip((plan.datas[k] for k in plan.roots_order), plan.blocks)]
+    outs, numbers = {}, {}
+    for kind, fn in (("gather_form", gather_form_program(torch, tl, plan)), ("in_place", build_program(plan, "cuda"))):
+        counts = [dict(c) for c in tl.COUNTERS]
+        prog = CapturedProgram(fn, grid_specs, plan.flat_idxs)
+
+        def restore(prog=prog):
+            for g, x, (br, bc) in zip(prog.grids, inputs, plan.blocks):
+                to_grid(x, br, bc, out=g)
+
+        restore()
+        prog.graph.replay()
+        torch.cuda.synchronize()
+        outs[kind] = [g.clone() for g in prog.grids]
+        ms = cuda_ms_fresh(prog.graph.replay, restore, 10)
+        restore()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            warm_up(torch)
+            prog.graph.replay()
+            torch.cuda.synchronize()
+        busy, span, by = device_busy(prof)
+        tiles = sum(n for k, (n, _) in by.items() if k != "other")
+        other_n, other_us = by.get("other", (0, 0.0))
+        if kind == "in_place" and other_n:
+            raise AssertionError(f"{label}: the in-place list's replay ran {other_n} ops besides the tile kernels")
+        reserved, allocated = pool_bytes(torch, prog.graph)
+        numbers[kind] = (ms, busy)
+        print(f"phase 4 {label} {kind} list, captured: replay_ms={ms:.4f} device_busy_ms={busy / 1e3:.3f} "
+              f"device_span_ms={span / 1e3:.3f} idle_share_of_span={1 - busy / span if span else float('nan'):.3f} "
+              f"device_ops={tiles + other_n} (tile_kernels={tiles}, other={other_n} in {other_us / 1e3:.3f} ms) "
+              f"pool_reserved_bytes={reserved} pool_allocated_bytes={allocated}")
+        for c, saved in zip(tl.COUNTERS, counts):  # these runs are no drain's
+            c.clear()
+            c.update(saved)
+        del prog
+    for g, h in zip(outs["gather_form"], outs["in_place"]):
+        if not torch.equal(g, h):
+            raise AssertionError(f"{label}: the in-place list differs from the gather form by "
+                                 f"{(g - h).abs().max().item():.3e}")
+    if not torch.equal(from_grid(outs["in_place"][1]), result):
+        raise AssertionError(f"{label}: the entry point's result differs from the captured lists'")
+    (g_ms, g_busy), (p_ms, p_busy) = numbers["gather_form"], numbers["in_place"]
+    print(f"phase 4 {label}: in place = gather form = the entry point's result, bit for bit; replay_ms "
+          f"{g_ms:.4f} -> {p_ms:.4f} (x{p_ms / g_ms:.3f}), device_busy_ms {g_busy / 1e3:.3f} -> {p_busy / 1e3:.3f}")
+
+
+def stacked_solve_path(torch, tl) -> None:
+    """Phase 4c: LANES matrix-b systems (n = SN in SP x SP, b (SN, SB) in
+    SP x 1) in one stacked drain through ``run_lu_solve_batched``, the first
+    drain (capture) and a memo replay, each between zeroed and read launch
+    counts: every launch stacked, STACKED_SOLVE_SEGMENTED of them over two
+    segments, the solutions within 1e-3 of float64."""
+    import numpy as np
+
+    from repro_torch.core import dd_matrix
+    from repro_torch.linalg import run_lu_solve_batched
+
+    mats = [dd_matrix(SN, seed=100 + i) for i in range(LANES)]
+    rhss = [torch.from_numpy(np.random.default_rng(100 + i).standard_normal((SN, SB)).astype(np.float32)).cuda()
+            for i in range(LANES)]
+    want = torch.linalg.solve(torch.stack(mats).double(), torch.stack(rhss).double())
+    for drain in ("first ", "replay"):
+        torch.cuda.synchronize()
+        tl.reset_launches()
+        t0 = time.perf_counter()
+        xs = run_lu_solve_batched(mats, rhss, graph="g2p", partitions=((SP, SP),), b_partitions=((SP, 1),))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stacked = {k: v for k, v in tl.STACKED_LAUNCHES.items() if v}
+        segmented = {k: v for k, v in tl.SEGMENTED_LAUNCHES.items() if v}
+        err = (torch.stack(xs).double() - want).abs().max().item()
+        print(f"phase 4c run_lu_solve_batched {LANES} x n={SN} b=({SN},{SB}) {drain}: wall_ms={wall * 1e3:.3f} "
+              f"stacked_launches={stacked} of_several_segments={segmented} unstacked={sum(tl.LAUNCHES.values())} "
+              f"max_abs_err_vs_f64={err:.3e}")
+        if segmented != STACKED_SOLVE_SEGMENTED or any(tl.LAUNCHES.values()) or not err <= 1e-3:
+            raise AssertionError(f"phase 4c {drain}: segmented {segmented}, unstacked {dict(tl.LAUNCHES)}, "
+                                 f"error {err:.3e}")
+        by = SEGMENTED_BY_GRAPH.setdefault("g2p stacked", {})
+        for k, v in segmented.items():
+            by[k] = by.get(k, 0) + v
 
 
 def lu_main_path(torch, tl) -> dict:
@@ -1326,7 +1718,9 @@ def lu_main_path(torch, tl) -> dict:
                          solve_submit(0, bv[:, None], ((P, 1),)), [a, bv[:, None]], (12496, 716, 716, 623, 1, 1, 0),
                          vec_launches, grid_error(ref_xv), 1e-3, 2 * N**3 / 3 + 2 * N * N, 0))
     for kind, label, graph, submit, inputs, want, want_launches, error, tol, flops, seed in runs:
-        counts, err = drain_checked(torch, tl, label, graph, submit, inputs, want, want_launches, error, tol, flops)
+        segmented = SOLVE_SEGMENTED if kind == "lu_solve" and graph == "g2p" else None
+        counts, err = drain_checked(torch, tl, label, graph, submit, inputs, want, want_launches, error, tol, flops,
+                                    want_segmented=segmented)
         if graph == "g2p" and seed == 0:
             accuracy_held(kind, err)
         for k, v in counts.items():
@@ -1336,6 +1730,21 @@ def lu_main_path(torch, tl) -> dict:
     lu_ms = cuda_ms(lambda: run_lu(a, graph="g2p", partitions=((P, P),)), 3, warmup=1)
     solve_ms = cuda_ms(lambda: run_lu_solve(a, bm, graph="g2p", partitions=((P, P),),
                                             b_partitions=((P, RHS_P),)), 3, warmup=1)
+    # B5: the matrix-RHS solve's and the inverse's launch lists in place and
+    # in the gather form, each captured, on the same inputs
+    x = run_lu_solve(a, bm, graph="g2p", partitions=((P, P),), b_partitions=((P, RHS_P),))
+    lists_compared(torch, tl, f"lu_solve b=({N},{RHS})", [((N, N), ((P, P),)), ((N, RHS), ((P, RHS_P),))],
+                   [a, bm], x)
+    eye = torch.eye(N, device=a.device)
+    inv_ms = cuda_ms(lambda: run_inv(a, graph="g2p", partitions=((P, P),)), 3, warmup=1)
+    inv = run_inv(a, graph="g2p", partitions=((P, P),))
+    e_inv = (inv.double() @ a.double() - eye.double()).abs().max().item()
+    print(f"g2p run_inv n={N} (memo replay, incl. ingest and de-grid) ms={inv_ms:.3f}: max_abs_err of inv @ a vs "
+          f"I={e_inv:.3e}")
+    if not e_inv <= 1e-4:
+        raise AssertionError(f"g2p run_inv error {e_inv:.3e} > 1e-4")
+    lists_compared(torch, tl, f"run_inv n={N}", [((N, N), ((P, P),)), ((N, N), ((P, P),))], [a, eye], inv)
+    del inv, eye
     sl = torch.linalg.solve_triangular
 
     def library_solve():
@@ -1350,6 +1759,8 @@ def lu_main_path(torch, tl) -> dict:
           f"ms={lib_lu_ms:.3f}")
     print(f"g2p run_lu_solve b=({N},{RHS}) (memo replay, incl. ingest and de-grid) ms={solve_ms:.3f}; library "
           f"lu_factor_ex(pivot=False) + 2 solve_triangular ms={lib_solve_ms:.3f} (its max_abs_err_vs_f64={e_lib:.3e})")
+
+    stacked_solve_path(torch, tl)
 
     a1 = dd_matrix(256, seed=256)
     inv = run_inv(a1, graph="g1", partitions=((4, 4),))
@@ -1381,6 +1792,8 @@ DIST_LAUNCHES = {
     "run_lu": {"getrf": 32, "trsml": 52, "trsmu": 52, "gemmnn": 73},
     "lu_solve": {"getrf": 32, "trsml": 60, "trsmu": 52, "trsmul": 32, "gemmnn": 240},
 }
+# of those, the g4 LU solve's launches over two segments (B5)
+DIST_SEGMENTED = {"lu_solve": {"gemmnn": 45, "trsml": 24}}
 
 
 def distributed_path(torch, tl) -> dict:
@@ -1497,7 +1910,8 @@ def distributed_path(torch, tl) -> dict:
                 counts, err = drain_checked(
                     torch, tl, label, graph, submitter(kind, seed, parts, DIST_B_P), inputs, want,
                     DIST_LAUNCHES[kind] if graph == "g4" else {}, error(kind, seed, label, tols[kind]),
-                    tols[kind], flops[kind], mesh=mesh)
+                    tols[kind], flops[kind], mesh=mesh,
+                    want_segmented=DIST_SEGMENTED.get(kind) if graph == "g4" else None)
                 if graph == "g4" and seed == 0:
                     accuracy_held(kind, err)
                     if drain == DRAINS[-1][0] or kind == "run_lu":  # the last of its kind's drains
@@ -3928,7 +4342,9 @@ def main_phases(torch, dry) -> int:
     tensor_core_accuracy(torch, tl, rng)
     stacked_errs = stacked_checks(torch, tl, rng)
     times = kernel_timings(torch, tl)
+    times.update(multiseg_timings(torch, tl, rng))
     stacked_times = stacked_timings(torch, tl, rng)
+    times.update(stacked_multiseg_timings(torch, tl, rng))
     launches = main_path(torch, tl)
     for k, v in lu_main_path(torch, tl).items():
         launches[k] += v
@@ -3980,6 +4396,21 @@ def main_phases(torch, dry) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "tasks": t["tasks"], "lanes": LANES, "ctas": t["ctas"],
             "arith": t["arith"], "unstacked_launches_ms": t["unstacked_ms"],
+        })
+    for key, (name, stacked) in MULTISEG.items():  # B5: the groups of several segments
+        t = times[key]
+        paths = ({"g2p stacked": SEGMENTED_BY_GRAPH.get("g2p stacked", {}).get(name, 0)} if stacked else
+                 {g: SEGMENTED_BY_GRAPH.get(g, {}).get(name, 0) for g in ("g2p", "g4")})
+        if not all(paths.values()):
+            raise AssertionError(f"{key} was launched no time on a path: {paths}")
+        kernels.append({
+            "name": key, "route": "cuda", "source": f"{CSRC}/{tl.LIBRARY[name]}.cu", "library": tl.LIBRARY[name],
+            "replaces": MULTISEG_REPLACES, "launches": sum(paths.values()), "paths": paths,
+            "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_call": f"none; the gather form (gather, batched_{name}, scatter) in its place",
+            "tasks": t["tasks"], "segments": t["segments"], "lanes": t["lanes"],
+            "ctas": t["ctas"], "arith": t["arith"],
         })
     for entry in lm_kernels:
         if entry["launches"] == 0:

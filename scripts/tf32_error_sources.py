@@ -7,9 +7,11 @@ each operand into TF32 terms, or the tensor cores' fp32 accumulation.
 GEMMNN (``src/repro_torch/kernels/csrc/tile_lu_sm90.cu``, which promotes
 each 8-deep step's tensor-core partial into an fp32 sum and takes C - sum
 last) is built from the committed source into ``build/tf32_probe/``, and so
-is every ``--compare`` source that exports the same ``tile_gemmnn``: for
-example the parent commit's kernel, whose one tensor-core accumulator starts
-from -C::
+is every ``--compare`` source that exports the same ``tile_gemmnn`` (the
+entry that takes a segment table per argument): for example the kernel whose
+one tensor-core accumulator starts from -C, once its entry and
+``block_offset`` are given the segment tables (that commit's source predates
+them)::
 
     mkdir -p build/tf32_probe
     git show 366bfd0:src/repro_torch/kernels/csrc/tile_lu_sm90.cu > build/tf32_probe/from_c.cu

@@ -599,9 +599,10 @@ class WaveExecutor(Executor):
 class CudaExecutor(WaveExecutor):
     """cuBLAS wrapper analog, counterpart of the JAX package's
     ``PallasExecutor``: identical wave batching, hand-written CUDA tile
-    kernels as leaves.  Single-segment groups call the fused grid kernels
-    (gather, compute and write back in one kernel, in place); on CPU
-    tensors the kernels' plain PyTorch versions run instead."""
+    kernels as leaves.  Every group calls the fused grid kernels (gather,
+    compute and write back in one kernel, in place), a group fused across
+    roots with every segment's grids in one call; on CPU tensors the
+    kernels' plain PyTorch versions run instead."""
 
     name = "cuda"
 

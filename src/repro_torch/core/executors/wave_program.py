@@ -32,9 +32,13 @@ into a single ``(total, 2)`` int32 tensor on the grids' device
 whose schedules share a structure hit the same launch list (their indices
 may differ: ``plan.key`` holds none).
 
-Per single-segment group the list calls the operation's fused grid kernel
-(``Operation.grid_fused_fn``: gather, compute and write back in one kernel,
-in place in the written grid).  Otherwise it gathers the blocks, runs the
+Per group whose operation has a fused grid kernel (``Operation.grid_fused_fn``:
+gather, compute and write back in one kernel, in place in the written grid)
+the list calls it, whatever the group's segment count: it takes the
+group's segments, each its own grids.  The JAX package fuses single-segment
+groups only; a multi-segment group there gathers, and here it runs in place
+with the same results (``src/repro_torch/DESIGN.md``).  Otherwise (the
+``torch`` backend, user operations) the list gathers the blocks, runs the
 batched leaf and scatters back with ``index_put_``.  Group sizes are exact,
 never padded: duplicate trailing indices are unsound for read-write fused
 kernels.  (The *batch* axis of a stacked drain is different:
@@ -357,9 +361,13 @@ def build_program(plan: SchedulePlan, backend: str, batch: Optional[int] = None)
     updates the resident grids in place.
 
     Groups run slot by slot in lookahead order.  Per group: the operation's
-    fused grid kernel (single-segment groups only) or gather -> batched
-    leaf -> scatter, with multi-segment groups concatenating the
-    per-segment gathers and splitting the scatters across their roots.
+    fused grid kernel, which takes every segment's grids (a group fused
+    across roots is one in-place call, whatever its segment count), when
+    the operation has one for ``backend`` and the group writes exactly its
+    written argument; otherwise gather -> batched leaf -> scatter, with
+    multi-segment groups concatenating the per-segment gathers and
+    splitting the scatters across their roots.  There is no fallback
+    between the two: a fused kernel that fails to build or launch raises.
 
     With ``batch=B`` the SAME plan runs in stacked form (DESIGN.md §7):
     every root grid carries a leading lane dimension ``(B, nr, nc, br, bc)``
@@ -372,8 +380,10 @@ def build_program(plan: SchedulePlan, backend: str, batch: Optional[int] = None)
 
     A group's reads are legal against the current grids even mid-slot: any
     block a group reads and a slot-mate writes would be a RAW/WAR edge,
-    and edges force different slots.  The gather copies its blocks before
-    the group's scatter, so a group may read and write the same grid.
+    and edges force different slots.  Within a group no task writes a block
+    another task reads or writes, across segments too (the tasks of merged
+    groups are connected by no path), so the in-place fused call needs no
+    copy of its reads; the gather path copies them anyway.
 
     Only static fields are copied out of each ``GroupPlan``: the cached list
     must not retain the per-task numpy index arrays, which reach it as the
@@ -385,11 +395,7 @@ def build_program(plan: SchedulePlan, backend: str, batch: Optional[int] = None)
     for g in plan.groups():
         faults.fire("leaf.fn", op=g.op.name, backend=backend)
         fused = g.op.grid_fused_fn(backend)
-        if (
-            fused is not None
-            and len(g.segments) == 1
-            and g.write_pos == (fused[1],)
-        ):
+        if fused is not None and g.write_pos == (fused[1],):
             kind, fn = "fused", fused[0]
         else:
             kind = "gather"
@@ -415,7 +421,7 @@ def build_program(plan: SchedulePlan, backend: str, batch: Optional[int] = None)
             for a in range(n_args)
         ]
         if kind == "fused":
-            fn(gidx, tuple(grids[s] for s in segments[0][0]))
+            fn(gidx, [(tuple(grids[s] for s in slots_), ssize) for slots_, ssize in segments])
             return
         blocks = []
         for a in range(n_args):

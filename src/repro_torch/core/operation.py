@@ -93,11 +93,15 @@ class Operation:
     def grid_fused_fn(self, backend: str):
         """Optional fused gather/compute/scatter kernel over resident grids.
 
-        Returns ``(call, write_arg)`` where ``call(idxs, grids)`` consumes
-        ``(n, 2)`` int32 block-index tensors plus one grid per argument,
-        updates the grid of ``write_arg`` in place and returns it — or
+        Returns ``(call, write_arg)`` where ``call(idxs, segments)``
+        consumes ``(n, 2)`` int32 block-index tensors (one per argument, the
+        group's rows segment by segment) plus the group's segments, each a
+        ``(grids, size)`` pair with one grid per argument, updates the grids
+        of ``write_arg`` in place and returns the first segment's — or
         ``None`` when the backend has no fused path (the launch list then
         gathers, runs the batched leaf and scatters back; DESIGN.md §2).
+        The launch list calls it for every group of the operation, whatever
+        its segment count.
         """
         return None
 

@@ -18,6 +18,22 @@
 // stride per argument, all lanes sharing the indices) and the batched form
 // (the grid entry on an (n, 1, r, c) view with identity indices).
 //
+// B5, make_grid_fused for a group of several segments (the planner's fusion
+// across slot tuples: in the matrix-RHS LU solve, A's trailing update and the
+// forward solve's update of b form one GEMMNN group, and their TRSMLs one
+// TRSML group).  The reference gathers such a group's blocks, runs the
+// batched kernel and scatters the result back; on H100 those copies took 9.6
+// ms of the solve's 17.4 ms busy replay in 1705 small ops, against a bound
+// of about 1 ms (bytes) for the 62 groups' work.  Here each argument of a
+// launch carries a segment table (Segs, passed by value: up to kMaxSeg
+// segments, each its own grid, block columns, lane stride and first task),
+// and a task finds its segment by a scan of the bounds, so the whole group is
+// one in-place launch over the same n tasks and launch shape as the gathered
+// stack's, every task's arithmetic unchanged: the result equals the gather
+// path's bit for bit.  No copy is needed before the write because no task of
+// a group reads or writes a block another task of it writes, across segments
+// too (the fusion merges only groups that no path connects).
+//
 // Tasks of one launch never race (the planner's V3/V4: no task writes a block
 // another task of the launch reads or writes; V5: lanes are disjoint).  Each
 // task's output is cut into pieces that one CTA owns alone, so no CTA writes
@@ -258,18 +274,39 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
+#include <utility>
 
 namespace {
 
 constexpr int kMaxB = 128;        // largest tile edge the kernels accept
 constexpr int kMaxBatch = 65535;  // lanes of a stacked launch: gridDim.y's limit
+constexpr int kMaxSeg = 8;        // segments of one launch (csrc side of tile_linalg.MAX_SEGMENTS)
 
-// Element offset of a task's block: lane blockIdx.y of a stacked grid (lane
-// stride 0 for an unstacked one), block idx[task] of that lane.
-__device__ __forceinline__ long long block_offset(const int* idx, int task, int nc, int br, int bc,
-                                                  long long lane) {
-  const long long r = idx[2 * task], c = idx[2 * task + 1];
-  return blockIdx.y * lane + (r * nc + c) * (long long)br * bc;
+// One argument of a launch (a kernel parameter, passed by value): the
+// group's (n, 2) block indices and its segment table.  Segment s holds tasks
+// first[s] .. first[s + 1] - 1 and addresses its own grid, of nc block
+// columns and a lane stride (0 unstacked); entries past the table's end hold
+// first = n, so no task falls in them.  Every argument of a launch has the
+// same firsts.
+struct Segs {
+  const int* idx;
+  int first[kMaxSeg];
+  int nc[kMaxSeg];
+  long long lane[kMaxSeg];
+  float* grid[kMaxSeg];
+};
+
+// A task's block: its segment's index counted from the table's bounds (one
+// segment for a whole CTA, so the scan never diverges), then lane blockIdx.y
+// of that segment's grid, block idx[task] of that lane.  The parameters are
+// __grid_constant__, so the entry is read where it lies, with no copy.
+__device__ __forceinline__ float* task_block(const Segs& s, int task, int br, int bc) {
+  int seg = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxSeg; ++i) seg += task >= s.first[i];
+  const long long r = s.idx[2 * task], c = s.idx[2 * task + 1], lane = s.lane[seg];
+  return s.grid[seg] + blockIdx.y * lane + (r * s.nc[seg] + c) * (long long)br * bc;
 }
 
 // ---------------------------------------------------------------------------
@@ -284,8 +321,7 @@ __host__ __device__ constexpr int panel_floats(int nblk) { return kW * kW * nblk
 
 template <int kRowsPerHalfWarp>
 __global__ void __launch_bounds__(kSolveThreads)
-trsmu_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid, int bnc,
-             const int* bidx, long long blane, int br, int b, int ldx) {
+trsmu_kernel(const __grid_constant__ Segs useg, const __grid_constant__ Segs bseg, int br, int b, int ldx) {
   constexpr int kRows = kHalfWarps * kRowsPerHalfWarp;  // rows of B this CTA solves
   extern __shared__ __align__(16) float smem[];
   const int nblk = (b + kW - 1) / kW;
@@ -294,8 +330,8 @@ trsmu_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, floa
   const int splits = (br + kRows - 1) / kRows;
   const int task = blockIdx.x / splits, r0 = (blockIdx.x % splits) * kRows;
   const int rows = min(kRows, br - r0);
-  const float* U = ugrid + block_offset(uidx, task, unc, b, b, ulane);
-  float* B = bgrid + block_offset(bidx, task, bnc, br, b, blane) + (long long)r0 * b;
+  const float* U = task_block(useg, task, b, b);
+  float* B = task_block(bseg, task, br, b) + (long long)r0 * b;
 
   for (int J = 0; J < nblk; ++J) {
     float* p = P + panel_floats(J);
@@ -646,14 +682,13 @@ __host__ __device__ inline int gemmnn_pieces(int tile, int m, int q) {
 
 template <int kTile>
 __global__ void __launch_bounds__(kGemmnnThreads<kTile>)
-gemmnn_kernel(const float* ag, int anc, const int* aidx, long long alane, const float* bg, int bnc,
-              const int* bidx, long long blane, float* cg, int cnc, const int* cidx, long long clane, int m,
-              int k, int q, int vec) {
+gemmnn_kernel(const __grid_constant__ Segs aseg, const __grid_constant__ Segs bseg,
+              const __grid_constant__ Segs cseg, int m, int k, int q, int vec) {
   const int pieces = gemmnn_pieces(kTile, m, q);
   const int task = blockIdx.x / pieces, piece = blockIdx.x % pieces;
-  const float* A = ag + block_offset(aidx, task, anc, m, k, alane);
-  const float* Bm = bg + block_offset(bidx, task, bnc, k, q, blane);
-  float* C = cg + block_offset(cidx, task, cnc, m, q, clane);
+  const float* A = task_block(aseg, task, m, k);
+  const float* Bm = task_block(bseg, task, k, q);
+  float* C = task_block(cseg, task, m, q);
   if constexpr (kTile == 0) {
     gemmnn_matvec(A, Bm, C, m, k, q, piece);
   } else {
@@ -666,28 +701,28 @@ gemmnn_kernel(const float* ag, int anc, const int* aidx, long long alane, const 
 // GEMMNN's tensor-core tile with B^T staged from B's own rows
 // ---------------------------------------------------------------------------
 template <int kTile>
-__device__ __forceinline__ void abt_piece(const float* ag, int anc, const int* aidx, long long alane,
-                                          const float* bg, int bnc, const int* bidx, long long blane, float* cg,
-                                          int cnc, const int* cidx, long long clane, int b, int vec) {
+__device__ __forceinline__ void abt_piece(const Segs& aseg, const Segs& bseg, const Segs& cseg, int b, int vec) {
   const int pieces = gemmnn_pieces(kTile, b, b);
   const int task = blockIdx.x / pieces, piece = blockIdx.x % pieces;
-  gemmnn_mma<kTile, true>(ag + block_offset(aidx, task, anc, b, b, alane),
-                          bg + block_offset(bidx, task, bnc, b, b, blane),
-                          cg + block_offset(cidx, task, cnc, b, b, clane), b, b, b, piece, vec != 0);
+  gemmnn_mma<kTile, true>(task_block(aseg, task, b, b), task_block(bseg, task, b, b), task_block(cseg, task, b, b),
+                          b, b, b, piece, vec != 0);
+}
+
+// At most 128 registers a thread for 64^2 tiles, so four CTAs share an SM as
+// their 55 KB of shared memory allow: left free, the segment tables' address
+// arithmetic took GEMM and SYRK to 163-166 registers and three CTAs an SM,
+// and their main-path groups ran 13-16 % slower (chip_smoke.py 2b, 2d)
+template <int kTile>
+__global__ void __launch_bounds__(kGemmnnThreads<kTile>, kTile == 64 ? 4 : 1)
+gemm_kernel(const __grid_constant__ Segs aseg, const __grid_constant__ Segs bseg, const __grid_constant__ Segs cseg,
+            int b, int vec) {
+  abt_piece<kTile>(aseg, bseg, cseg, b, vec);
 }
 
 template <int kTile>
-__global__ void __launch_bounds__(kGemmnnThreads<kTile>)
-gemm_kernel(const float* ag, int anc, const int* aidx, long long alane, const float* bg, int bnc, const int* bidx,
-            long long blane, float* cg, int cnc, const int* cidx, long long clane, int b, int vec) {
-  abt_piece<kTile>(ag, anc, aidx, alane, bg, bnc, bidx, blane, cg, cnc, cidx, clane, b, vec);
-}
-
-template <int kTile>
-__global__ void __launch_bounds__(kGemmnnThreads<kTile>)
-syrk_kernel(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc, const int* cidx,
-            long long clane, int b, int vec) {
-  abt_piece<kTile>(ag, anc, aidx, alane, ag, anc, aidx, alane, cg, cnc, cidx, clane, b, vec);
+__global__ void __launch_bounds__(kGemmnnThreads<kTile>, kTile == 64 ? 4 : 1)
+syrk_kernel(const __grid_constant__ Segs aseg, const __grid_constant__ Segs cseg, int b, int vec) {
+  abt_piece<kTile>(aseg, aseg, cseg, b, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -815,16 +850,16 @@ __device__ __forceinline__ void trsml_columns(const float* P, float* X, int b, i
 // kColsPerHalfWarp 1 or 2: 16 or 32 columns of B a CTA
 template <int kColsPerHalfWarp>
 __global__ void __launch_bounds__(kSolveThreads)
-trsml_kernel(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid, int bnc,
-             const int* bidx, long long blane, int b, int bc, int ldx, int vec) {
+trsml_kernel(const __grid_constant__ Segs lseg, const __grid_constant__ Segs bseg, int b, int bc, int ldx,
+             int vec) {
   constexpr int kCols = kHalfWarps * kColsPerHalfWarp;
   extern __shared__ __align__(16) float smem[];
   const int nblk = (b + kW - 1) / kW;
   const int splits = (bc + kCols - 1) / kCols;
   const int task = blockIdx.x / splits, c0 = (blockIdx.x % splits) * kCols;
   const int cols = min(kCols, bc - c0);
-  const float* L = lgrid + block_offset(lidx, task, lnc, b, b, llane);
-  float* B = bgrid + block_offset(bidx, task, bnc, b, bc, blane);
+  const float* L = task_block(lseg, task, b, b);
+  float* B = task_block(bseg, task, b, bc);
   float* P = smem;                       // panel I at P + lpanel_floats(I)
   float* X = smem + lpanel_floats(nblk);  // the CTA's columns of X, then a zero column
   for (int e = threadIdx.x; e < ldx; e += kSolveThreads) X[kCols * ldx + e] = 0.f;
@@ -1039,16 +1074,16 @@ __device__ __forceinline__ void upper_vectors(const float* P, float* X, int b, i
 // the update's last quad reads.
 template <int kColsPerHalfWarp>
 __global__ void __launch_bounds__(kSolveThreads)
-trsmul_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid, int bnc,
-              const int* bidx, long long blane, int b, int bc, int ldx, int vec) {
+trsmul_kernel(const __grid_constant__ Segs useg, const __grid_constant__ Segs bseg, int b, int bc, int ldx,
+              int vec) {
   constexpr int kCols = kHalfWarps * kColsPerHalfWarp;
   extern __shared__ __align__(16) float smem[];
   const int nblk = (b + kW - 1) / kW;
   const int splits = (bc + kCols - 1) / kCols;
   const int task = blockIdx.x / splits, c0 = (blockIdx.x % splits) * kCols;
   const int cols = min(kCols, bc - c0);
-  const float* U = ugrid + block_offset(uidx, task, unc, b, b, ulane);
-  float* B = bgrid + block_offset(bidx, task, bnc, b, bc, blane);
+  const float* U = task_block(useg, task, b, b);
+  float* B = task_block(bseg, task, b, bc);
   float* P = smem;                            // U's upper panels
   float* X = smem + upanel_floats(b, nblk);  // the CTA's columns of X, then a zero column
   const int pad = (b + 3) / 4 * 4 - b;
@@ -1078,16 +1113,15 @@ trsmul_kernel(const float* ugrid, int unc, const int* uidx, long long ulane, flo
 // 56 KB of shared memory allow.
 template <int kRowsPerHalfWarp>
 __global__ void __launch_bounds__(kSolveThreads, 4)
-trsm_kernel(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid, int bnc,
-            const int* bidx, long long blane, int b, int ldx, int vec) {
+trsm_kernel(const __grid_constant__ Segs lseg, const __grid_constant__ Segs bseg, int b, int ldx, int vec) {
   constexpr int kRows = kHalfWarps * kRowsPerHalfWarp;
   extern __shared__ __align__(16) float smem[];
   const int nblk = (b + kW - 1) / kW;
   const int splits = (b + kRows - 1) / kRows;
   const int task = blockIdx.x / splits, r0 = (blockIdx.x % splits) * kRows;
   const int rows = min(kRows, b - r0);
-  const float* L = lgrid + block_offset(lidx, task, lnc, b, b, llane);
-  float* B = bgrid + block_offset(bidx, task, bnc, b, b, blane) + (long long)r0 * b;
+  const float* L = task_block(lseg, task, b, b);
+  const float* B = task_block(bseg, task, b, b) + (long long)r0 * b;
   float* P = smem;                       // panel I at P + lpanel_floats(I)
   float* X = smem + lpanel_floats(nblk);  // the CTA's rows of B, then a zero row
   for (int e = threadIdx.x; e < ldx; e += kSolveThreads) X[kRows * ldx + e] = 0.f;
@@ -1105,7 +1139,10 @@ trsm_kernel(const float* lgrid, int lnc, const int* lidx, long long llane, float
   trsml_stage(P, X, L, nullptr, b, 0, 0, 0, ldx, vec != 0);
   lower_vectors<kRowsPerHalfWarp>(P, X, b, rows, ldx);
   __syncthreads();  // X solved: written back coalesced
-  for (int e = threadIdx.x; e < rows * b; e += kSolveThreads) B[e] = X[e / b * ldx + e % b];
+  // B's address again rather than held through the solve: held, it spilled
+  // under the 64-register bound
+  float* out = task_block(bseg, task, b, b) + (long long)r0 * b;
+  for (int e = threadIdx.x; e < rows * b; e += kSolveThreads) out[e] = X[e / b * ldx + e % b];
 }
 
 // ---------------------------------------------------------------------------
@@ -1168,9 +1205,9 @@ __device__ __forceinline__ void getrf_steps(float (&a)[kGR][kGC], float (*urow)[
 }
 
 __global__ void __launch_bounds__(kGetrfThreads)
-getrf_kernel(float* grid, int nc, const int* idx, long long lane_stride, int b) {
+getrf_kernel(const __grid_constant__ Segs aseg, int b) {
   __shared__ float urow[2][kMaxB];
-  float* T = grid + block_offset(idx, blockIdx.x, nc, b, b, lane_stride);
+  float* T = task_block(aseg, blockIdx.x, b, b);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   float a[kGR][kGC];  // a[i][j] = T[w + 16 i][lane + 32 j]; zero outside the b x b tile
 #pragma unroll
@@ -1271,10 +1308,10 @@ __device__ __forceinline__ void potrf_steps(float (&a)[kGR][kGC], float (&s)[kGR
 }
 
 __global__ void __launch_bounds__(kGetrfThreads)
-potrf_kernel(float* grid, int nc, const int* idx, long long lane_stride, int b) {
+potrf_kernel(const __grid_constant__ Segs aseg, int b) {
   extern __shared__ float S[];  // the tile, row stride b | 1 (odd: conflict-free column reads)
   __shared__ __align__(16) float lcol[2][kLFloats];
-  float* T = grid + block_offset(idx, blockIdx.x, nc, b, b, lane_stride);
+  float* T = task_block(aseg, blockIdx.x, b, b);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32, ld = b | 1;
   for (int r = w; r < b; r += kGetrfWarps)
     for (int c = lane; c < b; c += 32) S[r * ld + c] = T[r * b + c];
@@ -1323,12 +1360,9 @@ int x_stride(int b) {
   return ld % 32 == 0 ? ld + 4 : ld;
 }
 
-using TrsmuKernel = void (*)(const float*, int, const int*, long long, float*, int, const int*, long long,
-                             int, int, int);
-using GemmnnKernel = void (*)(const float*, int, const int*, long long, const float*, int, const int*,
-                              long long, float*, int, const int*, long long, int, int, int, int);
-using TrsmlKernel = void (*)(const float*, int, const int*, long long, float*, int, const int*, long long,
-                             int, int, int, int);
+using TrsmuKernel = void (*)(const Segs, const Segs, int, int, int);
+using GemmnnKernel = void (*)(const Segs, const Segs, const Segs, int, int, int, int);
+using TrsmlKernel = void (*)(const Segs, const Segs, int, int, int, int);
 
 struct Launch {
   int ctas, threads, smem;  // CTAs a lane, threads a CTA, dynamic shared memory bytes
@@ -1403,8 +1437,36 @@ bool abt_launch(int tile, int n, int b, Launch* out) {
   return true;
 }
 
-bool aligned16(const float* p, long long lane) {
-  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0 && lane % 4 == 0;
+// One argument's Segs from the wrapper's table: nseg rows of (grid, nc, lane
+// stride, first task), the firsts rising from 0 below n (every argument's
+// table has the same); false on any other table.
+bool read_segs(const long long* table, const int* idx, int nseg, int n, Segs* out) {
+  if (table == nullptr || idx == nullptr || nseg < 1 || nseg > kMaxSeg || table[3] != 0) return false;
+  out->idx = idx;
+  for (int s = 0; s < kMaxSeg; ++s) {
+    const long long* row = table + 4 * s;
+    if (s < nseg && (row[0] == 0 || row[1] < 1 || row[2] < 0 || row[3] >= n || (s > 0 && row[3] <= row[-1])))
+      return false;
+    out->grid[s] = s < nseg ? reinterpret_cast<float*>(row[0]) : nullptr;
+    out->nc[s] = s < nseg ? (int)row[1] : 0;
+    out->lane[s] = s < nseg ? row[2] : 0;
+    out->first[s] = s < nseg ? (int)row[3] : n;
+  }
+  return true;
+}
+
+// The tables of every argument of one launch (arity 1 to 3), read in turn.
+bool read_all(int nseg, int n, std::initializer_list<std::pair<const long long*, const int*>> args, Segs* out) {
+  for (const auto& a : args)
+    if (!read_segs(a.first, a.second, nseg, n, out++)) return false;
+  return true;
+}
+
+// Every segment of an argument 16-byte aligned: its grid and its lane stride.
+bool aligned16(const Segs& s, int nseg) {
+  for (int i = 0; i < nseg; ++i)
+    if (reinterpret_cast<std::uintptr_t>(s.grid[i]) % 16 != 0 || s.lane[i] % 4 != 0) return false;
+  return true;
 }
 
 // Launch `kernel` on n x batch CTAs with `smem` bytes of dynamic shared
@@ -1422,92 +1484,105 @@ int launch_smem(K kernel, int n, int batch, int threads, int smem, void* stream,
 
 extern "C" {
 
-// Each entry takes, per argument, its grid, the grid's block columns nc, its
-// (n, 2) block indices and its lane stride in elements (the size of one lane
-// of a stacked grid; 0 when batch == 1), then the task count n, the lane count
-// batch, the tile dimensions, the launch shape the wrapper chose and the stream.
-int tile_trsmu(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid, int bnc,
-               const int* bidx, long long blane, int n, int batch, int br, int b, int rows, void* stream) {
+// Each entry takes, per argument, its segment table (nseg rows of four
+// 64-bit words: the grid's address, its block columns nc, its lane stride in
+// elements (the size of one lane of a stacked grid; 0 when batch == 1) and the
+// segment's first task) and the group's (n, 2) block indices, then the
+// segment count nseg (1 .. kMaxSeg), the task count n, the lane count batch,
+// the tile dimensions, the launch shape the wrapper chose and the stream.
+int tile_trsmu(const long long* useg, const int* uidx, const long long* bseg, const int* bidx, int nseg, int n,
+               int batch, int br, int b, int rows, void* stream) {
   Launch l;
   TrsmuKernel kernel;
-  if (bad_args(n, batch, b) || bad_edge(br) || !trsmu_launch(rows, n, br, b, &l, &kernel))
+  Segs s[2];
+  if (bad_args(n, batch, b) || bad_edge(br) || !read_all(nseg, n, {{useg, uidx}, {bseg, bidx}}, s) ||
+      !trsmu_launch(rows, n, br, b, &l, &kernel))
     return (int)cudaErrorInvalidValue;
-  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, ugrid, unc, uidx, ulane, bgrid, bnc,
-                     bidx, blane, br, b, x_stride(b));
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, s[0], s[1], br, b, x_stride(b));
 }
 
-int tile_gemmnn(const float* ag, int anc, const int* aidx, long long alane, const float* bg, int bnc,
-                const int* bidx, long long blane, float* cg, int cnc, const int* cidx, long long clane, int n,
-                int batch, int m, int k, int q, int tile, void* stream) {
+int tile_gemmnn(const long long* aseg, const int* aidx, const long long* bseg, const int* bidx, const long long* cseg,
+                const int* cidx, int nseg, int n, int batch, int m, int k, int q, int tile, void* stream) {
   Launch l;
   GemmnnKernel kernel;
-  if (bad_args(n, batch, m) || bad_edge(k) || bad_edge(q) || !gemmnn_launch(tile, n, m, k, q, &l, &kernel))
+  Segs s[3];
+  if (bad_args(n, batch, m) || bad_edge(k) || bad_edge(q) ||
+      !read_all(nseg, n, {{aseg, aidx}, {bseg, bidx}, {cseg, cidx}}, s) ||
+      !gemmnn_launch(tile, n, m, k, q, &l, &kernel))
     return (int)cudaErrorInvalidValue;
-  const int vec = aligned16(ag, alane) && aligned16(bg, blane) && aligned16(cg, clane) && k % 4 == 0 && q % 4 == 0;
-  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, ag, anc, aidx, alane, bg, bnc, bidx,
-                     blane, cg, cnc, cidx, clane, m, k, q, vec);
+  const int vec = aligned16(s[0], nseg) && aligned16(s[1], nseg) && aligned16(s[2], nseg) && k % 4 == 0 && q % 4 == 0;
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, s[0], s[1], s[2], m, k, q, vec);
 }
 
-int tile_trsml(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid, int bnc,
-               const int* bidx, long long blane, int n, int batch, int b, int bc, int cols, void* stream) {
+int tile_trsml(const long long* lseg, const int* lidx, const long long* bseg, const int* bidx, int nseg, int n,
+               int batch, int b, int bc, int cols, void* stream) {
   Launch l;
   TrsmlKernel kernel;
-  if (bad_args(n, batch, b) || bad_edge(bc) || !column_launch(false, cols, n, b, bc, &l, &kernel))
+  Segs s[2];
+  if (bad_args(n, batch, b) || bad_edge(bc) || !read_all(nseg, n, {{lseg, lidx}, {bseg, bidx}}, s) ||
+      !column_launch(false, cols, n, b, bc, &l, &kernel))
     return (int)cudaErrorInvalidValue;
-  const int vec = aligned16(lgrid, llane) && b % 4 == 0;
-  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, lgrid, lnc, lidx, llane, bgrid, bnc,
-                     bidx, blane, b, bc, x_stride(b), vec);
+  const int vec = aligned16(s[0], nseg) && b % 4 == 0;
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, s[0], s[1], b, bc, x_stride(b), vec);
 }
 
-int tile_trsmul(const float* ugrid, int unc, const int* uidx, long long ulane, float* bgrid, int bnc,
-                const int* bidx, long long blane, int n, int batch, int b, int bc, int cols, void* stream) {
+int tile_trsmul(const long long* useg, const int* uidx, const long long* bseg, const int* bidx, int nseg, int n,
+                int batch, int b, int bc, int cols, void* stream) {
   Launch l;
   TrsmlKernel kernel;
-  if (bad_args(n, batch, b) || bad_edge(bc) || !column_launch(true, cols, n, b, bc, &l, &kernel))
+  Segs s[2];
+  if (bad_args(n, batch, b) || bad_edge(bc) || !read_all(nseg, n, {{useg, uidx}, {bseg, bidx}}, s) ||
+      !column_launch(true, cols, n, b, bc, &l, &kernel))
     return (int)cudaErrorInvalidValue;
-  const int vec = aligned16(ugrid, ulane) && b % 4 == 0;
-  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, ugrid, unc, uidx, ulane, bgrid, bnc,
-                     bidx, blane, b, bc, x_stride(b), vec);
+  const int vec = aligned16(s[0], nseg) && b % 4 == 0;
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, s[0], s[1], b, bc, x_stride(b), vec);
 }
 
-int tile_trsm(const float* lgrid, int lnc, const int* lidx, long long llane, float* bgrid, int bnc,
-              const int* bidx, long long blane, int n, int batch, int b, int rows, void* stream) {
+int tile_trsm(const long long* lseg, const int* lidx, const long long* bseg, const int* bidx, int nseg, int n,
+              int batch, int b, int rows, void* stream) {
   Launch l;
   TrsmuKernel kernel;
-  if (bad_args(n, batch, b) || !trsm_launch(rows, n, b, &l, &kernel)) return (int)cudaErrorInvalidValue;
-  const int vec = aligned16(lgrid, llane) && aligned16(bgrid, blane) && b % 4 == 0;
-  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, lgrid, lnc, lidx, llane, bgrid, bnc,
-                     bidx, blane, b, x_stride(b), vec);
+  Segs s[2];
+  if (bad_args(n, batch, b) || !read_all(nseg, n, {{lseg, lidx}, {bseg, bidx}}, s) ||
+      !trsm_launch(rows, n, b, &l, &kernel))
+    return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(s[0], nseg) && aligned16(s[1], nseg) && b % 4 == 0;
+  return launch_smem(kernel, l.ctas, batch, l.threads, l.smem, stream, s[0], s[1], b, x_stride(b), vec);
 }
 
-int tile_syrk(const float* ag, int anc, const int* aidx, long long alane, float* cg, int cnc, const int* cidx,
-              long long clane, int n, int batch, int b, int tile, void* stream) {
-  Launch l;
-  if (bad_args(n, batch, b) || !abt_launch(tile, n, b, &l)) return (int)cudaErrorInvalidValue;
-  const int vec = aligned16(ag, alane) && aligned16(cg, clane) && b % 4 == 0;
-  return launch_smem(tile == 32 ? &syrk_kernel<32> : &syrk_kernel<64>, l.ctas, batch, l.threads, l.smem, stream,
-                     ag, anc, aidx, alane, cg, cnc, cidx, clane, b, vec);
-}
-
-int tile_gemm(const float* ag, int anc, const int* aidx, long long alane, const float* bg, int bnc,
-              const int* bidx, long long blane, float* cg, int cnc, const int* cidx, long long clane, int n,
+int tile_syrk(const long long* aseg, const int* aidx, const long long* cseg, const int* cidx, int nseg, int n,
               int batch, int b, int tile, void* stream) {
   Launch l;
-  if (bad_args(n, batch, b) || !abt_launch(tile, n, b, &l)) return (int)cudaErrorInvalidValue;
-  const int vec = aligned16(ag, alane) && aligned16(bg, blane) && aligned16(cg, clane) && b % 4 == 0;
+  Segs s[2];
+  if (bad_args(n, batch, b) || !read_all(nseg, n, {{aseg, aidx}, {cseg, cidx}}, s) || !abt_launch(tile, n, b, &l))
+    return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(s[0], nseg) && aligned16(s[1], nseg) && b % 4 == 0;
+  return launch_smem(tile == 32 ? &syrk_kernel<32> : &syrk_kernel<64>, l.ctas, batch, l.threads, l.smem, stream,
+                     s[0], s[1], b, vec);
+}
+
+int tile_gemm(const long long* aseg, const int* aidx, const long long* bseg, const int* bidx, const long long* cseg,
+              const int* cidx, int nseg, int n, int batch, int b, int tile, void* stream) {
+  Launch l;
+  Segs s[3];
+  if (bad_args(n, batch, b) || !read_all(nseg, n, {{aseg, aidx}, {bseg, bidx}, {cseg, cidx}}, s) ||
+      !abt_launch(tile, n, b, &l))
+    return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(s[0], nseg) && aligned16(s[1], nseg) && aligned16(s[2], nseg) && b % 4 == 0;
   return launch_smem(tile == 32 ? &gemm_kernel<32> : &gemm_kernel<64>, l.ctas, batch, l.threads, l.smem, stream,
-                     ag, anc, aidx, alane, bg, bnc, bidx, blane, cg, cnc, cidx, clane, b, vec);
+                     s[0], s[1], s[2], b, vec);
 }
 
-int tile_getrf(float* grid, int nc, const int* idx, long long lane, int n, int batch, int b, void* stream) {
-  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
-  return launch_smem(getrf_kernel, n, batch, kGetrfThreads, 0, stream, grid, nc, idx, lane, b);
+int tile_getrf(const long long* aseg, const int* aidx, int nseg, int n, int batch, int b, void* stream) {
+  Segs s[1];
+  if (bad_args(n, batch, b) || !read_all(nseg, n, {{aseg, aidx}}, s)) return (int)cudaErrorInvalidValue;
+  return launch_smem(getrf_kernel, n, batch, kGetrfThreads, 0, stream, s[0], b);
 }
 
-int tile_potrf(float* grid, int nc, const int* idx, long long lane, int n, int batch, int b, void* stream) {
-  if (bad_args(n, batch, b)) return (int)cudaErrorInvalidValue;
-  return launch_smem(potrf_kernel, n, batch, kGetrfThreads, b * (b | 1) * (int)sizeof(float), stream, grid, nc,
-                     idx, lane, b);
+int tile_potrf(const long long* aseg, const int* aidx, int nseg, int n, int batch, int b, void* stream) {
+  Segs s[1];
+  if (bad_args(n, batch, b) || !read_all(nseg, n, {{aseg, aidx}}, s)) return (int)cudaErrorInvalidValue;
+  return launch_smem(potrf_kernel, n, batch, kGetrfThreads, b * (b | 1) * (int)sizeof(float), stream, s[0], b);
 }
 
 }  // extern "C"

@@ -16,7 +16,13 @@ in 3xTF32; the wrapper chooses that split from the group's size
   grid plus an ``(n, 2)`` int32 tensor of block indices; the kernel reads
   each task's blocks through them and updates the written argument's grid
   IN PLACE (tasks of one call must write distinct blocks that no other task
-  of the call reads, which the planner guarantees);
+  of the call reads, which the planner guarantees).  A call may span
+  several segments, each its own grids (a group the planner fused across
+  roots): ``grid_*(idxs, [(grids, size), ...])``, the indices' rows segment
+  by segment.  On the card it is one launch whatever the segment count up
+  to ``MAX_SEGMENTS`` (each argument passes a segment table), consecutive
+  launches of at most that many beyond it (``pack_segments``); the plain
+  version runs its body once on the segments' concatenated blocks;
 - the stacked grid form, the same call on ``(B, nr, nc, br, bc)`` grids
   (``make_grid_fused``'s ``kernel_stacked``): lane ``b`` of every argument
   is one independent workload, all lanes share the index tensors, and the
@@ -36,7 +42,8 @@ recurrence as the JAX tile body, over any leading batch dimensions.  The
 wrappers run the plain version for tensors on the CPU and launch the kernel
 for tensors on a CUDA device — there is no fallback between the two.
 ``LAUNCHES`` counts unstacked kernel launches per kernel, ``STACKED_LAUNCHES``
-stacked ones.
+stacked ones, and ``SEGMENTED_LAUNCHES`` those of either that span several
+segments.
 
 ``matmul`` (``csrc/matmul.cu``) is the standalone product C = A B on three
 routes that ``matmul_route`` picks by shape: bf16 on ``wgmma`` fed by TMA,
@@ -63,6 +70,7 @@ _SIGNATURES = {
 }
 
 MAX_BATCH = 65535  # most lanes of one stacked launch (csrc kMaxBatch, gridDim.y)
+MAX_SEGMENTS = 8  # most segments of one launch (csrc kMaxSeg); more run as consecutive launches
 
 # the kernels that cut a task across CTAs: their C entries take one
 # launch-shape integer after the tile dimensions
@@ -71,9 +79,11 @@ SPLIT = ("trsm", "trsml", "trsmu", "trsmul", "syrk", "gemm", "gemmnn")
 LIBRARY = {k: "tile_lu_sm90" for k in _SIGNATURES}
 
 # kernel name -> number of launches since the last reset_launches(), of the
-# unstacked forms (4-D grids, batched stacks) and of the stacked grid form
+# unstacked forms (4-D grids, batched stacks) and of the stacked grid form;
+# SEGMENTED_LAUNCHES counts again those of either that span several segments
 LAUNCHES: Dict[str, int] = {k: 0 for k in _SIGNATURES}
 STACKED_LAUNCHES: Dict[str, int] = {k: 0 for k in _SIGNATURES}
+SEGMENTED_LAUNCHES: Dict[str, int] = {k: 0 for k in _SIGNATURES}
 
 
 def reset_launches() -> None:
@@ -193,23 +203,53 @@ def gemmnn_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Ten
     return c.float() - a.float() @ b.float()
 
 
+Segments = List[Tuple[Tuple[torch.Tensor, ...], int]]
+
+
+def _segments(idxs: Sequence[torch.Tensor], grids) -> Segments:
+    """A fused call's segments: ``grids`` is either one segment's grids (a
+    sequence of tensors, every task of ``idxs``) or a sequence of ``(grids,
+    size)`` pairs, the indices' rows segment by segment."""
+    if len(grids) and isinstance(grids[0], torch.Tensor):
+        return [(tuple(grids), idxs[0].shape[0])]
+    return [(tuple(g), int(size)) for g, size in grids]
+
+
 def _grid_plain(body, write_arg: int):
     """Plain fused grid form: gather the blocks, apply ``body``, write the
-    result back into the written argument's grid in place.  On stacked
-    ``(B, nr, nc, br, bc)`` grids every lane gathers the same blocks
-    (``g[:, ix0, ix1]``), the body runs once on the flattened ``(B * n)``
-    stack, and the result is written back lane by lane."""
+    result back into the written argument's grid in place.  Each argument's
+    blocks are gathered segment by segment and joined, as the launch list's
+    gather path joins them, the body runs once on the joined stack, and each
+    segment's rows go back into its own grid: the same bits as that path.
+    On stacked ``(B, nr, nc, br, bc)`` grids every lane gathers the same
+    blocks (``g[:, ix0, ix1]``), the body runs once on the flattened
+    ``(B * n)`` stack, and the result is written back lane by lane.  Returns
+    the (first segment's) written grid."""
 
-    def call(idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> torch.Tensor:
-        w, ix = grids[write_arg], idxs[write_arg]
-        if w.dim() == 4:
-            tiles = [g[i[:, 0], i[:, 1]] for i, g in zip(idxs, grids)]
-            w.index_put_((ix[:, 0], ix[:, 1]), body(*tiles).to(w.dtype))
-            return w
-        tiles = [g[:, i[:, 0], i[:, 1]].flatten(0, 1) for i, g in zip(idxs, grids)]
-        out = body(*tiles).to(w.dtype)
-        w[:, ix[:, 0], ix[:, 1]] = out.reshape(w.shape[0], ix.shape[0], *out.shape[1:])
-        return w
+    def call(idxs: Sequence[torch.Tensor], grids) -> torch.Tensor:
+        segments = _segments(idxs, grids)
+        stacked = segments[0][0][0].dim() == 5
+        bounds, off = [], 0
+        for _, size in segments:
+            bounds.append((off, off + size))
+            off += size
+        tiles = []
+        for a, ix in enumerate(idxs):
+            parts = [g[a][:, ix[lo:hi, 0], ix[lo:hi, 1]] if stacked else g[a][ix[lo:hi, 0], ix[lo:hi, 1]]
+                     for (g, _), (lo, hi) in zip(segments, bounds)]
+            stack = torch.cat(parts, dim=1 if stacked else 0)
+            tiles.append(stack.flatten(0, 1) if stacked else stack)
+        out = body(*tiles)
+        if stacked:
+            out = out.reshape(segments[0][0][0].shape[0], off, *out.shape[1:])
+        ix = idxs[write_arg]
+        for (g, _), (lo, hi) in zip(segments, bounds):
+            w = g[write_arg]
+            if stacked:
+                w[:, ix[lo:hi, 0], ix[lo:hi, 1]] = out[:, lo:hi].to(w.dtype)
+            else:
+                w.index_put_((ix[lo:hi, 0], ix[lo:hi, 1]), out[lo:hi].to(w.dtype))
+        return segments[0][0][write_arg]
 
     return call
 
@@ -297,11 +337,11 @@ def launch_shape(name: str, shapes: Sequence[Tuple[int, int]], n: int, batch: in
 # --------------------------------------------------------------------------
 # Kernel launch
 # --------------------------------------------------------------------------
-_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C entry tile_<name>(per arg: grid, nc, idx, lane stride; n; batch; dims...;
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+# C entry tile_<name>(per arg: segment table, idx; nseg; n; batch; dims...;
 # launch shape (SPLIT); stream)
 _ARGTYPES = {
-    name: [_VP, _I, _VP, _LL] * arity + [_I] * (2 + n_dims + (name in SPLIT)) + [_VP]
+    name: [_VP, _VP] * arity + [_I] * (3 + n_dims + (name in SPLIT)) + [_VP]
     for name, (arity, n_dims) in _SIGNATURES.items()
 }
 
@@ -355,21 +395,43 @@ def _lanes(grids: Sequence[torch.Tensor]) -> int:
     return batch
 
 
-def _check(name: str, idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> Tuple[int, ...]:
-    """Validate one fused call's arguments; returns the kernel's dims."""
-    dev = grids[0].device
+def _segment_dims(name: str, idxs: Sequence[torch.Tensor], segments: Segments) -> Tuple[int, ...]:
+    """The kernel's dims for a fused call's segments, on either device: one
+    grid an argument in every segment, every segment's tiles in ``name``'s
+    contract and alike, one lane count, and segment sizes that add up to
+    the indices' rows; raises ``ValueError`` otherwise."""
+    _lanes([g for grids, _ in segments for g in grids])
+    dims = None
+    for grids, size in segments:
+        if len(grids) != len(idxs) or size < 0:
+            raise ValueError(f"a segment of {size} tasks over {len(grids)} grids, for {len(idxs)} index tensors")
+        seg_dims = _dims(name, [tuple(g.shape[-2:]) for g in grids])
+        if dims is not None and seg_dims != dims:
+            raise ValueError(f"{name}: segments disagree on their tiles: {dims} and {seg_dims}")
+        dims = seg_dims
+    n = idxs[0].shape[0]
+    if sum(size for _, size in segments) != n:
+        raise ValueError(f"segments of {[size for _, size in segments]} tasks for {n} block indices")
+    return dims
+
+
+def _check(name: str, idxs: Sequence[torch.Tensor], segments: Segments) -> Tuple[int, ...]:
+    """Validate one fused call's arguments for the card, every segment's
+    grids; returns the kernel's dims."""
+    dev = segments[0][0][0].device
     if dev.type != "cuda":
         raise ValueError(f"the tile kernels run on CUDA tensors, got {dev}")
+    dims = _segment_dims(name, idxs, segments)
     n = idxs[0].shape[0]
-    _lanes(grids)
-    for g in grids:
-        if g.device != dev or g.dtype != torch.float32:
-            raise ValueError(
-                f"grids must be float32 tensors on {dev}, "
-                f"got {g.dtype} {tuple(g.shape)} on {g.device}"
-            )
-        if not g.is_contiguous():
-            raise ValueError(f"grid {tuple(g.shape)} is not contiguous")
+    for grids, _ in segments:
+        for g in grids:
+            if g.device != dev or g.dtype != torch.float32:
+                raise ValueError(
+                    f"grids must be float32 tensors on {dev}, "
+                    f"got {g.dtype} {tuple(g.shape)} on {g.device}"
+                )
+            if not g.is_contiguous():
+                raise ValueError(f"grid {tuple(g.shape)} is not contiguous")
     for ix in idxs:
         if ix.device != dev or ix.dtype != torch.int32 or tuple(ix.shape) != (n, 2):
             raise ValueError(
@@ -378,44 +440,71 @@ def _check(name: str, idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor
             )
         if not ix.is_contiguous():
             raise ValueError("block indices must be contiguous")
-    return _dims(name, [tuple(g.shape[-2:]) for g in grids])
+    return dims
 
 
-def _launch(name: str, idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> None:
-    dims = _check(name, idxs, grids)
-    n = idxs[0].shape[0]
-    if n == 0:
-        return
-    stacked = grids[0].dim() == 5
-    args = []
-    for ix, g in zip(idxs, grids):
-        args += [g.data_ptr(), g.shape[-3], ix.data_ptr(), g.stride(0) if stacked else 0]
-    batch = grids[0].shape[0] if stacked else 1
-    if name in SPLIT:
-        shapes = [tuple(g.shape[-2:]) for g in grids]
-        dims += launch_shape(name, shapes, n, batch, sm_count(grids[0].device))
-    stream = torch.cuda.current_stream(grids[0].device).cuda_stream
-    with torch.cuda.device(grids[0].device):
-        err = _kernel_fn(name)(*args, n, batch, *dims, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    (STACKED_LAUNCHES if stacked else LAUNCHES)[name] += 1
+def pack_segments(sizes: Sequence[int]) -> List[Tuple[int, int, Tuple[Tuple[int, int], ...]]]:
+    """A group's launches, from its segments' task counts: at most
+    ``MAX_SEGMENTS`` non-empty segments a launch, in order.  Each launch is
+    (its first task in the group, its task count, and per segment (the
+    segment's index, its first task within the launch)); together they
+    cover every task once."""
+    launches, members, first, count = [], [], 0, 0
+    for k, size in enumerate(sizes):
+        if size <= 0:
+            continue
+        if len(members) == MAX_SEGMENTS:
+            launches.append((first, count, tuple(members)))
+            members, first, count = [], first + count, 0
+        members.append((k, count))
+        count += size
+    if members:
+        launches.append((first, count, tuple(members)))
+    return launches
+
+
+def _launch(name: str, idxs: Sequence[torch.Tensor], segments: Segments) -> None:
+    dims = _check(name, idxs, segments)
+    grids0 = segments[0][0]
+    stacked = grids0[0].dim() == 5
+    batch = grids0[0].shape[0] if stacked else 1
+    shapes = [tuple(g.shape[-2:]) for g in grids0]
+    device = grids0[0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for first, count, members in pack_segments([size for _, size in segments]):
+        args = []
+        for a, ix in enumerate(idxs):
+            table = []
+            for k, start in members:
+                g = segments[k][0][a]
+                table += [g.data_ptr(), g.shape[-3], g.stride(0) if stacked else 0, start]
+            # the launch's rows of the indices: 8 bytes a task
+            args += [(ctypes.c_longlong * len(table))(*table), ix.data_ptr() + 8 * first]
+        shape = launch_shape(name, shapes, count, batch, sm_count(device)) if name in SPLIT else ()
+        with torch.cuda.device(device):
+            err = _kernel_fn(name)(*args, len(members), count, batch, *dims, *shape, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        (STACKED_LAUNCHES if stacked else LAUNCHES)[name] += 1
+        if len(members) > 1:
+            SEGMENTED_LAUNCHES[name] += 1
 
 
 def _fused(name: str, write_arg: int, plain):
-    def call(idxs: Sequence[torch.Tensor], grids: Sequence[torch.Tensor]) -> torch.Tensor:
-        if grids[write_arg].device.type == "cpu":
-            _lanes(grids)
-            _dims(name, [tuple(g.shape[-2:]) for g in grids])
-            return plain(idxs, grids)
-        _launch(name, idxs, grids)
-        return grids[write_arg]
+    def call(idxs: Sequence[torch.Tensor], grids) -> torch.Tensor:
+        segments = _segments(idxs, grids)
+        if segments[0][0][write_arg].device.type == "cpu":
+            _segment_dims(name, idxs, segments)
+            return plain(idxs, segments)
+        _launch(name, idxs, segments)
+        return segments[0][0][write_arg]
 
     call.__name__ = f"grid_{name}"
     call.__doc__ = (
         f"Fused {name.upper()} over resident grids (4-D, or stacked 5-D with "
-        f"one lane per workload), in place in grid {write_arg}; CUDA kernel "
-        f"on the card, plain version on the CPU."
+        f"one lane per workload), in place in grid {write_arg}: ``grids`` are "
+        f"one segment's grids, or (grids, size) segments; CUDA kernel on the "
+        f"card, plain version on the CPU."
     )
     return call
 
@@ -459,7 +548,9 @@ batched_trsmul = _batched("trsmul", grid_trsmul, 1, trsmul_plain)
 batched_gemmnn = _batched("gemmnn", grid_gemmnn, 2, gemmnn_plain)
 
 # op name -> (fused call, write_arg); consumed by ``build_program``
-# when the backend is 'cuda' and the group writes exactly that argument.
+# when the backend is 'cuda' and the group writes exactly that argument,
+# whatever its segment count: the call takes the group's (grids, size)
+# segments.
 GRID_FUSED = {
     "potrf": (grid_potrf, 0),
     "trsm": (grid_trsm, 1),
@@ -484,7 +575,7 @@ MATMUL_LAUNCHES: Dict[str, int] = {WGMMA: 0, TF32X3: 0, SIMPLE: 0}
 
 # every launch counter of this module; a captured launch list (whose replay
 # makes no Python launch) adds its recorded tally to these
-COUNTERS = (LAUNCHES, STACKED_LAUNCHES, MATMUL_LAUNCHES)
+COUNTERS = (LAUNCHES, STACKED_LAUNCHES, SEGMENTED_LAUNCHES, MATMUL_LAUNCHES)
 
 
 matmul_plain = ref.matmul  # C = A B in float32, cast to A's dtype

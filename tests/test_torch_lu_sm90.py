@@ -378,7 +378,8 @@ def test_lu_sm90_source_notes_what_it_replaces():
         body = entry(name)
         *early, last = re.findall(r"return ([^;]*);", body)
         assert early == ["(int)cudaErrorInvalidValue"] and last.startswith("launch_smem("), name
-        # one ctypes argument a C parameter: grids, nc, idx, lane stride; n, batch, dims, shape (SPLIT), stream
+        # one ctypes argument a C parameter: per argument its segment table and idx; nseg, n, batch, dims, shape
+        # (SPLIT), stream
         params = body[body.index("(") + 1 : body.index(")")].split(",")
         assert len(params) == len(tl._ARGTYPES[name]), name
         assert sum("long long" in p for p in params) == tl._SIGNATURES[name][0], name
