@@ -18,6 +18,14 @@ return fresh storage, ``GView.set`` replaces the root tensor instead of
 writing into it, and re-entering a grid epoch from a stacked-epoch lane
 clones the lane (a view would let an in-place drain of this datum write
 into storage its bystander lanes share).
+
+Split roots (the distributed graphs, ``core/executors/sharded.py``): a root
+the shard stage splits over a ``DeviceMesh`` holds only this rank's part.
+Its value is then a ``DTensor`` (``Shard(d)`` on each mesh dim that splits
+dim ``d``, ``Replicate()`` elsewhere) whose local tensor is the rank's
+rows, and inside a drain a ``SplitStore`` of the rank's blocks.  Nothing
+here issues a collective: a ``GView`` reads and writes only blocks of this
+rank, and raises ``SplitError`` naming the root for any other.
 """
 
 from __future__ import annotations
@@ -28,8 +36,15 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 _uid = itertools.count()
+
+
+class SplitError(ValueError):
+    """A read or write of a split root's block that lies on another rank, or
+    a whole-root access to a split root: it needs a collective that every
+    rank issues (``ShardExecutor.gather``), which no single rank can."""
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,6 +90,117 @@ def from_grid(a4: torch.Tensor) -> torch.Tensor:
     out = torch.empty((nr * br, nc * bc), dtype=a4.dtype, device=a4.device)
     out.view(nr, br, nc, bc).copy_(a4.permute(0, 2, 1, 3))
     return out
+
+
+@dataclass(frozen=True)
+class Split:
+    """Where this rank's part of a split root lies: the DTensor layout
+    (``mesh``, ``placements``, the global ``shape``) and the part's element
+    ``offset`` and ``local_shape``.  Parts are the even contiguous chunks a
+    ``Shard`` placement gives (``torch.chunk`` of a dimension the mesh dim
+    divides)."""
+
+    mesh: Any
+    placements: tuple
+    shape: Tuple[int, int]
+    offset: Tuple[int, int]
+    local_shape: Tuple[int, int]
+
+    @staticmethod
+    def _part(sizes, placements, shape, coord) -> Tuple[tuple, tuple]:
+        """(offset, shape) of the part at mesh coordinate ``coord``."""
+        chunk, off = list(shape), [0] * len(shape)
+        for i, p in enumerate(placements):
+            if p.is_shard():
+                if chunk[p.dim] % sizes[i]:
+                    raise ValueError(f"dim {p.dim} of {tuple(shape)} does not split evenly over mesh dim {i}")
+                chunk[p.dim] //= sizes[i]
+                off[p.dim] += int(coord[i]) * chunk[p.dim]
+        return tuple(off), tuple(chunk)
+
+    @classmethod
+    def of(cls, mesh, placements, shape) -> "Split":
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not in the mesh")
+        off, chunk = cls._part(tuple(mesh.mesh.shape), placements, shape, coord)
+        return cls(mesh, tuple(placements), tuple(shape), off, chunk)
+
+    def offset_at(self, sizes, coord) -> Tuple[int, int]:
+        """The element offset of the part at mesh coordinate ``coord`` (mesh
+        dims of ``sizes``)."""
+        return self._part(sizes, self.placements, self.shape, coord)[0]
+
+    @classmethod
+    def of_dtensor(cls, v: DTensor) -> "Split":
+        return cls.of(v.device_mesh, v.placements, tuple(v.shape))
+
+    def wrap(self, local: torch.Tensor, shape=None) -> DTensor:
+        """``local`` as this layout's DTensor (no collective); ``shape`` gives
+        another global shape of the same split (a column of a matrix)."""
+        shape = torch.Size(self.shape if shape is None else shape)
+        stride, acc = [], 1
+        for e in reversed(shape):
+            stride.append(acc)
+            acc *= e
+        return DTensor.from_local(local, self.mesh, self.placements, run_check=False, shape=shape,
+                                  stride=tuple(reversed(stride)))
+
+
+def local_part(v: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """(the rank's part, its element offset): a DTensor's local tensor, or a
+    plain tensor whole at (0, 0)."""
+    if isinstance(v, DTensor):
+        return v.to_local(), Split.of_dtensor(v).offset
+    return v, (0, 0)
+
+
+def like(v: torch.Tensor, local: torch.Tensor, shape=None) -> torch.Tensor:
+    """``local``, computed from ``local_part(v)``, in ``v``'s form: a DTensor
+    of ``v``'s split (of global ``shape`` if given), or plain."""
+    return Split.of_dtensor(v).wrap(local, shape) if isinstance(v, DTensor) else local
+
+
+class SplitStore:
+    """A split root's resident blocks on this rank, as the shard stage's
+    launch lists address them: ``store`` is ``(1, K, br, bc)``; its first
+    ``nr * nc`` blocks are the rank's own ``(nr, nc)`` block grid in
+    row-major order (``owned()``, de-gridding to the DTensor's local part),
+    the rest slots for blocks of other ranks that a list reads, filled by
+    its exchanges before they are read."""
+
+    __slots__ = ("split", "block", "grid", "store")
+
+    def __init__(self, split: Split, local: torch.Tensor, block: Tuple[int, int], k: int = 0):
+        br, bc = block
+        r, c = local.shape
+        if r % br or c % bc:
+            raise ValueError(f"block {tuple(block)} does not divide the rank's part {tuple(local.shape)}")
+        self.split = split
+        self.block = tuple(block)
+        self.grid = (r // br, c // bc)
+        self.store = torch.empty((1, max(k, self.n_owned), br, bc), dtype=local.dtype, device=local.device)
+        to_grid(local, br, bc, out=self.owned())
+
+    @property
+    def n_owned(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def owned(self) -> torch.Tensor:
+        """The rank's own blocks, an ``(nr, nc, br, bc)`` view of the store."""
+        return self.store[0, : self.n_owned].view(*self.grid, *self.block)
+
+    def reserve(self, k: int) -> torch.Tensor:
+        """The store with room for ``k`` blocks: grown (its own blocks copied,
+        the received slots not: a list fills them before it reads them)."""
+        if self.store.shape[1] < k:
+            old = self.owned()
+            self.store = torch.empty((1, k, *self.block), dtype=old.dtype, device=old.device)
+            self.owned().copy_(old)
+        return self.store
+
+    def value(self) -> DTensor:
+        return self.split.wrap(from_grid(self.owned()))
 
 
 class StackedEpoch:
@@ -160,8 +286,11 @@ class GData:
         # Stacked-epoch lane (DESIGN.md §7): while set, the authoritative
         # bytes are one lane of a shared StackedEpoch grid; resolved lazily.
         self._lane: Optional[Tuple[StackedEpoch, int]] = None
-        self.value = None if value is None else self._ingest(value)
+        # Split-root store (module docstring): while set, the authority is
+        # this rank's blocks in it; reading ``.value`` gives the DTensor.
+        self._split: Optional[SplitStore] = None
         self.name = name or f"gdata{self.id}"
+        self.value = None if value is None else self._ingest(value)
         for lvl, (pr, pc) in enumerate(self.partitions):
             rows, cols = self._level_block_shape(lvl)
             if rows * pr != self._level_block_shape(lvl - 1)[0] or (
@@ -173,7 +302,13 @@ class GData:
                 )
 
     def _ingest(self, v: Any) -> torch.Tensor:
-        """Copy ``v`` into storage this handle owns (see module docstring)."""
+        """Copy ``v`` into storage this handle owns (see module docstring).
+        A ``DTensor`` keeps its split: its local part is copied."""
+        if isinstance(v, DTensor):
+            if tuple(v.shape) != self.shape:
+                raise ValueError(f"value shape {tuple(v.shape)} != {self.shape}")
+            local = host_to_device(v.to_local(), self.device, self.dtype)
+            return Split.of_dtensor(v).wrap(local) if v.device_mesh.size() > 1 else local
         t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
         if tuple(t.shape) != self.shape:
             raise ValueError(f"value shape {tuple(t.shape)} != {self.shape}")
@@ -184,7 +319,12 @@ class GData:
     def value(self) -> Optional[torch.Tensor]:
         """Root-layout tensor.  Reading from inside a grid epoch de-grids
         lazily and ends the epoch (the next drain re-enters it); reading
-        from a stacked-epoch lane extracts + de-grids that lane."""
+        from a stacked-epoch lane extracts + de-grids that lane.  A split
+        root's value is a ``DTensor`` of this rank's part (de-gridded from
+        its store, which this read ends)."""
+        if self._split is not None:
+            self._value = self._split.value()
+            self._split = None
         if self._lane is not None:
             ep, i = self._lane
             self._drop_lane()
@@ -200,8 +340,18 @@ class GData:
     def value(self, v: Optional[torch.Tensor]) -> None:
         self._grid = None
         self._grid_block = None
+        self._split = None
         self._drop_lane()
         self._value = v
+
+    def _whole(self) -> Optional[torch.Tensor]:
+        """The root-layout value of a root that is not split; a split one
+        raises ``SplitError`` (it needs a collective to be whole)."""
+        v = self.value
+        if isinstance(v, DTensor):
+            raise SplitError(f"{self.name} is split over the mesh: gather it (a collective every rank issues) "
+                             "to use it whole")
+        return v
 
     def _drop_lane(self) -> None:
         if self._lane is not None:
@@ -220,7 +370,26 @@ class GData:
             self._value is not None
             or self._grid is not None
             or self._lane is not None
+            or self._split is not None
         )
+
+    @property
+    def split(self) -> Optional[SplitStore]:
+        """This rank's store of a split root, or None."""
+        return self._split
+
+    @property
+    def is_split(self) -> bool:
+        """True when this rank holds only its part (a store or a DTensor)."""
+        return self._split is not None or isinstance(self._value, DTensor)
+
+    def adopt_split(self, store: SplitStore) -> None:
+        """Make ``store`` (already holding this rank's blocks) the authority."""
+        self._grid = None
+        self._grid_block = None
+        self._drop_lane()
+        self._value = None
+        self._split = store
 
     @property
     def lane(self) -> Optional[Tuple[StackedEpoch, int]]:
@@ -241,6 +410,7 @@ class GData:
         self._grid = None
         self._grid_block = None
         self._value = None
+        self._split = None
         self._drop_lane()
         self._lane = (epoch, lane)
         epoch.holders += 1
@@ -274,7 +444,7 @@ class GData:
             self._grid = ep.grid[i].clone()
             self._grid_block = (br, bc)
             return self._grid
-        v = self.value  # flushes any differently-blocked resident grid/lane
+        v = self._whole()  # flushes any differently-blocked resident grid/lane
         if v is None:
             raise ValueError(f"{self.name}: cannot enter grid epoch, no value")
         self._grid = to_grid(v, br, bc)
@@ -293,7 +463,7 @@ class GData:
         elif self._grid is not None and self._grid_block == (br, bc):
             dst.copy_(self._grid)
         else:
-            v = self.value  # flushes any differently-blocked resident grid/lane
+            v = self._whole()  # flushes any differently-blocked resident grid/lane
             if v is None:
                 raise ValueError(f"{self.name}: cannot enter grid epoch, no value")
             to_grid(v, br, bc, out=dst)
@@ -304,6 +474,7 @@ class GData:
         the datum its drain wrote (``src/repro_torch/DESIGN.md``)."""
         self._drop_lane()
         self._value = None
+        self._split = None
         self._grid = g4
         self._grid_block = tuple(block)
 
@@ -405,17 +576,30 @@ class GView:
         return self.region.shape
 
     # -- executor-side array access (host path) -----------------------------
-    def get(self) -> torch.Tensor:
-        v = self.data.value
+    def _local(self, v: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+        """(the rank's part of ``v``, this region's origin in it); a region
+        that is not wholly this rank's raises ``SplitError``."""
+        local, (o0, o1) = local_part(v)
         r = self.region
-        return v[r.r0 : r.r0 + r.rows, r.c0 : r.c0 + r.cols]
+        r0, c0 = r.r0 - o0, r.c0 - o1
+        if not (0 <= r0 and r0 + r.rows <= local.shape[0] and 0 <= c0 and c0 + r.cols <= local.shape[1]):
+            raise SplitError(f"{self.data.name}{list(r.shape)} at ({r.r0}, {r.c0}) lies on another rank of the "
+                             "mesh; this rank holds only its own blocks")
+        return local, r0, c0
+
+    def get(self) -> torch.Tensor:
+        local, r0, c0 = self._local(self.data.value)
+        r = self.region
+        return local[r0 : r0 + r.rows, c0 : c0 + r.cols]
 
     def set(self, block: torch.Tensor) -> None:
         # functional update: a caller may hold the previous root tensor
+        v = self.data.value
+        local, r0, c0 = self._local(v)
         r = self.region
-        v = self.data.value.clone()
-        v[r.r0 : r.r0 + r.rows, r.c0 : r.c0 + r.cols] = block.to(self.data.dtype)
-        self.data.value = v
+        local = local.clone()
+        local[r0 : r0 + r.rows, c0 : c0 + r.cols] = block.to(self.data.dtype)
+        self.data.value = like(v, local)
 
     def block_index(self) -> Tuple[int, int]:
         """(row, col) index of this block within the uniform grid of its level."""

@@ -6,22 +6,34 @@ moves panel blocks with messages.  The JAX package places its roots with a
 ``NamedSharding`` and leaves both to XLA's SPMD partitioner; here they are
 explicit (``src/repro_torch/DESIGN.md``):
 
-- **Placement.**  ``row_sharding`` maps each root dimension to a mesh axis
-  or to None, falling back to replication where the dimension does not
-  divide by the axis size (it never fails to place).  The resident
-  ``(nr, nc, br, bc)`` grid is placed over its grid dimensions
-  (``_grid_sharding``): block row ``i`` belongs to coordinate
-  ``i * W // nr`` of the ``data`` axis, contiguous chunks as a row
-  ``NamedSharding`` gives.
-- **Owner computes.**  In each issue slot of a planned launch list a rank
-  runs only the tasks whose written block it owns.  A task writing a
-  replicated root, or several blocks, runs on every rank.
-- **Exchange.**  After each slot the blocks written in it are made current
-  on every rank: each rank gathers the slot's written blocks into one
-  buffer, puts -0.0 where it is not the owner (``x + -0.0 == x`` for every
-  x, signed zeros included) and all-reduces it over each mesh axis the
-  roots are split on — one collective a slot and axis, not one a block.
-- **Storage** stays a full grid on every rank.
+- **Placement.**  A root is placed at its first leaf plan, over the grid of
+  that plan's blocks: a grid dimension its mesh axis divides is split
+  (block row ``i`` belongs to coordinate ``i * W // nr`` of the ``data``
+  axis, the contiguous chunks of a row ``NamedSharding``), any other
+  replicated, as the reference's fallback.  A split root keeps only this
+  rank's part: its value is a ``DTensor`` (``Shard(d)`` on each mesh dim
+  that splits dim ``d``, ``Replicate()`` elsewhere).
+- **Storage.**  Inside a drain a split root lives in a ``SplitStore`` per
+  rank: a ``(1, K, br, bc)`` tensor holding the owned blocks first, in
+  row-major order, then one slot for each block of another rank that a
+  launch list reads.  The plan's block indices are remapped into it on the
+  host once per owned cut; the tile kernels and their plain versions
+  address ``(0, k)`` as any grid block, unchanged.  The store stays with
+  its root across lists and drains, growing only when a list reads more.
+- **Owner computes.**  In each issue slot a rank runs only the tasks whose
+  written block it owns.  A task writing a replicated root runs on every
+  rank.
+- **Exchange.**  From the plan's read and write sets (``plan_exchanges``):
+  for each issue slot, every block written in it (before the first slot:
+  the list's inputs) that a task on another rank reads before the block is
+  written again goes from its owner straight into that rank's received
+  slot.  One ``all_to_all_single`` over the mesh's ranks a slot (and
+  dtype), only in slots where a block moves; every rank derives the same
+  list, so no rank waits on a collective another skips.
+- **Whole only by a collective.**  A path that needs a split root whole —
+  the per-group fallback, a list whose blocks the split does not divide —
+  gathers it with one ``all_gather`` that every rank issues (``gather``),
+  counted as an exchange.
 
 At world size 1, and for a plan whose roots all fell back to replication,
 no collective is issued: the launch list is the local executor's, captured
@@ -32,21 +44,25 @@ it so.
 Counters: ``tasks``, ``launches``, ``groups``, ``groups_prefusion``,
 ``slots`` and ``compiles`` count the whole plan on every rank, as the JAX
 package's single SPMD program does; ``owned_tasks`` counts the tasks this
-rank computed, ``exchanges`` the collectives it issued and
-``exchanged_bytes`` their payload.
+rank computed, ``exchanges`` the collectives it issued, ``exchanged_bytes``
+and ``received_bytes`` the payload it sent and received, and
+``resident_bytes`` the most its launch lists held at once in stores and
+whole grids.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ...testing import faults
-from ..data import GData, host_to_device
+from ..data import GData, Split, SplitError, SplitStore, from_grid, host_to_device
 from ..task import GTask
 from .jit_wave import WaveExecutor
 from .wave_program import GroupPlan, SchedulePlan, build_program
@@ -76,6 +92,15 @@ class Placement:
             if ax is not None and size > 1:
                 mine &= idx[:, k] * size // self.dims[k] == coord[ax]
         return mine
+
+    def dtensor_placements(self, names: Sequence[str]) -> tuple:
+        """The DTensor placements over mesh dims ``names``: ``Shard(d)``
+        where the mesh dim splits dim ``d``, else ``Replicate()``."""
+        out = []
+        for name in names:
+            dims = [d for d, (ax, s) in enumerate(zip(self.spec, self.sizes)) if ax == name and s > 1]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
 
 
 def _axis_size(mesh, ax: str) -> int:
@@ -118,97 +143,248 @@ def mesh_device(mesh, device=None):
     return dev
 
 
-class _Exchange:
-    """One slot's exchange for roots of one dtype sharded on the same axes:
-    gather the written blocks, put -0.0 where this rank is not the owner,
-    all-reduce over each axis's group, scatter back."""
+def mesh_group(mesh):
+    """The process group over every rank of ``mesh``."""
+    for i in range(mesh.ndim):
+        if mesh.size(i) == mesh.size():
+            return mesh.get_group(i)
+    if sorted(mesh.mesh.flatten().tolist()) == list(range(dist.get_world_size())):
+        return dist.group.WORLD
+    return mesh._flatten().get_group()
 
-    def __init__(self, entries, groups, block_of):
-        # entries: (root slot, rows, cols, not-mine mask) tensors on the device
-        self.entries = entries
-        self.groups = groups
-        self.block_of = block_of
-        self.numel = sum(rows.numel() * block_of[r][0] * block_of[r][1] for r, rows, _, _ in entries)
+
+def drained(executor, data: GData) -> torch.Tensor:
+    """The value an entry point returns for a drained root: under a
+    ``ShardExecutor`` a DTensor of this rank's part when the root is split
+    (``ShardExecutor.result``), else the whole tensor (a resident grid is
+    de-gridded)."""
+    if isinstance(executor, ShardExecutor):
+        return executor.result(data)
+    return from_grid(data.grid) if data.in_grid_epoch else data.value
+
+
+# -- the cut of a plan over the mesh: pure host functions of the plan -------------
+def _coords(shape: Tuple[int, ...]) -> np.ndarray:
+    """(P, ndim) mesh coordinates of each mesh position, row-major."""
+    return np.stack(np.unravel_index(np.arange(math.prod(shape)), shape), axis=1)
+
+
+def _owners(pl: Placement, ix: np.ndarray, coords: np.ndarray, names: Sequence[str]) -> np.ndarray:
+    """(k, P): which mesh positions own each of the ``(k, 2)`` blocks."""
+    return np.stack([pl.owned(ix, dict(zip(names, c))) for c in coords], axis=1)
+
+
+def plan_exchanges(plan: SchedulePlan, placements: Sequence[Placement], shape: Tuple[int, ...],
+                   names: Sequence[str]):
+    """Who runs each task, and which blocks move, for ``plan`` over a mesh of
+    ``shape`` with dims ``names`` (``placements`` per root slot, over its
+    grid).  Returns (per group in plan order a ``(size, P)`` bool array of
+    the positions that run each task; and per exchange point — -1 before
+    the first slot, ``s`` after slot ``s`` — the sorted messages ``(src,
+    dst, root slot, i, j)``, mesh positions row-major).
+
+    A task runs on the owners of its written block (every position for a
+    replicated root).  A block a task reads on a position that does not own
+    it moves there from the owner with the reader's coordinates on the axes
+    its root is not split over, after the slot that wrote the version read
+    (or before the first slot), once per version and reader."""
+    coords = _coords(tuple(shape))
+    axis = {n: i for i, n in enumerate(names)}
+
+    def source(r: int, i: int, j: int, q: int) -> int:
+        pl = placements[r]
+        c = coords[q].copy()
+        for d, (ax, size) in enumerate(zip(pl.spec, pl.sizes)):
+            if ax is not None and size > 1:
+                c[axis[ax]] = (i, j)[d] * size // pl.dims[d]
+        return int(np.ravel_multi_index(tuple(c), tuple(shape)))
+
+    last: Dict[tuple, int] = {}  # (root, i, j) -> slot of its latest write
+    moves = set()
+    runners = []
+    for s, slot in enumerate(plan.slots):
+        written = []
+        for g in slot:
+            run = np.ones((g.size, len(coords)), dtype=bool)
+            off = 0
+            for slots_, size in g.segments:
+                rows = slice(off, off + size)
+                split_w = [a for a in g.write_pos if placements[slots_[a]].distributed]
+                if split_w:
+                    run[rows] = _owners(placements[slots_[split_w[0]]], g.idxs[split_w[0]][rows], coords, names)
+                    for a in split_w[1:]:
+                        if not np.array_equal(_owners(placements[slots_[a]], g.idxs[a][rows], coords, names),
+                                              run[rows]):
+                            raise ValueError(f"{g.op.name} writes blocks of split roots that other ranks own")
+                for a, r in enumerate(slots_):
+                    if placements[r].distributed:
+                        ix = g.idxs[a][rows]
+                        miss = run[rows] & ~_owners(placements[r], ix, coords, names)
+                        for m, q in zip(*np.nonzero(miss)):
+                            i, j = int(ix[m, 0]), int(ix[m, 1])
+                            moves.add((last.get((r, i, j), -1), source(r, i, j, int(q)), int(q), r, i, j))
+                for a in g.write_pos:
+                    written += [(slots_[a], int(i), int(j)) for i, j in g.idxs[a][rows]]
+                off += size
+            runners.append(run)
+        for key in written:
+            last[key] = s
+    messages: Dict[int, list] = {}
+    for point, *msg in sorted(moves):
+        messages.setdefault(point, []).append(tuple(msg))
+    return runners, messages
+
+
+def _local_grid(pl: Placement, coord: np.ndarray, axis: Dict[str, int]) -> Tuple[int, int, int, int]:
+    """(first block row, first block column, rows, columns) a position owns."""
+    first, count = [], []
+    for d, (ax, size) in enumerate(zip(pl.spec, pl.sizes)):
+        n = pl.dims[d]
+        split = ax is not None and size > 1
+        first.append(int(coord[axis[ax]]) * n // size if split else 0)
+        count.append(n // size if split else n)
+    return first[0], first[1], count[0], count[1]
+
+
+class _Send:
+    """One exchange point's collective for roots of one dtype: gather this
+    rank's outgoing blocks from its stores, ``all_to_all_single`` over the
+    mesh's ranks, scatter the incoming ones into the received slots."""
+
+    def __init__(self, send, in_splits, recv, out_splits, blocks, group, dtype, device):
+        # send / recv: runs of (root slot, store positions) in buffer order
+        self.send, self.recv = send, recv
+        self.in_splits, self.out_splits = in_splits, out_splits
+        self.blocks, self.group = blocks, group
+        self.dtype, self.device = dtype, device
 
     def __call__(self, grids: Sequence[torch.Tensor]) -> None:
-        parts = []
-        for r, rows, cols, other in self.entries:
-            parts.append(grids[r][rows, cols].masked_fill_(other[:, None, None], -0.0).reshape(-1))
-        buf = parts[0] if len(parts) == 1 else torch.cat(parts)
-        for group in self.groups:
-            dist.all_reduce(buf, group=group)
+        if self.send:
+            inp = torch.cat([grids[r][0, ix].reshape(-1) for r, ix in self.send])
+        else:
+            inp = torch.empty(0, dtype=self.dtype, device=self.device)
+        out = torch.empty(sum(self.out_splits), dtype=self.dtype, device=self.device)
+        dist.all_to_all_single(out, inp, self.out_splits, self.in_splits, group=self.group)
         off = 0
-        for r, rows, cols, _ in self.entries:
-            br, bc = self.block_of[r]
-            n = rows.numel() * br * bc
-            grids[r].index_put_((rows, cols), buf[off : off + n].view(-1, br, bc))
+        for r, ix in self.recv:
+            br, bc = self.blocks[r]
+            n = ix.numel() * br * bc
+            grids[r][0, ix] = out[off : off + n].view(-1, br, bc)
             off += n
+
+
+def _runs(entries, device):
+    """Consecutive (root, position) entries of one root as one index tensor."""
+    runs: List[Tuple[int, list]] = []
+    for r, pos in entries:
+        if runs and runs[-1][0] == r:
+            runs[-1][1].append(pos)
+        else:
+            runs.append((r, [pos]))
+    return [(r, host_to_device(torch.tensor(p, dtype=torch.int64), device)) for r, p in runs]
 
 
 class OwnedProgram:
     """A planned launch list cut by issue slot into this rank's owned
-    groups, each slot followed by the exchange of the blocks written in it
-    (module docstring).  Holds no data handle: only the lists, the index
-    tensors and the exchange plans."""
+    groups over its stores, each slot followed by the sends of the blocks
+    another rank reads (module docstring).  Holds no data handle: only the
+    lists, the index tensors and the exchange plans.  ``store_blocks`` is
+    the store each split root needs (owned plus received blocks)."""
 
-    def __init__(self, plan: SchedulePlan, placements: List[Placement], backend: str, mesh,
-                 coord: Dict[str, int]):
+    def __init__(self, plan: SchedulePlan, placements: List[Placement], backend: str, shape, names,
+                 me: int, group, group_rank: Sequence[int]):
         device = plan.flat_idxs.device
         dtypes = [plan.datas[d].dtype for d in plan.roots_order]
-        self.steps = []
+        self.placements = placements
+        coords = _coords(tuple(shape))
+        axis = {n: i for i, n in enumerate(names)}
+        runners, messages = plan_exchanges(plan, placements, shape, names)
+
+        self.messages = messages
+        local = self._local = {r: _local_grid(pl, coords[me], axis)
+                               for r, pl in enumerate(placements) if pl.distributed}
+        slot_of = self._slot_of = {r: {} for r in local}
+        for point in sorted(messages):
+            for src, dst, r, i, j in messages[point]:
+                if dst == me and (i, j) not in slot_of[r]:
+                    slot_of[r][(i, j)] = local[r][2] * local[r][3] + len(slot_of[r])
+        self.store_blocks = [local[r][2] * local[r][3] + len(slot_of[r]) if r in local else 0
+                             for r in range(len(placements))]
+        pos = self.position
+
+        def remap(r: int, ix: np.ndarray) -> np.ndarray:
+            if r not in local:
+                return ix
+            out = np.zeros_like(ix)
+            out[:, 1] = [pos(r, int(i), int(j)) for i, j in ix]
+            return out
+
+        # this rank's groups, slot by slot, over the stores
         self.n_owned = 0
-        self.n_exchanges = 0
-        self.exchanged_bytes = 0
+        steps = []
+        gi = 0
         for slot in plan.slots:
             own: List[GroupPlan] = []
-            shared: Dict[tuple, list] = {}  # (dtype, axes) -> exchange entries
             for g in slot:
-                keep = np.ones(g.size, dtype=bool)
-                if len(g.write_pos) == 1:
-                    a = g.write_pos[0]
-                    off = 0
-                    for slots_, size in g.segments:
-                        r = slots_[a]
-                        pl = placements[r]
-                        if pl.distributed:
-                            ix = g.idxs[a][off : off + size]
-                            mine = pl.owned(ix, coord)
-                            keep[off : off + size] = mine
-                            axes = tuple(ax for ax, s in zip(pl.spec, pl.sizes) if s > 1)
-                            shared.setdefault((dtypes[r], axes), []).append((r, ix, ~mine))
-                        off += size
-                segments, off = [], 0
+                keep = runners[gi][:, me]
+                gi += 1
+                segments, parts, off = [], [[] for _ in g.idxs], 0
                 for slots_, size in g.segments:
-                    n = int(keep[off : off + size].sum())
-                    if n:
-                        segments.append((slots_, n))
+                    k = keep[off : off + size]
+                    if k.any():
+                        segments.append((slots_, int(k.sum())))
+                        for a, r in enumerate(slots_):
+                            parts[a].append(remap(r, g.idxs[a][off : off + size][k]))
                     off += size
                 if segments:
                     own.append(GroupPlan(g.op, g.write_pos, tuple(segments),
-                                         tuple(ix[keep] for ix in g.idxs), g.height))
-                    self.n_owned += int(keep.sum())
+                                         tuple(np.concatenate(p, axis=0) for p in parts), g.height))
+                    self.n_owned += sum(n for _, n in segments)
             fn = idxs = None
             if own:
-                flat = np.concatenate([ix for g in own for ix in g.idxs], axis=0)
+                flat = np.concatenate([ix for g in own for ix in g.idxs], axis=0).astype(np.int32)
                 idxs = host_to_device(torch.from_numpy(flat), device)
                 sub = SchedulePlan(plan.roots_order, plan.datas, plan.blocks, [own], [], (), idxs, 0)
                 fn = build_program(sub, backend)
-            exchanges = []
-            for (_, axes), entries in shared.items():
-                ex = _Exchange(
-                    [(r, host_to_device(torch.from_numpy(ix[:, 0].astype(np.int64)), device),
-                      host_to_device(torch.from_numpy(ix[:, 1].astype(np.int64)), device),
-                      host_to_device(torch.from_numpy(other), device))
-                     for r, ix, other in entries],
-                    [mesh.get_group(ax) for ax in axes],
-                    plan.blocks,
-                )
-                exchanges.append(ex)
-                self.n_exchanges += len(ex.groups)
-                self.exchanged_bytes += len(ex.groups) * ex.numel * dtypes[entries[0][0]].itemsize
-            self.steps.append((fn, idxs, exchanges))
+            steps.append((fn, idxs))
+
+        # the sends: one collective a point and dtype, on every rank alike
+        self.n_exchanges = self.sent_bytes = self.received_bytes = 0
+        sends: Dict[int, list] = {}
+        for point in sorted(messages):
+            for dt in dict.fromkeys(dtypes):
+                msgs = [m for m in messages[point] if dtypes[m[2]] == dt]
+                if not msgs:
+                    continue
+                # this rank's blocks to each rank, and from each, in group-rank
+                # order and then (root, i, j) on both sides
+                out_ = sorted((group_rank[d], r, i, j) for s, d, r, i, j in msgs if s == me)
+                in_ = sorted((group_rank[s], r, i, j) for s, d, r, i, j in msgs if d == me)
+                in_splits, out_splits = [0] * len(group_rank), [0] * len(group_rank)
+                for splits, entries in ((in_splits, out_), (out_splits, in_)):
+                    for g, r, _, _ in entries:
+                        splits[g] += plan.blocks[r][0] * plan.blocks[r][1]
+                ex = _Send(_runs([(r, pos(r, i, j)) for _, r, i, j in out_], device), in_splits,
+                           _runs([(r, pos(r, i, j)) for _, r, i, j in in_], device), out_splits,
+                           plan.blocks, group, dt, device)
+                sends.setdefault(point, []).append(ex)
+                self.n_exchanges += 1
+                self.sent_bytes += sum(in_splits) * dt.itemsize
+                self.received_bytes += sum(out_splits) * dt.itemsize
+        self.first = sends.get(-1, [])
+        self.steps = [(fn, idxs, sends.get(s, [])) for s, (fn, idxs) in enumerate(steps)]
+
+    def position(self, r: int, i: int, j: int) -> int:
+        """Where block ``(i, j)`` of split root slot ``r`` lies in this rank's
+        store: an owned block's row-major place, else its received slot."""
+        r0, c0, nr, nc = self._local[r]
+        if r0 <= i < r0 + nr and c0 <= j < c0 + nc:
+            return (i - r0) * nc + (j - c0)
+        return self._slot_of[r][(i, j)]
 
     def __call__(self, grids: Sequence[torch.Tensor]) -> None:
+        for ex in self.first:
+            ex(grids)
         for fn, idxs, exchanges in self.steps:
             if fn is not None:
                 fn(grids, idxs)
@@ -220,7 +396,7 @@ class ShardExecutor(WaveExecutor):
     """Counterpart of the JAX package's ``ShardExecutor``: the wave
     executor's plans and launch lists (``backend="torch"`` for g3/g3flat,
     ``"cuda"`` for g4's hand-written tile kernels), run owner-computes over
-    ``mesh`` (module docstring)."""
+    ``mesh`` on each rank's own blocks (module docstring)."""
 
     name = "shard"
 
@@ -235,15 +411,92 @@ class ShardExecutor(WaveExecutor):
             raise ValueError("this rank is not in the mesh")
         self.mesh = mesh
         self.shard_axes = tuple(shard_axes)
-        self._coord = dict(zip(names, coord))
+        self._me = int(np.ravel_multi_index(tuple(coord), tuple(mesh.mesh.shape)))
+        self._group = None
         self._placements: Dict[int, Placement] = {}
 
-    def place(self, data: GData) -> None:
-        """Distribute a root over the mesh (owner-computes layout).  Its
-        bytes stay whole on every rank; the placement decides who computes."""
+    @property
+    def group(self):
+        """The process group over the mesh's ranks (made on first use)."""
+        if self._group is None:
+            self._group = mesh_group(self.mesh)
+        return self._group
+
+    def _group_ranks(self) -> List[int]:
+        return [dist.get_group_rank(self.group, g) for g in self.mesh.mesh.flatten().tolist()]
+
+    def place(self, data: GData, block: Optional[Tuple[int, int]] = None) -> None:
+        """Distribute a root over the mesh (owner-computes layout), over the
+        grid of ``block`` (by default its finest partition's block): a root
+        split there keeps only this rank's part, a ``DTensor`` (module
+        docstring).  Cutting a whole value issues no collective."""
         if data.device.type != self.mesh.device_type:
             raise ValueError(f"{data.name} lies on {data.device}, the mesh on {self.mesh.device_type}")
-        self._placements[data.id] = row_sharding(self.mesh, data, self.shard_axes)
+        br, bc = data._level_block_shape(data.n_levels - 1) if block is None else block
+        grid = _placement(self.mesh, (data.shape[0] // br, data.shape[1] // bc), self.shard_axes)
+        pl = self._placements[data.id] = Placement(tuple(data.shape), grid.spec, grid.sizes)
+        if pl.distributed and data.has_value and not data.is_split:
+            split = self._split(data, pl)
+            data.value = split.wrap(self._part(data, split).clone())
+
+    def _split(self, data: GData, pl: Placement) -> Split:
+        return Split.of(self.mesh, pl.dtensor_placements(self.mesh.mesh_dim_names), tuple(data.shape))
+
+    def _part(self, data: GData, split: Split) -> torch.Tensor:
+        """This rank's part of ``data`` in root layout, without a collective:
+        from its store, a DTensor split as ``split``, or a whole value."""
+        if data.split is not None and data.split.split == split:
+            return from_grid(data.split.owned())
+        v = data.value
+        if isinstance(v, DTensor):
+            if v.device_mesh != self.mesh or tuple(v.placements) != split.placements:
+                raise SplitError(f"{data.name} is split as {tuple(v.placements)} over another mesh or placement "
+                                 f"than {split.placements}")
+            return v.to_local()
+        (r0, c0), (m, k) = split.offset, split.local_shape
+        return v[r0 : r0 + m, c0 : c0 + k]
+
+    def _store(self, data: GData, split: Split, block: Tuple[int, int], k: int) -> torch.Tensor:
+        """The resident store of a split root, for a list that needs ``k``
+        blocks (entered from the root's part, or grown, only when needed)."""
+        sp = data.split
+        if sp is None or sp.block != tuple(block) or sp.split != split:
+            sp = SplitStore(split, self._part(data, split), block, k)
+            data.adopt_split(sp)
+        return sp.reserve(k)
+
+    def gather(self, data: GData) -> None:
+        """Make a split root whole on this rank: one ``all_gather`` over the
+        mesh's ranks, which every rank issues; counted under ``exchanges``.
+        A root that is not split is left as it is."""
+        if not data.is_split:
+            return
+        v = data.value
+        split = Split.of_dtensor(v)
+        local = v.to_local().contiguous()
+        ranks = self._group_ranks()
+        parts = [torch.empty_like(local) for _ in ranks]
+        dist.all_gather(parts, local, group=self.group)
+        whole = torch.empty(tuple(data.shape), dtype=local.dtype, device=local.device)
+        sizes = tuple(self.mesh.mesh.shape)
+        for p, coord in enumerate(_coords(sizes)):
+            r0, c0 = split.offset_at(sizes, coord)
+            whole[r0 : r0 + local.shape[0], c0 : c0 + local.shape[1]] = parts[ranks[p]]
+        data.value = whole
+        nbytes = local.numel() * local.element_size() * (len(ranks) - 1)
+        self.stats["exchanges"] += 1
+        self.stats["exchanged_bytes"] += nbytes
+        self.stats["received_bytes"] += nbytes
+
+    def result(self, data: GData) -> torch.Tensor:
+        """``data``'s value after a drain: a DTensor of this rank's part when
+        its placement splits it (a whole value is cut without a collective),
+        else the whole tensor."""
+        pl = self._placements.get(data.id)
+        if pl is not None and pl.distributed and not data.is_split:
+            split = self._split(data, pl)
+            data.value = split.wrap(self._part(data, split).clone())
+        return data.value
 
     def memo_key_extra(self) -> tuple:
         # axis sizes alone do not identify a mesh: two meshes of one shape
@@ -261,22 +514,32 @@ class ShardExecutor(WaveExecutor):
         return _placement(self.mesh, (data.shape[0] // br, data.shape[1] // bc), axes)
 
     def _prepare_roots(self, waves: Sequence[Sequence[GTask]]) -> None:
-        # place any root not placed yet, before planning
+        # place any root not placed yet, before planning, over the grid of
+        # its first leaf block
         for wave in waves:
             for t in wave:
                 for v in t.args:
                     d = v.data
                     if d.id not in self._placements and d.has_value:
-                        self.place(d)
+                        self.place(d, v.region.shape)
 
     def execute_schedule(self, waves: List[List[GTask]], dag=None) -> int:
         self._prepare_roots(waves)
         return super().execute_schedule(waves, dag)
 
+    def _own_written_roots(self, tasks) -> None:
+        # the fallback runs on whole roots
+        tasks = list(tasks)
+        for d in {v.data.id: v.data for t in tasks for v in t.args}.values():
+            self.gather(d)
+        WaveExecutor._own_written_roots(tasks)
+
     def _run_group(self, tasks: List[GTask]) -> None:
-        # the per-group fallback runs on every rank: identical inputs give
-        # identical results, and nothing is exchanged
+        # the per-group fallback runs on every rank, on whole roots:
+        # identical inputs give identical results
         self._prepare_roots([tasks])
+        for d in {v.data.id: v.data for t in tasks for v in t.args}.values():
+            self.gather(d)
         super()._run_group(tasks)
         self.stats["owned_tasks"] += len(tasks)
 
@@ -294,28 +557,35 @@ class ShardExecutor(WaveExecutor):
         ikey = np.concatenate([ix for g in plan.groups() for ix in g.idxs], axis=0).tobytes()
         fn = progs.get(ikey)
         if fn is None:
-            fn = progs[ikey] = OwnedProgram(plan, placements, self.backend, self.mesh, self._coord)
+            fn = progs[ikey] = OwnedProgram(plan, placements, self.backend, tuple(self.mesh.mesh.shape),
+                                            self.mesh.mesh_dim_names, self._me, self.group, self._group_ranks())
         return fn, built
 
     def _launch(self, fn, idxs, blocks, slots: Sequence, batch, n_tasks: int, replay: bool,
                 built: bool = False) -> None:
         if not isinstance(fn, OwnedProgram):
+            for d in slots:  # distributed graphs never stack: one datum a slot
+                self.gather(d)
             super()._launch(fn, idxs, blocks, slots, batch, n_tasks, replay, built)
             self.stats["owned_tasks"] += n_tasks
             return
         faults.fire("executor.launch", batch=batch, n_tasks=n_tasks, replay=replay)
         faults.fire("launch.oom", batch=batch, n_tasks=n_tasks, replay=replay)
         grids = []
-        for d, (br, bc) in zip(slots, blocks):
-            g = torch.empty((d.shape[0] // br, d.shape[1] // bc, br, bc), dtype=d.dtype, device=d.device)
-            d.write_grid(g, br, bc)
-            grids.append(g)
+        for d, blk, pl, k in zip(slots, blocks, fn.placements, fn.store_blocks):
+            if pl.distributed:
+                root = self._placements.setdefault(d.id, Placement(tuple(d.shape), pl.spec, pl.sizes))
+                grids.append(self._store(d, self._split(d, root), blk, k))
+            else:
+                self.gather(d)
+                grids.append(d.enter_grid(*blk))
         fn(grids)
         self.last_program = None
         self._corrupt_outputs(grids, batch=batch, replay=replay)
         self._note_launch(idxs.device, "replay" if replay else "program")
-        for d, blk, g in zip(slots, blocks, grids):
-            d.adopt_grid(g, blk)
+        resident = sum(g.numel() * g.element_size() for g in grids)
+        self.stats["resident_bytes"] = max(self.stats["resident_bytes"], resident)
         self.stats["owned_tasks"] += fn.n_owned
         self.stats["exchanges"] += fn.n_exchanges
-        self.stats["exchanged_bytes"] += fn.exchanged_bytes
+        self.stats["exchanged_bytes"] += fn.sent_bytes
+        self.stats["received_bytes"] += fn.received_bytes

@@ -25,7 +25,10 @@ Inputs are numpy arrays or tensors; every entry point puts its data on
 tensors there.  ``mesh`` (a ``torch.distributed`` ``DeviceMesh``) runs the
 distributed graphs g3/g4/g3flat: the data goes on the mesh's device
 (``cuda:<local rank>`` or the CPU), a ``device`` naming another raises, and
-every rank returns the whole result.
+a result the mesh splits stays split, as the JAX package's sharded arrays
+do: a ``DTensor`` whose ``to_local()`` is this rank's rows (``full_tensor()``
+is a collective every rank calls).  Inputs may be whole on every rank or
+``DTensor``s split that way.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ from __future__ import annotations
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..core import Dispatcher, GData, GTask
-from ..core.data import from_grid, resolve_device
-from ..core.executors.sharded import mesh_device
+from ..core.data import like, local_part, resolve_device
+from ..core.executors.sharded import drained, mesh_device, mesh_group
 from ..errors import NumericalError
 from .ops import GETRF, LUSOLVE, TRSML, TRSMU, TRSMUL
 
@@ -50,10 +55,18 @@ def check_finite_result(name: str, *arrays: Optional[torch.Tensor]) -> None:
     fixed task-flow shape), so a zero pivot silently propagates inf/NaN
     through the trailing updates; ``check_finite=True`` on the run_* entry
     points turns that into a typed error (DESIGN.md §10).  Opt-in: the
-    check synchronizes with the card.
+    check synchronizes with the card.  A split result is checked on each
+    rank's part and the verdict agreed over the mesh, so every rank raises
+    or none does.
     """
     for a in arrays:
-        if a is not None and not bool(torch.isfinite(a).all()):
+        if a is None:
+            continue
+        ok = torch.isfinite(local_part(a)[0]).all()
+        if isinstance(a, DTensor):
+            ok = ok.to(torch.int32)
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh_group(a.device_mesh))
+        if not bool(ok):
             raise NumericalError(
                 f"{name}: non-finite values in result (singular pivot or "
                 f"overflow; input not factorizable without pivoting?)"
@@ -65,14 +78,18 @@ def _gdata(a: Any, partitions: Partitions, device) -> GData:
     return GData(tuple(a.shape), partitions=partitions, dtype=dtype, value=a, device=device)
 
 
-def _packed(A: GData) -> torch.Tensor:
-    # a drained root is still grid-resident: de-grid without ending the epoch
-    return from_grid(A.grid) if A.in_grid_epoch else A.value
-
-
 def _unpack(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    eye = torch.eye(packed.shape[0], dtype=packed.dtype, device=packed.device)
-    return torch.tril(packed, -1) + eye, torch.triu(packed)
+    """(unit-lower L, upper U) of a packed factor, whole or split: each on
+    this rank's part, by its offset."""
+    local, (r0, c0) = local_part(packed)
+    eye = torch.zeros_like(local)
+    eye.diagonal(r0 - c0).fill_(1)
+    return like(packed, torch.tril(local, r0 - c0 - 1) + eye), like(packed, torch.triu(local, r0 - c0))
+
+
+def _column(x: torch.Tensor) -> torch.Tensor:
+    """Column 0 of ``x`` (n, 1), whole or split, as a vector."""
+    return like(x, local_part(x)[0][:, 0], (x.shape[0],))
 
 
 def utp_getrf(dispatcher: Dispatcher, A: GData) -> GTask:
@@ -138,7 +155,7 @@ def run_lu(
     A = _gdata(a, partitions, device)
     utp_getrf(d, A)
     d.run()
-    packed = _packed(A)
+    packed = drained(d.executor, A)
     if check_finite:
         check_finite_result("run_lu", packed)
     return _unpack(packed)
@@ -169,7 +186,7 @@ def run_lu_many(
         utp_getrf(d, A)
         roots.append(A)
     d.run()
-    return [_unpack(_packed(A)) for A in roots]
+    return [_unpack(drained(d.executor, A)) for A in roots]
 
 
 def run_lu_batched(
@@ -198,7 +215,7 @@ def run_lu_batched(
         utp_getrf(d, A)
         roots.append(A)
     d.run()
-    return [_unpack(_packed(A)) for A in roots]
+    return [_unpack(drained(d.executor, A)) for A in roots]
 
 
 def run_solve(
@@ -229,7 +246,7 @@ def run_solve(
     B = _gdata(b, partitions if b_partitions is None else b_partitions, device)
     utp_solve(d, A, B, lower=lower, side=side)
     d.run()
-    x = B.value
+    x = drained(d.executor, B)
     if check_finite:
         check_finite_result("run_solve", x)
     return x
@@ -267,10 +284,10 @@ def run_lu_solve(
     B = _gdata(b2, b_partitions, device)
     utp_lu_solve(d, A, B)
     d.run()
-    x = B.value
+    x = drained(d.executor, B)
     if check_finite:
         check_finite_result("run_lu_solve", x)
-    return x[:, 0] if vec else x
+    return _column(x) if vec else x
 
 
 def run_lu_solve_batched(
@@ -305,7 +322,7 @@ def run_lu_solve_batched(
         utp_lu_solve(d, A, B)
         outs.append((B, vec))
     d.run()
-    return [B.value[:, 0] if vec else B.value for B, vec in outs]
+    return [_column(drained(d.executor, B)) if vec else drained(d.executor, B) for B, vec in outs]
 
 
 def run_inv(

@@ -75,7 +75,8 @@ from ..errors import (
     ScheduleVerificationError,
     ServeError,
 )
-from ..linalg.lu import _unpack
+from ..linalg.cholesky import lower
+from ..linalg.lu import _column, _unpack
 from ..testing import faults
 
 _rid = itertools.count()
@@ -571,7 +572,7 @@ class BatchServer:
             "potrf",
             [a],
             [partitions],
-            extract=lambda ds: torch.tril(ds[0].value),
+            extract=lambda ds: lower(ds[0].value),
             **kw,
         )
 
@@ -597,7 +598,7 @@ class BatchServer:
                 (pr, 1 if vec else pc) for pr, pc in partitions
             )
         extract = (
-            (lambda ds: ds[1].value[:, 0]) if vec else (lambda ds: ds[1].value)
+            (lambda ds: _column(ds[1].value)) if vec else (lambda ds: ds[1].value)
         )
         return self.submit(
             "lu_solve", [a, b2], [partitions, b_partitions], extract=extract,
