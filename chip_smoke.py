@@ -225,6 +225,12 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    of the measured one (``max_memory_allocated`` less what was allocated
    before the step's state).  The other two peaks are printed beside
    PERF.md's measured 48.67 and 33.65 GB.
+11. Over several cards, where the machine has two or more (on one card the
+   phase prints that it did not run): each rank's programs captured into
+   CUDA graphs with their NCCL collectives inside (``multi_card_path``):
+   the distributed g4 Cholesky over min(4, cards) ranks, every list of
+   every drain a graph replay and the result one card's bit for bit, and
+   the (1, W) captured prefill and decode plans' check against one device.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing it.
@@ -4231,6 +4237,65 @@ def segments_report(torch) -> str:
     return "\n".join(lines)
 
 
+# phase 11: each rank's program captured over a mesh of several cards
+MULTI_CHOLESKY = ("--graph", "g4", "--n", "4096", "--levels", "4x4,8x8")
+MULTI_LINE = re.compile(r"rank (\d+) (\w+): launches=(\d+) graph_replays=(\d+) .* max_err=(\S+) sha1=(\w+)")
+
+
+def multi_card_run(cmd, timeout: int) -> str:
+    """Run one of phase 11's jobs (its ranks are processes of its own) and
+    print its output; a job that exits non-zero fails the phase."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    sys.stdout.flush()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env, cwd=ROOT)
+    for line in out.stdout.splitlines():
+        print(f"phase 11 | {line}")
+    if out.returncode:
+        raise AssertionError(f"phase 11: {' '.join(map(str, cmd[1:]))} exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    return out.stdout
+
+
+def multi_card_path(torch) -> None:
+    """Phase 11, on a machine with two cards or more (on one card it prints
+    that it did not run): over W = min(4, cards) ranks, one process a card,
+    the distributed g4 Cholesky of ``examples/torch_distributed_cholesky.py``
+    (n = 4096 in (4, 4) then (8, 8); a first drain and two memo replays),
+    whose every rank must run each of its lists as a graph replay
+    (``graph_replays`` = ``launches``), hold the error within Cholesky's
+    2e-4 and a whole result with one card's sha1; then
+    ``examples/torch_train_sharded.py``'s (d) on a (1, W) mesh:
+    starcoder2-7b's captured prefill and decode plans (one capture, then a
+    graph replay a step on every rank) and their float32 check against one
+    device within ``DECODE_TOL`` (the example fails otherwise)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"phase 11 needs two cards or more and this machine has {cards}: it did not run")
+        return
+    from repro_torch.core.executors import release_captured
+
+    release_captured()  # the ranks' processes share card 0 with this one
+    W = min(4, cards)
+    example = str(ROOT / "examples" / "torch_distributed_cholesky.py")
+    lines = {}
+    for w in (W, 1):
+        text = multi_card_run([sys.executable, example, "--cuda", "--ranks", str(w), *MULTI_CHOLESKY], 600)
+        lines[w] = [m.groups() for m in map(MULTI_LINE.search, text.splitlines()) if m]
+        if len(lines[w]) != 3 * w:
+            raise AssertionError(f"phase 11: {len(lines[w])} rank lines from {w} ranks, want {3 * w}")
+    one = {drain: sha for _, drain, *_, sha in lines[1]}
+    for rank, drain, launches, replays, err, sha in lines[W]:
+        if int(replays) != int(launches) or int(launches) == 0:
+            raise AssertionError(f"phase 11: rank {rank} {drain}: {replays} graph replays of {launches} lists")
+        if float(err) > 2e-4 or sha != one[drain]:
+            raise AssertionError(f"phase 11: rank {rank} {drain}: error {err}, sha1 {sha} against one card's "
+                                 f"{one[drain]}")
+    print(f"phase 11 g4 cholesky over {W} cards: every rank's lists ran as graph replays, sha1 one card's")
+    multi_card_run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(W),
+                    str(ROOT / "examples" / "torch_train_sharded.py"), "--cuda", "--mesh", f"1,{W}", "--layers", "0",
+                    "--steps", "0", "--decode", "16"], 900)
+
+
 def release_check(torch) -> None:
     """C5: after phase 7, ``release_captured`` (every captured program and
     call, their pools, the capture streams' cuBLAS workspaces) and
@@ -4362,6 +4427,9 @@ def main_phases(torch, dry) -> int:
     t0 = time.perf_counter()
     dryrun_path(torch, dry)
     print(f"phase 10 s={time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    multi_card_path(torch)
+    print(f"phase 11 s={time.perf_counter() - t0:.2f}")
     sm90 = lm_kernels[0]
     sm90["paths"] = {LM: sm90["launches"], **flash_paths, **plan_paths}
     sm90["launches"] = sum(sm90["paths"].values())

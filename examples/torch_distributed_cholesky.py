@@ -11,7 +11,12 @@ blocks another rank reads straight to that rank.  The result stays split;
 each rank prints its shard's shape, what it sent, received and held, and
 its peak memory, then the error of the whole result (``full_tensor()``)
 against float64.  A second drain of the same shape (another seed) replays
-the first from the drain memo.
+the first from the drain memo, and a third (the first seed again) is a
+steady replay.  On the cards each rank captures every launch list it cuts,
+the exchanges' collectives inside, into a CUDA graph on the first drain and
+replays it after: each rank's line gives its graph replays beside its
+lists (``launches``), and the host dispatch (``dispatch_ms``: the drain's
+calls, before the host waits for the card) beside the wall.
 
     PYTHONPATH=src python examples/torch_distributed_cholesky.py            # 2 CPU ranks, gloo
     PYTHONPATH=src python examples/torch_distributed_cholesky.py --cuda     # one rank a card, NCCL
@@ -43,6 +48,7 @@ def _levels(text: str):
 
 def rank_main(rank: int, world: int, args, init: str) -> None:
     from repro_torch.core import Dispatcher, GData, dd_matrix, spd_matrix
+    from repro_torch.core.executors import release_captured
     from repro_torch.linalg import utp_cholesky, utp_lu_solve
 
     device_type = "cuda" if args.cuda else "cpu"
@@ -55,7 +61,7 @@ def rank_main(rank: int, world: int, args, init: str) -> None:
         device = torch.device(device_type, rank) if args.cuda else torch.device("cpu")
         rows = slice(rank * args.n // world, (rank + 1) * args.n // world)
         lines = []
-        for drain, seed in (("first", 0), ("replay", 1)):
+        for drain, seed in (("first", 0), ("replay", 1), ("steady", 0)):
             # the same seeded matrix on every rank, of which each is given its rows
             host = (spd_matrix if args.kind == "cholesky" else dd_matrix)(args.n, seed=seed, device="cpu")
             rhs = torch.from_numpy(np.random.default_rng(seed).standard_normal((args.n, args.rhs)).astype(np.float32))
@@ -75,6 +81,7 @@ def rank_main(rank: int, world: int, args, init: str) -> None:
             dist.barrier()
             t0 = time.perf_counter()
             leaves = d.run()
+            dispatch = time.perf_counter() - t0
             d.executor.sync()
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated(device) if args.cuda else None
@@ -93,7 +100,9 @@ def rank_main(rank: int, world: int, args, init: str) -> None:
                 lines.append(f"{args.graph} {args.kind} on ({world},1) {device_type} mesh, n={args.n}, "
                              f"levels={args.levels}, {drain} drain: {leaves} leaf tasks, {d.stats['waves']} waves, "
                              f"memo_hits={d.stats['memo_hits']}, wall_ms={wall * 1e3:.3f}")
-            lines.append(f"  rank {rank} {drain}: shard={shard} owned_tasks={st['owned_tasks']} "
+            lines.append(f"  rank {rank} {drain}: launches={st['launches']} graph_replays={st.get('graph_replays', 0)} "
+                         f"dispatch_ms={dispatch * 1e3:.3f} wall_ms={wall * 1e3:.3f} shard={shard} "
+                         f"owned_tasks={st['owned_tasks']} "
                          f"exchanges={st.get('exchanges', 0)} exchanged_bytes={st.get('exchanged_bytes', 0)} "
                          f"received_bytes={st.get('received_bytes', 0)} resident_bytes={st.get('resident_bytes', 0)} "
                          f"peak_bytes={peak} max_err={err:.6e} sha1={digest}")
@@ -103,6 +112,7 @@ def rank_main(rank: int, world: int, args, init: str) -> None:
                 print("\n".join(lines), flush=True)
             dist.barrier()
     finally:
+        release_captured()  # a graph holding NCCL collectives keeps their communicator: drop it first
         dist.destroy_process_group()
 
 

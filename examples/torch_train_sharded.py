@@ -32,8 +32,13 @@ Three parts, each on the same seeded init:
     TFLOP/s)) and the loss;
 (d) with ``--decode N``: the serving plans on the mesh, the serving form
     of the whole model: a prefill into a cache (``DECODE_SHAPE``: phase
-    9b's on the card; its seq dim split over ``model``), then N greedy
-    decode steps, ms a step (eager over more than one rank); then the same
+    9b's on the card; its seq dim split over ``model``), called twice (the
+    first call captures each rank's program, collectives inside, into a
+    CUDA graph; the second, on the cache zeroed again, replays it, and its
+    logits are those checked),
+    then N greedy decode steps: on the cards one capture and N - 1 graph
+    replays a rank (each rank's ``compiles`` and ``graph_replays``), the
+    first step's ms and the median of the replays'; then the same
     at ``--layers`` (2 when 0) in float32, and on rank 0 alone those steps
     on one device fed the same tokens: each step's logits within
     ``DECODE_TOL`` relative L2.
@@ -309,13 +314,22 @@ def _decode(args, rank, cfg, device, device_type, mesh, check: bool):
                   c_shard)
     gen = torch.Generator().manual_seed(10)
     prompt = torch.randint(0, cfg.vocab, (B, prompt_len), generator=gen, dtype=torch.int32)
+    prefill = pre.jitted()
     t0 = time.perf_counter()
-    logits, cache = pre.jitted()(params, place({"tokens": prompt.to(device)}, b_shard), cache)
+    logits, cache = prefill(params, place({"tokens": prompt.to(device)}, b_shard), cache)
     first = _whole(logits).float().cpu()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    tree_map(lambda c: sh.local(c).zero_(), cache)  # the recurrent states start from zero again
+    if args.cuda:
+        torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, place({"tokens": prompt.to(device)}, b_shard), cache)
+    again = _whole(logits).float().cpu()
+    prefill_replay_ms = (time.perf_counter() - t0) * 1e3
     step = dec.jitted()
-    tok = first.argmax(-1, keepdim=True).to(torch.int32)
-    toks, seq, times = [tok], [first], []
+    tok = again.argmax(-1, keepdim=True).to(torch.int32)
+    toks, seq, times = [tok], [again], []
     for i in range(args.decode):
         pos = torch.tensor(prompt_len + i, dtype=torch.int32, device=device)
         if args.cuda:
@@ -333,11 +347,19 @@ def _decode(args, rank, cfg, device, device_type, mesh, check: bool):
     leaves = {k: t for c in cache["layers"] + [cache.get("shared", {})] for k, t in c.items()}
     block = {k: tuple(sh.local(leaves[k]).shape) for k in ("k", "ssm", "wkv") if k in leaves}
     ms = statistics.median(times[1:] if len(times) > 1 else times) * 1e3
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, (prefill.compiles, prefill.graph_replays, step.compiles, step.graph_replays))
     _say(rank, f"(d) {cfg.name} {cfg.n_layers} layers, serving, {str(cfg.compute_dtype).split('.')[-1]}, mesh "
-               f"{tuple(mesh.shape)} {device_type}: B={B} max_seq={T} prompt={prompt_len}; prefill ms="
-               f"{prefill_ms:.1f} (first call); decode ms a step first={times[0] * 1e3:.2f} median of the rest="
-               f"{ms:.3f} ({args.decode} steps, eager); a rank's cache blocks {block}; peak GB rank 0 {peak:.2f}")
-    del params, cache, pre, dec, step
+               f"{tuple(mesh.shape)} {device_type}: B={B} max_seq={T} prompt={prompt_len}; prefill ms first call="
+               f"{prefill_ms:.1f} second={prefill_replay_ms:.3f} (rel_l2 between them {_rel(again, first):.3e}); decode ms a step first={times[0] * 1e3:.2f} median "
+               f"of the rest={ms:.3f} ({args.decode} steps); (prefill compiles, graph_replays, decode compiles, "
+               f"graph_replays) by rank {counts}; a rank's cache blocks {block}; peak GB rank 0 {peak:.2f}")
+    verdict = [None]
+    want = (1, int(args.cuda), 1, (args.decode - 1) if args.cuda else 0)
+    if any(c != want for c in counts):
+        verdict[0] = f"(d) compiles and graph replays {counts}, want {want} on every rank"
+    _all_raise(verdict)
+    del params, cache, pre, dec, step, prefill
     if args.cuda:
         torch.cuda.empty_cache()
     dist.barrier()
@@ -371,6 +393,7 @@ def part_d(args, rank, world, device, device_type, mesh):
 
 
 def rank_main(rank: int, world: int, args, init: str) -> None:
+    from repro_torch.core.executors import release_captured
     from repro_torch.launch.mesh import make_local_mesh
 
     device_type = "cuda" if args.cuda else "cpu"
@@ -385,6 +408,7 @@ def rank_main(rank: int, world: int, args, init: str) -> None:
         if rank == 0 and args.cuda:
             print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                                  capture_output=True, text=True).stdout.strip())
+            print(f"torch {torch.__version__}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}", flush=True)
             print(subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True).stdout, flush=True)
         data, model = args.mesh if args.mesh else (world, 1)
         mesh = make_local_mesh(model=model, data=data, device_type=device_type)
@@ -405,6 +429,7 @@ def rank_main(rank: int, world: int, args, init: str) -> None:
                 _say(rank, f"(d) s={time.perf_counter() - t0:.1f}")
             dist.barrier()
     finally:
+        release_captured()  # a graph holding NCCL collectives keeps their communicator: drop it first
         dist.destroy_process_group()
 
 

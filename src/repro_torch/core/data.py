@@ -167,9 +167,10 @@ class SplitStore:
     ``nr * nc`` blocks are the rank's own ``(nr, nc)`` block grid in
     row-major order (``owned()``, de-gridding to the DTensor's local part),
     the rest slots for blocks of other ranks that a list reads, filled by
-    its exchanges before they are read."""
+    its exchanges before they are read.  ``high`` is the most blocks the
+    root's stores have held over its lists (``resident_bytes``)."""
 
-    __slots__ = ("split", "block", "grid", "store")
+    __slots__ = ("split", "block", "grid", "store", "high")
 
     def __init__(self, split: Split, local: torch.Tensor, block: Tuple[int, int], k: int = 0):
         br, bc = block
@@ -180,7 +181,22 @@ class SplitStore:
         self.block = tuple(block)
         self.grid = (r // br, c // bc)
         self.store = torch.empty((1, max(k, self.n_owned), br, bc), dtype=local.dtype, device=local.device)
+        self.high = self.store.shape[1]
         to_grid(local, br, bc, out=self.owned())
+
+    @classmethod
+    def over(cls, split: Split, block: Tuple[int, int], store: torch.Tensor, high: int) -> "SplitStore":
+        """A store around ``store`` as it is (a captured list's static
+        store, its owned blocks first), without a copy."""
+        self = cls.__new__(cls)
+        self.split, self.block, self.store, self.high = split, tuple(block), store, high
+        (r, c), (br, bc) = split.local_shape, block
+        self.grid = (r // br, c // bc)
+        return self
+
+    def copy(self) -> "SplitStore":
+        """A store of its own holding this one's owned blocks."""
+        return SplitStore.over(self.split, self.block, self.store[:, : self.n_owned].clone(), self.high)
 
     @property
     def n_owned(self) -> int:
@@ -197,6 +213,7 @@ class SplitStore:
             old = self.owned()
             self.store = torch.empty((1, k, *self.block), dtype=old.dtype, device=old.device)
             self.owned().copy_(old)
+            self.high = max(self.high, k)
         return self.store
 
     def value(self) -> DTensor:

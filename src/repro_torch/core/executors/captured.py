@@ -35,16 +35,28 @@ library and create the library handles before capture) and the capture
 itself count nothing.  On the CPU, where CUDA graphs do not exist, the
 program runs its list eagerly over the same static grids, and its first run
 records the tally.
+
+Over a mesh of several ranks a list and a step hold NCCL collectives:
+``sharded.OwnedCapture`` (a distributed drain's cut list) and a
+``CapturedCall`` given the mesh's ``group`` (the prefill and decode plans)
+capture them too, each rank its own graph.  Before its capture every rank
+checks on the host that all hold the same collective sequence (``agree``),
+the capture is thread-local (``_begin_capture``), and ``release_captured``
+must drop such graphs before the process group is destroyed.
 """
 
 from __future__ import annotations
 
 import gc
+import warnings
 import weakref
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ...kernels.tile_linalg import COUNTERS
 from ...tree import flatten_with_paths, leaves, tree_map
@@ -89,12 +101,15 @@ def _collector_off():
             gc.enable()
 
 
-def _begin_capture(graph: torch.cuda.CUDAGraph):
+def _begin_capture(graph: torch.cuda.CUDAGraph, collective: bool = False):
     """Begin a capture into a private pool of its own; returns the pool's
     id (``_abort_capture`` needs it, and a graph gives it only once its
-    capture has succeeded)."""
+    capture has succeeded).  A capture that holds NCCL collectives is
+    thread-local: the process group's watchdog thread queries the events
+    of earlier collectives, which a global capture refuses and which then
+    invalidates it (``src/repro_torch/DESIGN.md``)."""
     pool = torch.cuda.graph_pool_handle()
-    graph.capture_begin(pool=pool)
+    graph.capture_begin(pool=pool, capture_error_mode="thread_local" if collective else "global")
     return pool
 
 
@@ -120,32 +135,100 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return _SIDE[index]
 
 
+# -- the same collectives on every rank --------------------------------------------
+def group_desc(group) -> Tuple[int, Tuple[int, ...]]:
+    """A process group as every rank of a mesh dim sees it alike: its size
+    and its ranks' offsets from its first."""
+    ranks = dist.get_process_group_ranks(group)
+    return len(ranks), tuple(r - ranks[0] for r in ranks)
+
+
+def _group_of(args):
+    for a in args:
+        if isinstance(a, torch.ScriptObject) and "ProcessGroup" in str(a._type()):
+            return dist.ProcessGroup.unbox(a)
+    return None
+
+
+def _dtype_of(args):
+    for a in args:
+        if torch.is_tensor(a):
+            return a.dtype
+        if isinstance(a, (list, tuple)) and a and torch.is_tensor(a[0]):
+            return a[0].dtype
+    return None
+
+
+class _Collectives(TorchDispatchMode):
+    """Records the collectives a call issues, in order: (op, dtype, group)
+    each (``group_desc``), as the c10d operators reach the dispatcher."""
+
+    def __init__(self):
+        super().__init__()
+        self.sequence: List[tuple] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "c10d":
+            group = _group_of(args)
+            self.sequence.append((func.__name__, str(_dtype_of(args)),
+                                  None if group is None else group_desc(group)))
+        return func(*args, **(kwargs or {}))
+
+
+def agree(sequence: Sequence, group, name: str, device: torch.device) -> None:
+    """Check, on the host, that every rank of ``group`` holds the collective
+    sequence ``sequence`` of the program ``name`` (one ``all_gather_object``
+    that every rank issues).  A rank whose graph issued other collectives
+    would hang its peers at replay; so every rank raises ``CaptureError``
+    naming ``name`` and the first rank whose sequence differs from the
+    group's first rank's."""
+    seqs: List[Optional[list]] = [None] * dist.get_world_size(group)
+    with torch.cuda.device(device) if device.type == "cuda" else nullcontext():
+        dist.all_gather_object(seqs, list(sequence), group=group)
+    for r, s in enumerate(seqs):
+        if s != seqs[0]:
+            i = next((i for i, (a, b) in enumerate(zip(s, seqs[0])) if a != b), min(len(s), len(seqs[0])))
+            mine = s[i] if i < len(s) else "nothing"
+            first = seqs[0][i] if i < len(seqs[0]) else "nothing"
+            raise CaptureError(f"{name}: rank {dist.get_global_rank(group, r)} issues another collective sequence "
+                               f"than rank {dist.get_global_rank(group, 0)}: at collective {i}, {mine} against "
+                               f"{first}")
+
+
 class CapturedProgram:
     """One launch list captured over static storage (module docstring).
 
     ``specs`` gives each root slot's static grid ``(shape, dtype)``;
     ``idxs`` is the capturing plan's flat index tensor."""
 
+    collective = False  # the list issues NCCL collectives (sharded.OwnedCapture)
+    name = "the launch list"
+
     def __init__(self, fn, specs: Sequence[Tuple[tuple, torch.dtype]], idxs: torch.Tensor):
-        self.fn = fn
-        self.grids = [torch.empty(shape, dtype=dtype, device=idxs.device) for shape, dtype in specs]
         self.idxs = idxs.clone()
         self._idx_src = idxs  # the plan tensor whose values self.idxs holds
+        self._setup(fn, specs, idxs.device)
+
+    def _setup(self, fn, specs: Sequence[Tuple[tuple, torch.dtype]], device: torch.device) -> None:
+        self.fn = fn
+        self.grids = [torch.empty(shape, dtype=dtype, device=device) for shape, dtype in specs]
         # per slot: weak reference to the handle (GData, or StackedEpoch when
         # stacked) the last run handed the static grid to
         self._holders: List[Optional[weakref.ref]] = [None] * len(specs)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tally: Optional[List[Dict[str, int]]] = None
-        if idxs.device.type == "cuda":
-            self._capture()
+        if device.type == "cuda":
+            self._capture(device)
+
+    def _call(self, grids: List[torch.Tensor]) -> None:
+        self.fn(grids, self.idxs)
 
     @property
     def captured(self) -> bool:
         """True when runs replay a CUDA graph (on the card)."""
         return self.graph is not None
 
-    def _capture(self) -> None:
-        device = self.idxs.device
+    def _capture(self, device: torch.device) -> None:
         stream = _side_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         snap = _snapshot()
@@ -153,24 +236,30 @@ class CapturedProgram:
             with torch.cuda.stream(stream):
                 # warm-up on scratch copies (the kernels write in place):
                 # loads every kernel library and creates the library handles
-                # and workspaces on this stream before capture
+                # and workspaces on this stream before capture (and a list's
+                # collectives their communicators)
                 scratch = [torch.zeros_like(g) for g in self.grids]
-                self.fn(scratch, self.idxs)
+                self._call(scratch)
                 del scratch
                 _restore(snap)
+                if self.collective:  # no collective of the warm-up left running
+                    torch.cuda.synchronize(device)
                 graph = torch.cuda.CUDAGraph()
                 with _collector_off():
-                    pool = _begin_capture(graph)
+                    pool = _begin_capture(graph, self.collective)
                     try:
-                        self.fn(self.grids, self.idxs)
+                        self._call(self.grids)
                     except BaseException as e:
                         _abort_capture(graph, pool, device)
                         if isinstance(e, torch.cuda.OutOfMemoryError):
                             raise  # pressure, not a capture fault: the server degrades
                         notes = "; ".join(getattr(e, "__notes__", ()))
-                        raise CaptureError(f"capturing the launch list failed at {notes or 'an unnamed step'}: "
+                        raise CaptureError(f"capturing {self.name} failed at {notes or 'an unnamed step'}: "
                                            f"{type(e).__name__}: {e}") from e
-                    graph.capture_end()
+                    with warnings.catch_warnings():
+                        # a rank whose part of a list is empty records an empty graph
+                        warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                        graph.capture_end()
             self.tally = _delta(snap)
         finally:
             _restore(snap)
@@ -241,12 +330,12 @@ class CapturedProgram:
             self.graph.replay()
         elif self.tally is None:
             snap = _snapshot()
-            self.fn(self.grids, self.idxs)
+            self._call(self.grids)
             self.tally = _delta(snap)
             return
         else:
             snap = _snapshot()
-            self.fn(self.grids, self.idxs)
+            self._call(self.grids)
             _restore(snap)
         for c, t in zip(COUNTERS, self.tally):
             for k, v in t.items():
@@ -270,8 +359,23 @@ class CapturedProgram:
 
 def _signature(x):
     """A leaf as the captured call keys it: a tensor by (shape, dtype,
-    device), anything else as it is."""
+    device), a DTensor also by its placements, anything else as it is."""
+    if isinstance(x, DTensor):
+        return tuple(x.shape), x.dtype, x.device, tuple(x.placements)
     return (tuple(x.shape), x.dtype, x.device) if torch.is_tensor(x) else x
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _clone(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x``; a DTensor's is this rank's block copied, in the same
+    placements (no collective)."""
+    if isinstance(x, DTensor):
+        return DTensor.from_local(x.to_local().clone(), x.device_mesh, x.placements, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+    return x.clone()
 
 
 class CapturedCall:
@@ -292,29 +396,42 @@ class CapturedCall:
     buffer as it is, any other tensor as a clone, so the next replay never
     changes a result the caller holds.  A capture that fails raises
     ``CaptureError`` naming ``name``; nothing falls back to eager on the
-    card.  On the CPU, and with ``eager`` (a step over a mesh of more than
-    one device: capturing collectives is later work), every call runs the
-    function eagerly on the arguments, counting one compile.
+    card.  On the CPU, and with ``eager`` (the train step over a mesh of
+    more than one device: capturing the collectives of its backward is
+    later work), every call runs the function eagerly on the arguments,
+    counting one compile.
+
+    Over a mesh (``group``: the process group over its ranks) the arguments
+    are DTensors, or this rank's blocks of them: the static buffers are
+    DTensors in the same placements, and copies and clones move this rank's
+    blocks only.  The collectives inside the function (c10d calls on the
+    mesh's groups) are captured into the graph, each rank's own; the
+    warm-up records them (``_Collectives``) and, before the capture, every
+    rank checks that all hold the same sequence (``agree``), as they must
+    for their graphs to meet at every replay.  On the CPU the first call
+    is checked alike.
 
     The call is bound to its first arguments' signature (``_signature``):
     where ``jax.jit`` would trace again, a later call whose trees differ in
-    structure or key order, or whose tensors differ in shape, dtype or
-    device, raises ``CaptureError`` naming ``name`` and the first leaf that
-    differs, on either device (a copy into the static buffers would
-    broadcast, cast or land in the wrong buffer).
+    structure or key order, or whose tensors differ in shape, dtype,
+    device or placements, raises ``CaptureError`` naming ``name`` and the
+    first leaf that differs, on either device (a copy into the static
+    buffers would broadcast, cast or land in the wrong buffer).
     """
 
-    def __init__(self, fn, name: str, donate: Sequence[bool] = (), eager: bool = False):
+    def __init__(self, fn, name: str, donate: Sequence[bool] = (), eager: bool = False, group=None):
         self.fn = fn
         self.name = name
         self.donate = tuple(donate)
         self.eager = eager
+        self.group = group
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static = None
         self.outputs = None
         self.compiles = 0  # captures (one a call site, as jax.jit's compile)
         self.graph_replays = 0
         self.signature = None
+        self.sequence: Optional[List[tuple]] = None  # the collectives of one call, over a mesh
         _CALLS.add(self)
 
     def release(self) -> None:
@@ -331,6 +448,8 @@ class CapturedCall:
         first = next((x for x in leaves(args) if torch.is_tensor(x)), None)
         if first is None or first.device.type != "cuda" or self.eager:
             self.compiles += self.compiles == 0
+            if self.group is not None and self.sequence is None and first is not None:
+                return self._agreed(args, first.device)
             return self.fn(*args)
         if self.graph is None:
             return self._capture(args, first.device)
@@ -339,21 +458,32 @@ class CapturedCall:
         self.graph_replays += 1
         return self._hand_out(self.outputs)
 
+    def _agreed(self, args, device: torch.device):
+        """``fn(*args)`` with its collectives recorded, then checked to be
+        every rank's (``agree``)."""
+        with _Collectives() as rec:
+            out = self.fn(*args)
+        self.sequence = rec.sequence
+        agree(self.sequence, self.group, self.name, device)
+        return out
+
     def _capture(self, args, device: torch.device):
         donate = self.donate + (False,) * (len(args) - len(self.donate))
-        self.static = tuple(a if d else tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, a)
+        self.static = tuple(a if d else tree_map(lambda x: _clone(x) if torch.is_tensor(x) else x, a)
                             for a, d in zip(args, donate))
+        collective = self.group is not None
         stream = _side_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            out = self.fn(*self.static)  # the warm-up: the first call's result
+            # the warm-up: the first call's result
+            out = self._agreed(self.static, device) if collective else self.fn(*self.static)
         torch.cuda.current_stream(device).wait_stream(stream)
         torch.cuda.synchronize(device)
         gc.collect()
         torch.cuda.empty_cache()  # the graph's private pool takes what the warm-up freed
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream), _collector_off():
-            pool = _begin_capture(graph)
+            pool = _begin_capture(graph, collective)
             try:
                 self.outputs = self.fn(*self.static)
             except BaseException as e:
@@ -385,11 +515,11 @@ class CapturedCall:
     def _load(self, args) -> None:
         for s, a in zip(leaves(self.static), leaves(args)):
             if torch.is_tensor(s) and a is not s:
-                s.copy_(a)
+                _local(s).copy_(_local(a))
 
     def _hand_out(self, outputs):
         own = {id(x) for x in leaves(self.static) if torch.is_tensor(x)}
-        return tree_map(lambda x: x if not torch.is_tensor(x) or id(x) in own else x.clone(), outputs)
+        return tree_map(lambda x: x if not torch.is_tensor(x) or id(x) in own else _clone(x), outputs)
 
 
 def release_calls() -> None:

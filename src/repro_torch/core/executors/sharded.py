@@ -18,8 +18,10 @@ explicit (``src/repro_torch/DESIGN.md``):
   row-major order, then one slot for each block of another rank that a
   launch list reads.  The plan's block indices are remapped into it on the
   host once per owned cut; the tile kernels and their plain versions
-  address ``(0, k)`` as any grid block, unchanged.  The store stays with
-  its root across lists and drains, growing only when a list reads more.
+  address ``(0, k)`` as any grid block, unchanged.  Each captured list
+  owns a static store of the blocks it needs and hands it to the root
+  after its run; the next list copies the root's owned blocks into its
+  own.
 - **Owner computes.**  In each issue slot a rank runs only the tasks whose
   written block it owns.  A task writing a replicated root runs on every
   rank.
@@ -37,22 +39,32 @@ explicit (``src/repro_torch/DESIGN.md``):
 
 At world size 1, and for a plan whose roots all fell back to replication,
 no collective is issued: the launch list is the local executor's, captured
-into one CUDA graph per list on the card.  Otherwise the list runs slot by
-slot, eagerly, with the exchanges between slots, and the drain memo replays
-it so.
+into one CUDA graph per list on the card.  Otherwise this rank's cut of the
+list, its exchanges' collectives inside, is captured into one CUDA graph
+over static stores of its own (``OwnedCapture``): the counterpart, rank by
+rank, of the reference's one jitted SPMD program; the first drain captures
+it and every later run, the drain memo's included, replays it.  Before each
+capture every rank checks that all hold the list's collective sequence.
+On the CPU the same object runs the list eagerly over the same stores.  The
+per-group fallback and a list whose grid does not split gather the root
+whole (below) and stay eager.
 
 Counters: ``tasks``, ``launches``, ``groups``, ``groups_prefusion``,
 ``slots`` and ``compiles`` count the whole plan on every rank, as the JAX
 package's single SPMD program does; ``owned_tasks`` counts the tasks this
 rank computed, ``exchanges`` the collectives it issued, ``exchanged_bytes``
-and ``received_bytes`` the payload it sent and received, and
-``resident_bytes`` the most its launch lists held at once in stores and
-whole grids.
+and ``received_bytes`` the payload it sent and received,
+``resident_bytes`` the most its launch lists held at once in stores (a
+root's store counted at the most blocks its lists have given it,
+``SplitStore.high``) and whole grids, and ``graph_replays`` the lists it
+ran as graph replays.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -62,8 +74,9 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ...testing import faults
-from ..data import GData, Split, SplitError, SplitStore, from_grid, host_to_device
+from ..data import GData, Split, SplitError, SplitStore, from_grid, host_to_device, to_grid
 from ..task import GTask
+from .captured import CapturedProgram, agree, group_desc
 from .jit_wave import WaveExecutor
 from .wave_program import GroupPlan, SchedulePlan, build_program
 
@@ -373,6 +386,8 @@ class OwnedProgram:
                 self.received_bytes += sum(out_splits) * dt.itemsize
         self.first = sends.get(-1, [])
         self.steps = [(fn, idxs, sends.get(s, [])) for s, (fn, idxs) in enumerate(steps)]
+        # what every rank must issue alike: per exchange point, its collectives
+        self.sequence = [(point, "all_to_all_single", str(ex.dtype)) for point in sorted(sends) for ex in sends[point]]
 
     def position(self, r: int, i: int, j: int) -> int:
         """Where block ``(i, j)`` of split root slot ``r`` lies in this rank's
@@ -390,6 +405,99 @@ class OwnedProgram:
                 fn(grids, idxs)
             for ex in exchanges:
                 ex(grids)
+
+
+class OwnedCapture(CapturedProgram):
+    """An ``OwnedProgram`` captured into one CUDA graph over static storage,
+    the exchanges' ``all_to_all_single`` calls inside: this rank's part of
+    the reference's one jitted SPMD program (``src/repro_torch/DESIGN.md``).
+
+    It owns a static ``(1, K, br, bc)`` store for each split root, sized
+    ``store_blocks`` (owned blocks first, then the received slots), and a
+    static ``(nr, nc, br, bc)`` grid for each replicated root; the index
+    tensors and the sends' index runs are the program's own, fixed for its
+    plan.  A run copies each root's owned blocks in (not when its store
+    already is the static store), runs, and hands the static stores back
+    (``GData.adopt_split``, ``adopt_grid``); a handle that still reads a
+    static store gets its own copy before a run overwrites it
+    (``_release``).  A static store never grows: a list that needs more
+    blocks is another program.
+
+    Before the warm-up, every rank checks that all hold the list's
+    collective sequence (``agree``).  The warm-up, on scratch stores, runs
+    the collectives once eagerly (creating the communicators outside the
+    capture); the capture is thread-local (``captured._begin_capture``).
+    On the CPU the list runs eagerly over the same static stores."""
+
+    collective = True
+
+    def __init__(self, prog: OwnedProgram, plan: SchedulePlan, group):
+        device = plan.flat_idxs.device
+        key = hashlib.sha1(repr(plan.key).encode()).hexdigest()[:10]
+        self.name = f"launch list {key} ({plan.n_groups} groups, {plan.n_slots} slots)"
+        specs = []
+        for d, (br, bc), pl, k in zip((plan.datas[i] for i in plan.roots_order), plan.blocks, prog.placements,
+                                      prog.store_blocks):
+            shape = (1, k, br, bc) if pl.distributed else (d.shape[0] // br, d.shape[1] // bc, br, bc)
+            specs.append((shape, d.dtype))
+        agree([(*c, group_desc(group)) for c in prog.sequence], group, self.name, device)
+        self._setup(prog, specs, device)
+
+    @property
+    def prog(self) -> OwnedProgram:
+        return self.fn
+
+    def _call(self, grids: List[torch.Tensor]) -> None:
+        self.fn(grids)
+
+    def _release(self, i: int) -> None:
+        ref = self._holders[i]
+        holder = ref() if ref is not None else None
+        g = self.grids[i]
+        if holder is not None and holder.split is not None and holder.split.store is g:
+            holder.adopt_split(holder.split.copy())
+            self._holders[i] = None
+        else:
+            super()._release(i)
+
+    def load(self, datas: Sequence[GData], blocks, splits: Sequence[Optional[Split]], ex: "ShardExecutor") -> None:
+        """Copy each root's blocks into its static store or grid (``splits``:
+        each split root's layout, None for a replicated one)."""
+        for i, (d, (br, bc), split, g) in enumerate(zip(datas, blocks, splits, self.grids)):
+            if split is None:
+                ex.gather(d)
+                if d.grid is not g:
+                    self._release(i)
+                    d.write_grid(g, br, bc)
+                continue
+            sp = d.split
+            if sp is not None and sp.store is g:
+                continue
+            self._release(i)
+            nr, nc = split.local_shape[0] // br, split.local_shape[1] // bc
+            owned = g[0, : nr * nc].view(nr, nc, br, bc)
+            if sp is not None and sp.split == split and sp.block == (br, bc):
+                owned.copy_(sp.owned())
+            else:
+                to_grid(ex._part(d, split), br, bc, out=owned)
+
+    def hand_back(self, datas: Sequence[GData], blocks, splits: Sequence[Optional[Split]]) -> int:
+        """Make each static store or grid its root's; returns the bytes the
+        roots' stores and grids hold, a store counted at the most blocks
+        its root's stores have held (``SplitStore.high``)."""
+        resident = 0
+        for i, (d, blk, split, g) in enumerate(zip(datas, blocks, splits, self.grids)):
+            if split is None:
+                d.adopt_grid(g, blk)
+                resident += g.numel() * g.element_size()
+            else:
+                sp, high = d.split, g.shape[1]
+                if sp is not None and sp.split == split and sp.block == tuple(blk):
+                    high = max(high, sp.high)
+                d.adopt_split(SplitStore.over(split, blk, g, high))
+                resident += high * g[0, 0].numel() * g.element_size()
+            self._holders[i] = weakref.ref(d)
+        return resident
 
 
 class ShardExecutor(WaveExecutor):
@@ -455,15 +563,6 @@ class ShardExecutor(WaveExecutor):
             return v.to_local()
         (r0, c0), (m, k) = split.offset, split.local_shape
         return v[r0 : r0 + m, c0 : c0 + k]
-
-    def _store(self, data: GData, split: Split, block: Tuple[int, int], k: int) -> torch.Tensor:
-        """The resident store of a split root, for a list that needs ``k``
-        blocks (entered from the root's part, or grown, only when needed)."""
-        sp = data.split
-        if sp is None or sp.block != tuple(block) or sp.split != split:
-            sp = SplitStore(split, self._part(data, split), block, k)
-            data.adopt_split(sp)
-        return sp.reserve(k)
 
     def gather(self, data: GData) -> None:
         """Make a split root whole on this rank: one ``all_gather`` over the
@@ -557,13 +656,14 @@ class ShardExecutor(WaveExecutor):
         ikey = np.concatenate([ix for g in plan.groups() for ix in g.idxs], axis=0).tobytes()
         fn = progs.get(ikey)
         if fn is None:
-            fn = progs[ikey] = OwnedProgram(plan, placements, self.backend, tuple(self.mesh.mesh.shape),
-                                            self.mesh.mesh_dim_names, self._me, self.group, self._group_ranks())
+            prog = OwnedProgram(plan, placements, self.backend, tuple(self.mesh.mesh.shape),
+                                self.mesh.mesh_dim_names, self._me, self.group, self._group_ranks())
+            fn = progs[ikey] = OwnedCapture(prog, plan, self.group)
         return fn, built
 
     def _launch(self, fn, idxs, blocks, slots: Sequence, batch, n_tasks: int, replay: bool,
                 built: bool = False) -> None:
-        if not isinstance(fn, OwnedProgram):
+        if not isinstance(fn, OwnedCapture):
             for d in slots:  # distributed graphs never stack: one datum a slot
                 self.gather(d)
             super()._launch(fn, idxs, blocks, slots, batch, n_tasks, replay, built)
@@ -571,21 +671,22 @@ class ShardExecutor(WaveExecutor):
             return
         faults.fire("executor.launch", batch=batch, n_tasks=n_tasks, replay=replay)
         faults.fire("launch.oom", batch=batch, n_tasks=n_tasks, replay=replay)
-        grids = []
-        for d, blk, pl, k in zip(slots, blocks, fn.placements, fn.store_blocks):
-            if pl.distributed:
-                root = self._placements.setdefault(d.id, Placement(tuple(d.shape), pl.spec, pl.sizes))
-                grids.append(self._store(d, self._split(d, root), blk, k))
-            else:
-                self.gather(d)
-                grids.append(d.enter_grid(*blk))
-        fn(grids)
+        splits = []
+        for d, pl in zip(slots, fn.prog.placements):
+            root = self._placements.setdefault(d.id, Placement(tuple(d.shape), pl.spec, pl.sizes)) \
+                if pl.distributed else None
+            splits.append(None if root is None else self._split(d, root))
+        fn.load(slots, blocks, splits, self)
+        fn.run()
         self.last_program = None
-        self._corrupt_outputs(grids, batch=batch, replay=replay)
+        if fn.captured:
+            self.stats["graph_replays"] += 1
+        self._corrupt_outputs(fn.grids, batch=batch, replay=replay)
         self._note_launch(idxs.device, "replay" if replay else "program")
-        resident = sum(g.numel() * g.element_size() for g in grids)
+        resident = fn.hand_back(slots, blocks, splits)
         self.stats["resident_bytes"] = max(self.stats["resident_bytes"], resident)
-        self.stats["owned_tasks"] += fn.n_owned
-        self.stats["exchanges"] += fn.n_exchanges
-        self.stats["exchanged_bytes"] += fn.sent_bytes
-        self.stats["received_bytes"] += fn.received_bytes
+        prog = fn.prog
+        self.stats["owned_tasks"] += prog.n_owned
+        self.stats["exchanges"] += prog.n_exchanges
+        self.stats["exchanged_bytes"] += prog.sent_bytes
+        self.stats["received_bytes"] += prog.received_bytes

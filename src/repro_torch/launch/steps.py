@@ -7,13 +7,17 @@ of the reference's ``ShapeDtypeStruct`` trees) and the matching placement
 trees (``in_shardings``/``out_shardings``: ``launch/sharding.py``
 ``NamedSharding``s, whose ``placements`` are DTensor placements on the
 ``DeviceMesh``).  ``StepPlan.jitted()`` is the counterpart of ``jax.jit``:
-on one device it captures the whole step into one CUDA graph over static
-buffers and replays it (``core/executors/captured.py`` ``CapturedCall``);
-on the CPU, and over a mesh of more than one device, the step runs
-eagerly (capturing NCCL collectives is later work).  Donated arguments
-(``donate_argnums``) are updated in place and returned; ``resident_argnums``
-are arguments the capture adopts as they are (the serving weights: the
-caller passes the same tensors every call, so nothing is copied).
+on the card it captures the whole step into one CUDA graph over static
+buffers and replays it (``core/executors/captured.py`` ``CapturedCall``).
+Over a mesh of more than one card each rank captures its own program, the
+NCCL collectives of the step inside, as the reference jits one SPMD
+program; every rank first checks that all issue the same collectives.
+The train step over such a mesh still runs eagerly (capturing the
+collectives of its backward is later work), and on the CPU every step
+does.  Donated arguments (``donate_argnums``) are updated in place and
+returned; ``resident_argnums`` are arguments the capture adopts as they
+are (the serving weights: the caller passes the same tensors every call,
+so nothing is copied).
 
 Over a mesh of more than one device (explicit SPMD, ``models/spmd.py``):
 every argument is a ``DTensor`` (or this rank's block of it): parameters,
@@ -48,6 +52,7 @@ from .. import optim
 from ..configs.base import ArchConfig, ShapeConfig
 from ..core.data import resolve_device
 from ..core.executors.captured import CapturedCall
+from ..core.executors.sharded import mesh_group
 from ..models.layers import PSpec, map_template
 from ..models.model import _casts, build_model, model_template
 from ..models.moe import MoeCtx
@@ -73,11 +78,15 @@ class StepPlan:
         return (self.static_meta or {}).get("mesh")
 
     def jitted(self):
-        """The step captured on its first call on one card and replayed
-        after; eager on the CPU and over a mesh of more than one device."""
+        """The step captured on its first call on the card and replayed
+        after, over a mesh each rank's own program with its collectives;
+        eager on the CPU, and the train step over a mesh of more than one
+        device."""
         keep = set(self.donate_argnums) | set(self.resident_argnums)
+        split = _split(self.mesh)
+        train = (self.static_meta or {}).get("kind") == "train"
         return CapturedCall(self.fn, self.name, donate=[i in keep for i in range(len(self.args))],
-                            eager=_split(self.mesh))
+                            eager=split and train, group=mesh_group(self.mesh) if split and not train else None)
 
 
 # --------------------------------------------------------------------------
