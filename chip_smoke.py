@@ -229,8 +229,12 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    phase prints that it did not run): each rank's programs captured into
    CUDA graphs with their NCCL collectives inside (``multi_card_path``):
    the distributed g4 Cholesky over min(4, cards) ranks, every list of
-   every drain a graph replay and the result one card's bit for bit, and
-   the (1, W) captured prefill and decode plans' check against one device.
+   every drain a graph replay and the result one card's bit for bit, the
+   (1, W) captured prefill and decode plans' check against one device, and
+   the train step at phase 8's shape on (W, 1) and (1, W), captured with
+   its forward, remat backward, gradient reductions and AdamW on every
+   rank: a replay against the eager step from the same state, the recorded
+   collectives against the eager step's, the loss falling.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing it.
@@ -4240,6 +4244,10 @@ def segments_report(torch) -> str:
 # phase 11: each rank's program captured over a mesh of several cards
 MULTI_CHOLESKY = ("--graph", "g4", "--n", "4096", "--levels", "4x4,8x8")
 MULTI_LINE = re.compile(r"rank (\d+) (\w+): launches=(\d+) graph_replays=(\d+) .* max_err=(\S+) sha1=(\w+)")
+# the train step over the cards: phase 8's shape (B = 4, S = 4096, 8 layers)
+MULTI_TRAIN_LAYERS, MULTI_TRAIN_STEPS = 8, 8
+MULTI_TRAIN_LINE = re.compile(r"\(c\) rank (\d+) a replay vs eager from the same state: .*'_reduce_scatter_base_': "
+                              r"[1-9]")
 
 
 def multi_card_run(cmd, timeout: int) -> str:
@@ -4267,7 +4275,16 @@ def multi_card_path(torch) -> None:
     ``examples/torch_train_sharded.py``'s (d) on a (1, W) mesh:
     starcoder2-7b's captured prefill and decode plans (one capture, then a
     graph replay a step on every rank) and their float32 check against one
-    device within ``DECODE_TOL`` (the example fails otherwise)."""
+    device within ``DECODE_TOL`` (the example fails otherwise); then its
+    (c) with ``--check-capture`` on (W, 1) and (1, W): starcoder2-7b's
+    train step at phase 8's shape (8 layers, B = 4, S = 4096, bf16)
+    captured on every rank (compiles 1, then a graph replay a step), the
+    collectives it recorded counted by operator (the backward's
+    reduce-scatters among them) equal to those an eager step calls, a
+    replay from the seeded state within 1e-3 relative L2 of the eager step
+    (``plan.fn``) in every parameter block, the loss and the grad norm, and
+    the loss finite and falling over ``MULTI_TRAIN_STEPS`` steps on the
+    first batch again (the example fails otherwise)."""
     cards = torch.cuda.device_count()
     if cards < 2:
         print(f"phase 11 needs two cards or more and this machine has {cards}: it did not run")
@@ -4294,6 +4311,16 @@ def multi_card_path(torch) -> None:
     multi_card_run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(W),
                     str(ROOT / "examples" / "torch_train_sharded.py"), "--cuda", "--mesh", f"1,{W}", "--layers", "0",
                     "--steps", "0", "--decode", "16"], 900)
+    for mesh in (f"{W},1", f"1,{W}"):  # the train step captured on every rank, against its eager step
+        text = multi_card_run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+                               str(W), str(ROOT / "examples" / "torch_train_sharded.py"), "--cuda", "--mesh", mesh,
+                               "--layers", "0", "--train-layers", str(MULTI_TRAIN_LAYERS), "--steps",
+                               str(MULTI_TRAIN_STEPS), "--check-capture"], 900)
+        checked = [m.group(1) for m in map(MULTI_TRAIN_LINE.search, text.splitlines()) if m]
+        if sorted(map(int, checked)) != list(range(W)):
+            raise AssertionError(f"phase 11: the train step's check printed ranks {checked} of {W} on ({mesh})")
+    print(f"phase 11 train step over ({W}, 1) and (1, {W}): captured on every rank, a replay within "
+          f"1e-3 of the eager step, the recorded collectives the eager step's")
 
 
 def release_check(torch) -> None:

@@ -28,8 +28,21 @@ Three parts, each on the same seeded init:
     bit the saved one;
 (c) ``--steps`` steps of the model at ``--train-layers`` (default: all of
     the configuration's) on the mesh, no checkpoint: per-card peak memory,
-    step ms, tokens/s, MFU (``model_flops`` / step / (world x 989
-    TFLOP/s)) and the loss;
+    the first step's ms (each rank's warm-up, whose result is the step's,
+    then the capture of the whole step into one CUDA graph with its
+    collectives) and the median replay's, tokens/s, MFU (``model_flops``
+    / step / (world x 989 TFLOP/s)), each rank's ``compiles`` and
+    ``graph_replays`` (1 and steps - 1 on the cards, else the example
+    fails; with ``--check-capture`` one more) and the loss.  With
+    ``--check-capture`` the seeded state is put back after the first call and the first step replayed (one more
+    replay), then run eagerly (``plan.fn``) from the same state on the
+    same batch: every rank's parameter blocks, the loss and the grad norm
+    within ``CAPTURE_TOL``, the collectives the capture recorded counted
+    by operator equal to those the eager step called (reduce-scatters of
+    the backward among them), and the loss falling (every step on the
+    first batch again, the mean of the last half of the steps below the
+    first half's: on fresh random batches the spread between batches,
+    about 0.01 at starcoder2-7b's widths, outweighs a few steps' fall);
 (d) with ``--decode N``: the serving plans on the mesh, the serving form
     of the whole model: a prefill into a cache (``DECODE_SHAPE``: phase
     9b's on the card; its seq dim split over ``model``), called twice (the
@@ -180,7 +193,7 @@ def part_a_b(args, rank, world, device, device_type, mesh, work):
     moment = _on_rank0(o["m"], rank)
     _say(rank, f"(a) {cfg.name} {cfg.n_layers} layers, B={shape.global_batch} S={shape.seq_len}, mesh "
                f"{tuple(mesh.shape)} {device_type}: loss={loss:.6f} grad_norm={gnorm:.6e} step_s={step_s:.3f} "
-               "(eager: the first step)")
+               f"({'the first call: the warm-up, then the capture' if args.cuda else 'eager'})")
 
     # (b) save on this mesh, restore onto (world / 2, 2)
     ck = Checkpointer(os.path.join(work, "ckpt"))
@@ -239,6 +252,77 @@ def part_a_b(args, rank, world, device, device_type, mesh, work):
     _all_raise(verdict)
 
 
+# torch.distributed's functions and the c10d operators they reach (the
+# names a captured call records, ``core/executors/captured.py``)
+C10D = {"all_gather_into_tensor": "_allgather_base_", "reduce_scatter_tensor": "_reduce_scatter_base_",
+        "all_reduce": "allreduce_", "all_to_all_single": "alltoall_base_"}
+CAPTURE_TOL = 1e-3  # (c) with --check-capture: relative L2, captured against eager (chip_smoke.py's phase 8b)
+
+
+class _Calls:
+    """Counts the calls of ``torch.distributed``'s collectives while it is
+    entered, from any thread (the backward's run on autograd's), by the
+    c10d operator each reaches."""
+
+    def __enter__(self):
+        self.counts, self.saved = {}, {name: getattr(dist, name) for name in C10D}
+        for name, fn in self.saved.items():
+            setattr(dist, name, self._wrap(C10D[name], fn))
+        return self
+
+    def _wrap(self, op, fn):
+        def call(*a, **kw):
+            self.counts[op] = self.counts.get(op, 0) + 1
+            return fn(*a, **kw)
+
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+
+
+def _capture_check(rank, plan, step, p, o, batch):
+    """The captured step's first call (its warm-up updates the state, then
+    the capture), the seeded state put back, a graph replay, and one eager
+    step (``plan.fn``) from the same state on the same batch: every
+    parameter block, the loss and the grad norm within ``CAPTURE_TOL``
+    relative L2 on every rank, and the collectives the first call recorded
+    (``step.sequence``, checked on every rank before the capture) counted
+    by operator equal to those the eager step called, reduce-scatters among
+    them.  Returns the replay's metrics and the first call's seconds."""
+    from repro_torch.core.executors.captured import _clone
+    from repro_torch.launch.sharding import local
+    from repro_torch.tree import tree_map
+
+    p0, o0 = tree_map(_clone, p), tree_map(_clone, o)  # this rank's blocks, in their placements
+    t0 = time.perf_counter()
+    _, _, first = step(p, o, batch)
+    float(first["loss"])  # the host waits for the step
+    first_s = time.perf_counter() - t0
+    with torch.no_grad():
+        tree_map(lambda x, y: local(x).copy_(local(y)) if torch.is_tensor(x) else None, (p, o), (p0, o0))
+    _, _, met = step(p, o, batch)
+    with _Calls() as calls:
+        _, _, me = plan.fn(p0, o0, batch)
+    seq = {}
+    for op, _, _ in step.sequence:
+        seq[op.split(".")[0]] = seq.get(op.split(".")[0], 0) + 1
+    rel = max(_rel(local(p[k]), local(p0[k])) for k in p)
+    loss = abs(float(met["loss"]) - float(me["loss"])) / abs(float(me["loss"]))
+    gnorm = abs(float(met["grad_norm"]) - float(me["grad_norm"])) / abs(float(me["grad_norm"]))
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, (rank, seq, calls.counts, rel, loss, gnorm))
+    for r, sq, eager, rl, ls, gn in rows:
+        _say(rank, f"(c) rank {r} a replay vs eager from the same state: param rel_l2 max {rl:.3e}, loss rel {ls:.3e}, "
+                   f"grad_norm rel {gn:.3e} (tol {CAPTURE_TOL}); recorded collectives {dict(sorted(sq.items()))}, "
+                   f"the eager step's {dict(sorted(eager.items()))}")
+    bad = [r for r, sq, eager, rl, ls, gn in rows
+           if sq != eager or not sq.get("_reduce_scatter_base_") or not max(rl, ls, gn) <= CAPTURE_TOL]
+    _all_raise([f"(c) ranks {bad}: the captured step's check failed" if bad else None])
+    return met, first_s
+
+
 def part_c(args, rank, world, device, device_type, mesh):
     from repro_torch import optim
     from repro_torch.configs.base import ShapeConfig
@@ -265,28 +349,43 @@ def part_c(args, rank, world, device, device_type, mesh):
     step = plan.jitted()
     times, losses = [], []
     for i in range(args.steps):
-        batch = next(batches)
+        if i == 0 or not args.check_capture:  # the check trains on its first batch again
+            batch = next(batches)
         dist.barrier()
         t0 = time.perf_counter()
-        _, _, met = step(p, o, batch)
-        loss = float(met["loss"])  # the host waits for the step
-        times.append(time.perf_counter() - t0)
+        if i == 0 and args.check_capture:
+            met, dt = _capture_check(rank, plan, step, p, o, batch)
+        else:
+            _, _, met = step(p, o, batch)
+            float(met["loss"])  # the host waits for the step
+            dt = time.perf_counter() - t0
+        loss = float(met["loss"])
+        times.append(dt)
         losses.append(loss)
         if not torch.isfinite(torch.tensor(loss)):
             raise AssertionError(f"(c) step {i}: loss {loss}")
     peak = torch.cuda.max_memory_allocated() / 1e9 if args.cuda else float("nan")
-    peaks = [None] * world
+    peaks, counts = [None] * world, [None] * world
     dist.all_gather_object(peaks, peak)
+    dist.all_gather_object(counts, (step.compiles, step.graph_replays))
     ms = statistics.median(times[1:] if len(times) > 1 else times) * 1e3
     tokens = shape.global_batch * shape.seq_len
     flops = roofline.model_flops(cfg, shape)
     _say(rank, f"(c) {cfg.name} {cfg.n_layers} layers, B={shape.global_batch} S={shape.seq_len}, mesh "
                f"{tuple(mesh.shape)} {device_type}: init_s={init_s:.1f}, state {state_gb:.2f} GB a rank; "
-               f"step ms first={times[0] * 1e3:.1f} median of the rest={ms:.1f}; tokens_per_s={tokens / ms * 1e3:.1f}; "
+               f"step ms first={times[0] * 1e3:.1f} (the warm-up and the capture) median of the rest={ms:.1f}; "
+               f"tokens_per_s={tokens / ms * 1e3:.1f}; "
                f"MFU={flops / (ms / 1e3) / (world * H100_BF16_FLOPS):.4f} (model_flops {flops:.4e}); "
-               f"peak GB by rank {[round(x, 2) for x in peaks]}; losses {[round(x, 4) for x in losses]}")
+               f"peak GB by rank {[round(x, 2) for x in peaks]}; (compiles, graph_replays) by rank {counts}; "
+               f"losses {[round(x, 4) for x in losses]}")
+    want = (1, (args.steps - 1 + args.check_capture) if args.cuda else 0)  # the check replays once more
+    if any(c != want for c in counts):
+        raise AssertionError(f"(c) compiles and graph replays {counts}, want {want} on every rank")
     if args.cuda and max(peaks) >= 80:
         raise AssertionError(f"(c) peak {max(peaks):.2f} GB")
+    half = len(losses) // 2
+    if args.check_capture and not sum(losses[-half:]) / half < sum(losses[:half]) / half:
+        raise AssertionError(f"(c) the loss did not fall: {losses}")
 
 
 def _decode(args, rank, cfg, device, device_type, mesh, check: bool):
@@ -447,6 +546,8 @@ def main() -> None:
     ap.add_argument("--seq", type=int, default=None, help="sequence (default 4096, CPU 32)")
     ap.add_argument("--mesh", default=None, help="D,M: the (data, model) mesh (default: world,1)")
     ap.add_argument("--decode", type=int, default=0, help="(d): greedy decode steps (0 skips it)")
+    ap.add_argument("--check-capture", action="store_true",
+                    help="(c): the first step eager and captured from the same state, and the loss falling")
     args = ap.parse_args()
     args.mesh = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
     args.batch = args.batch or 4

@@ -38,11 +38,12 @@ records the tally.
 
 Over a mesh of several ranks a list and a step hold NCCL collectives:
 ``sharded.OwnedCapture`` (a distributed drain's cut list) and a
-``CapturedCall`` given the mesh's ``group`` (the prefill and decode plans)
-capture them too, each rank its own graph.  Before its capture every rank
-checks on the host that all hold the same collective sequence (``agree``),
-the capture is thread-local (``_begin_capture``), and ``release_captured``
-must drop such graphs before the process group is destroyed.
+``CapturedCall`` given the mesh's ``group`` (the train, prefill and
+decode plans) capture them too, each rank its own graph.  Before its
+capture every rank checks on the host that all hold the same collective
+sequence (``agree``), the capture is thread-local (``_begin_capture``),
+and ``release_captured`` must drop such graphs before the process group
+is destroyed.
 """
 
 from __future__ import annotations
@@ -378,6 +379,10 @@ def _clone(x: torch.Tensor) -> torch.Tensor:
     return x.clone()
 
 
+def _padded(flags: Tuple[bool, ...], n: int) -> Tuple[bool, ...]:
+    return flags + (False,) * (n - len(flags))
+
+
 class CapturedCall:
     """A function of trees of tensors captured once into a CUDA graph over
     static buffers: the counterpart of ``jax.jit`` for the training step
@@ -386,7 +391,8 @@ class CapturedCall:
 
     The first call on the card adopts each argument marked in ``donate`` as
     its static buffer (the function updates it in place: the counterpart of
-    donation) and clones the others.  It runs the function once for real on
+    donation), and each marked in ``resident`` (only read: the serving
+    weights), and clones the others.  It runs the function once for real on
     the side stream (the warm-up, which loads the libraries and creates
     their handles; its result is the first call's), returns the memory the
     warm-up freed to the device, and records a second run into the graph,
@@ -396,10 +402,8 @@ class CapturedCall:
     buffer as it is, any other tensor as a clone, so the next replay never
     changes a result the caller holds.  A capture that fails raises
     ``CaptureError`` naming ``name``; nothing falls back to eager on the
-    card.  On the CPU, and with ``eager`` (the train step over a mesh of
-    more than one device: capturing the collectives of its backward is
-    later work), every call runs the function eagerly on the arguments,
-    counting one compile.
+    card.  On the CPU every call runs the function eagerly on the
+    arguments, counting one compile.
 
     Over a mesh (``group``: the process group over its ranks) the arguments
     are DTensors, or this rank's blocks of them: the static buffers are
@@ -408,8 +412,14 @@ class CapturedCall:
     mesh's groups) are captured into the graph, each rank's own; the
     warm-up records them (``_Collectives``) and, before the capture, every
     rank checks that all hold the same sequence (``agree``), as they must
-    for their graphs to meet at every replay.  On the CPU the first call
-    is checked alike.
+    for their graphs to meet at every replay; a rank whose sequence
+    differs raises with the donated arguments put back as they were (their
+    blocks are copied to the host before the warm-up).  A train step's
+    backward issues its collectives from autograd's device thread: the
+    recording mode reaches that thread (autograd carries the caller's
+    dispatch modes to it), and its work lands in the capture because
+    autograd runs each backward node on its forward's stream, the
+    capturing one.  On the CPU the first call is checked alike.
 
     The call is bound to its first arguments' signature (``_signature``):
     where ``jax.jit`` would trace again, a later call whose trees differ in
@@ -419,11 +429,11 @@ class CapturedCall:
     buffers would broadcast, cast or land in the wrong buffer).
     """
 
-    def __init__(self, fn, name: str, donate: Sequence[bool] = (), eager: bool = False, group=None):
+    def __init__(self, fn, name: str, donate: Sequence[bool] = (), group=None, resident: Sequence[bool] = ()):
         self.fn = fn
         self.name = name
         self.donate = tuple(donate)
-        self.eager = eager
+        self.resident = tuple(resident)
         self.group = group
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static = None
@@ -446,7 +456,7 @@ class CapturedCall:
     def __call__(self, *args):
         self._check(args)
         first = next((x for x in leaves(args) if torch.is_tensor(x)), None)
-        if first is None or first.device.type != "cuda" or self.eager:
+        if first is None or first.device.type != "cuda":
             self.compiles += self.compiles == 0
             if self.group is not None and self.sequence is None and first is not None:
                 return self._agreed(args, first.device)
@@ -460,17 +470,28 @@ class CapturedCall:
 
     def _agreed(self, args, device: torch.device):
         """``fn(*args)`` with its collectives recorded, then checked to be
-        every rank's (``agree``)."""
+        every rank's (``agree``).  The donated arguments' blocks are copied
+        to the host first and put back before the check raises, so a rank
+        whose program differs leaves the caller's state as it was."""
+        donated = [x for a, d in zip(args, _padded(self.donate, len(args))) if d
+                   for x in leaves(a) if torch.is_tensor(x)]
+        saved = [_local(x).to("cpu", copy=True) for x in donated]
         with _Collectives() as rec:
             out = self.fn(*args)
         self.sequence = rec.sequence
-        agree(self.sequence, self.group, self.name, device)
+        try:
+            agree(self.sequence, self.group, self.name, device)
+        except CaptureError:
+            with torch.no_grad():
+                for x, h in zip(donated, saved):
+                    _local(x).copy_(h)
+            raise
         return out
 
     def _capture(self, args, device: torch.device):
-        donate = self.donate + (False,) * (len(args) - len(self.donate))
-        self.static = tuple(a if d else tree_map(lambda x: _clone(x) if torch.is_tensor(x) else x, a)
-                            for a, d in zip(args, donate))
+        keep = zip(_padded(self.donate, len(args)), _padded(self.resident, len(args)))
+        self.static = tuple(a if d or r else tree_map(lambda x: _clone(x) if torch.is_tensor(x) else x, a)
+                            for a, (d, r) in zip(args, keep))
         collective = self.group is not None
         stream = _side_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))

@@ -12,12 +12,14 @@ buffers and replays it (``core/executors/captured.py`` ``CapturedCall``).
 Over a mesh of more than one card each rank captures its own program, the
 NCCL collectives of the step inside, as the reference jits one SPMD
 program; every rank first checks that all issue the same collectives.
-The train step over such a mesh still runs eagerly (capturing the
-collectives of its backward is later work), and on the CPU every step
-does.  Donated arguments (``donate_argnums``) are updated in place and
-returned; ``resident_argnums`` are arguments the capture adopts as they
-are (the serving weights: the caller passes the same tensors every call,
-so nothing is copied).
+For the train step these include the backward's (the gathers'
+reduce-scatters, the remat recompute's second gathers, the gradient
+all-reduces over ``model``), which autograd issues from its device thread
+into the same capture.  On the CPU every step runs eagerly.  Donated
+arguments (``donate_argnums``) are updated in place and returned;
+``resident_argnums`` are arguments the capture adopts as they are and
+only reads (the serving weights: the caller passes the same tensors every
+call, so nothing is copied).
 
 Over a mesh of more than one device (explicit SPMD, ``models/spmd.py``):
 every argument is a ``DTensor`` (or this rank's block of it): parameters,
@@ -79,14 +81,12 @@ class StepPlan:
 
     def jitted(self):
         """The step captured on its first call on the card and replayed
-        after, over a mesh each rank's own program with its collectives;
-        eager on the CPU, and the train step over a mesh of more than one
-        device."""
-        keep = set(self.donate_argnums) | set(self.resident_argnums)
-        split = _split(self.mesh)
-        train = (self.static_meta or {}).get("kind") == "train"
-        return CapturedCall(self.fn, self.name, donate=[i in keep for i in range(len(self.args))],
-                            eager=split and train, group=mesh_group(self.mesh) if split and not train else None)
+        after, over a mesh of more than one device each rank's own program
+        with its collectives (the backward's too); eager on the CPU."""
+        n = range(len(self.args))
+        return CapturedCall(self.fn, self.name, donate=[i in self.donate_argnums for i in n],
+                            resident=[i in self.resident_argnums for i in n],
+                            group=mesh_group(self.mesh) if _split(self.mesh) else None)
 
 
 # --------------------------------------------------------------------------
@@ -316,6 +316,8 @@ def make_train_step(
         if split:
             with torch.no_grad():
                 for k, g in grads.items():
+                    # a gradient may come strided (under the warm-up's dispatch mode on the card)
+                    grads[k] = g = g.contiguous()
                     _all_reduce(g, mesh, allred[k]).div_(n_red)
                 keys = sorted(metrics)
                 vals = _all_reduce(torch.stack([metrics[k].float() for k in keys]), mesh, red_dims) / n_red

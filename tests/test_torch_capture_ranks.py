@@ -215,7 +215,8 @@ def _serve(mesh, arch):
     cache = place(tree_map(lambda c: torch.zeros(c.shape, dtype=c.dtype), st.cache_specs(cfg, B, 2 * S)),
                   pre.in_shardings[2])
     prefill, step = pre.jitted(), dec.jitted()
-    out = {"eager": (prefill.eager, step.eager), "grouped": (prefill.group is not None, step.group is not None),
+    out = {"eager": (hasattr(prefill, "eager"), hasattr(step, "eager")),
+           "grouped": (prefill.group is not None, step.group is not None),
            "logits": [], "calls": []}
     with pytest.MonkeyPatch.context() as mp:
         rec = _Recorder(mp)
