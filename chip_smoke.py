@@ -152,10 +152,18 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    network is chaotic), a check shown to fail for a kernel that drops the
    last KV tile; then the same widths in float32, two layers, S = 1024,
    through the simple kernel, checked the same way (6c); ``ServeEngine`` at full
-   width, 4 slots, 8 greedy requests of 32 tokens in 62 decode steps, with
-   TTFT, decode ms a step and tokens/s, and request 0's prefill and first
-   two decode steps checked, teacher-forced, against a no-cache forward
-   (6d); the ``ops.matmul`` entry point at 4096^3, float32 and bfloat16 (6e).
+   width, 4 slots, its decode and scatter programs captured into CUDA
+   graphs and its prefill eager, 8 greedy requests of 32 tokens in 62
+   decode steps: decode compiles 1 then 61 graph replays and scatter one
+   per slot used, as the JAX engine jits them, and one eager prefill a
+   request; TTFT, decode ms a step, tokens/s, each prefill's ms, the
+   graphs' pool bytes; an eager reference run of the plain programs whose
+   tokens and logits the captured engine's must equal bit for bit, and in
+   which request 0's prefill and first two decode steps are checked,
+   teacher-forced, against a no-cache forward; a profiled decode replay;
+   and a temperature / top-k run, captured, every token inside its top-k
+   and two replays from the same inputs drawing anew (6d); the
+   ``ops.matmul`` entry point at 4096^3, float32 and bfloat16 (6e).
 7. The non-dense LM families (``NONDENSE``), each at its published widths,
    bf16, seeded random weights, built after the one before is freed, with
    its parameters and bytes: granite-moe-1b-a400m (24 layers, 7a),
@@ -172,10 +180,12 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
    error held too; the share dropped at capacity printed; MoE routers
    asserted fp32 on the card), and profiled with the device time grouped
    by expert GEMMs, dispatch, router, the SSD and WKV chunk loops, flash,
-   dense GEMMs and elementwise work.  ``ServeEngine`` as in 6d runs
-   granite (at its capacity factor, then at n_experts / top_k, where no
-   token drops, for the teacher-forced check), zamba2, rwkv6 and musicgen
-   (prompts of frame embeddings, decoding through the stub table).
+   dense GEMMs and elementwise work.  ``ServeEngine`` as in 6d, captured,
+   runs granite (at its capacity factor, then at n_experts / top_k, where
+   no token drops, for the teacher-forced check), zamba2, rwkv6 and
+   musicgen (prompts of frame embeddings, decoding through the stub
+   table), each eager reference run cut to the first wave's prefills and
+   the first three engine steps.
 8. Training, in a process of its own (``chip_smoke.py --phase 8``, which
    ``main`` starts before phase 1 touches the card: its 50 GB peak needs
    the whole card), with
@@ -2244,6 +2254,8 @@ ENGINE = {"slots": 4, "max_seq": 2048}
 ENGINE_REQUESTS, ENGINE_NEW, ENGINE_PROMPTS = 8, 32, (64, 1024)
 ENGINE_PROBE = 510  # request 0's prompt; with its first two tokens, a 512-long forward
 ENGINE_DECODE_STEPS = 62  # two waves of four slots, 31 decode steps each
+ENGINE_SAMPLED = {"temperature": 1.0, "top_k": 50}  # 6d's sampled run
+ENGINE_EAGER_STEPS = 3  # phase 7's eager reference runs: the first wave's prefills and decode steps 1-2
 # tests/test_kernels.py::test_flash_attention; flash outputs are also held to it row
 # by row, as each row's relative L2 error (see flash_close)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -2834,12 +2846,113 @@ def lm_forward_f32(torch, fa) -> int:
     return launches
 
 
-def lm_engine(torch, model, check: bool = True, profile: bool = True) -> dict:
-    """Phase 6d (and 7's engines): ``ServeEngine`` at full width, greedy, ENGINE slots:
-    ENGINE_REQUESTS requests of ENGINE_NEW new tokens with prompts of
-    ENGINE_PROMPTS tokens from ``np.random.default_rng(0)`` (request 0's
-    prompt ENGINE_PROBE long).  Checks the requests, tokens and decode
-    steps; then request 0's prefill and first two decode steps against a
+def engine_prompts(cfg):
+    """ENGINE_REQUESTS prompts of ENGINE_PROMPTS tokens from
+    ``np.random.default_rng(0)`` (request 0's ENGINE_PROBE long), or frame
+    embeddings (standard normal / sqrt(d_model)) for a stub frontend."""
+    import numpy as np
+
+    from repro_torch.models.frontend import uses_stub_frontend
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(ENGINE_PROMPTS[0], ENGINE_PROMPTS[1] + 1, ENGINE_REQUESTS)
+    lengths[0] = ENGINE_PROBE
+    if uses_stub_frontend(cfg):
+        return [(rng.standard_normal((int(n), cfg.d_model)) / math.sqrt(cfg.d_model)).astype(np.float32)
+                for n in lengths]
+    return [rng.integers(0, cfg.vocab, int(n)) for n in lengths]
+
+
+def engine_recorded(torch, eng) -> dict:
+    """Record the engine's program calls, at the host, around them: each
+    decode's (next tokens, logits) and each prefill's logits with its
+    prompt length and synchronized ms.  ``engine_unrecorded`` undoes it."""
+    rec = {"decode": [], "prefill": [], "prefill_ms": [], "decode_call": eng._decode}
+    prefill = eng._prefill_fn
+
+    class RecordedDecode:  # the decode program, its counts read through
+        def __call__(self, *args):
+            out = rec["decode_call"](*args)
+            rec["decode"].append(out)
+            return out
+
+        def __getattr__(self, name):
+            return getattr(rec["decode_call"], name)
+
+    def recorded_prefill(one, prompt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(one, prompt)
+        torch.cuda.synchronize()
+        rec["prefill_ms"].append((prompt.shape[1], (time.perf_counter() - t0) * 1e3))
+        rec["prefill"].append(logits)
+        return logits
+
+    eng._decode, eng._prefill_fn = RecordedDecode(), recorded_prefill
+    return rec
+
+
+def engine_unrecorded(eng, rec) -> None:
+    eng._decode = rec["decode_call"]
+    del eng._prefill_fn
+
+
+def engine_pass(torch, eng, prompts, max_steps: int = 10_000) -> dict:
+    """Submit one request of ENGINE_NEW new tokens a prompt and step the
+    engine until it drains (or ``max_steps`` steps): the requests, the wall
+    s, and the ms of each step without admissions and of each with."""
+    from repro_torch.serving import Request
+
+    reqs = [Request(rid=i, prompt=pr, max_new_tokens=ENGINE_NEW) for i, pr in enumerate(prompts)]
+    steps0 = eng.decode_steps
+    t_start = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    decode_ms, admit_ms = [], []
+    while (eng.queue or any(r is not None for r in eng.slot_req)) and len(decode_ms) + len(admit_ms) < max_steps:
+        queued = len(eng.queue)
+        t0 = time.perf_counter()
+        eng.step()
+        (admit_ms if len(eng.queue) < queued else decode_ms).append((time.perf_counter() - t0) * 1e3)
+    return dict(reqs=reqs, wall_s=time.perf_counter() - t_start, decode_ms=decode_ms, admit_ms=admit_ms,
+                decode_steps=eng.decode_steps - steps0)
+
+
+def engine_eager(torch):
+    """``ServeEngine`` whose programs are its plain ``_scatter_fn`` and
+    ``_decode_fn``, called eagerly as its prefill is: the reference run
+    that the captured engine is held against, and the only one the
+    instrumented teacher-forced check can see into."""
+    from repro_torch.serving import ServeEngine
+
+    class EagerEngine(ServeEngine):
+        def _compiled(self, fn, name, donate, generators=()):
+            return fn
+
+    return EagerEngine
+
+
+def engine_counts(stats: dict) -> str:
+    return ", ".join(f"{k} compiles={v['compiles']} graph_replays={v['graph_replays']} pool_bytes={v['pool_bytes']}"
+                     for k, v in stats.items()) + f", prefill eager_calls={stats['prefill']['eager_calls']}"
+
+
+def lm_engine(torch, model, check: bool = True, profile: bool = True, eager_steps=None,
+              sampled: bool = False) -> dict:
+    """Phase 6d (and 7's engines): ``ServeEngine`` at full width, greedy,
+    ENGINE slots, its decode and scatter programs each captured into a CUDA
+    graph, its prefill eager: ENGINE_REQUESTS requests of ENGINE_NEW new
+    tokens on ``engine_prompts``.  Checks the requests, tokens and decode
+    steps, and the compile counts of the reference's jitted decode and
+    scatter: decode 1 then a replay a step, scatter one per slot used; and
+    one eager prefill a request.  Prints each admission's prefill ms, the
+    TTFT and the graphs' pool bytes.
+
+    Then an eager reference run (``engine_eager``: the plain programs) of
+    the first pass's schedule, or of its first ``eager_steps`` steps: its
+    tokens, every decode step's logits and every prefill's logits must
+    equal the captured engine's bit for bit.  That run is instrumented:
+    request 0's prefill and first two decode steps are held against a
     no-cache forward over its prompt and those two tokens (ENGINE_PROBE + 2
     long, a multiple of the flash kernel's 128), teacher-forced as in
     lm_forward: every layer of the forward takes the inputs the engine's
@@ -2847,136 +2960,205 @@ def lm_engine(torch, model, check: bool = True, profile: bool = True) -> dict:
     outputs and logits at the last three positions must agree with the
     engine's.  That holds only if the prefill's cache scatter, the
     per-slot positions and the cache reads (KV rows and recurrent states)
-    are right.  A stub-frontend model takes prompts of frame/patch
-    embeddings (standard normal / sqrt(d_model), from the same generator)
-    and decodes through the engine's stub table.  ``check=False`` skips
-    the teacher-forced check (an MoE model at a capacity that drops
-    tokens: its routing depends on the other slots' tokens, which no
-    single sequence's forward sees); ``profile=False`` the profiled step.
-    Returns the engine's numbers."""
+    are right.  A stub-frontend model decodes through the engine's stub
+    table.  ``check=False`` skips the teacher-forced check (an MoE model at
+    a capacity that drops tokens: its routing depends on the other slots'
+    tokens, which no single sequence's forward sees); ``profile=False`` the
+    profiled decode replay; ``sampled`` adds ``engine_sampled``.  Returns
+    the engine's numbers."""
     import numpy as np
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as tr
     from repro_torch.models.layers import norm_apply
-    from repro_torch.serving import EngineConfig, Request, ServeEngine
+    from repro_torch.serving import EngineConfig, ServeEngine
 
     cfg = model.cfg
     torch.cuda.empty_cache()
+    prompts = engine_prompts(cfg)
+    lengths = [len(p) for p in prompts]
+    fa.reset_launches()
     eng = ServeEngine(cfg, model, EngineConfig(**ENGINE))
-    rng = np.random.default_rng(0)
-    lengths = rng.integers(ENGINE_PROMPTS[0], ENGINE_PROMPTS[1] + 1, ENGINE_REQUESTS)
-    lengths[0] = ENGINE_PROBE
-    stub = eng.stub
-    if stub:
-        prompts = [(rng.standard_normal((int(n), cfg.d_model)) / math.sqrt(cfg.d_model)).astype(np.float32)
-                   for n in lengths]
-    else:
-        prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lengths]
-    reqs = [Request(rid=i, prompt=pr, max_new_tokens=ENGINE_NEW) for i, pr in enumerate(prompts)]
-    # request 0's calls: the first prefill, then the first two decode steps (slot 0);
-    # for each, every layer's input and last-position output, and the logits
-    rec = {"prefill": 0, "decode": 0, "on": False}
+    rec = engine_recorded(torch, eng)
+    first = engine_pass(torch, eng, prompts)
+    stats = eng.stats
+    reqs = first["reqs"]
+    fa_launches = fa.LAUNCHES["flash_attention"]
+    bad = [r.rid for r in reqs if len(r.out_tokens) != ENGINE_NEW or not all(0 <= t < cfg.vocab for t in r.out_tokens)]
+    done = [r for r in reqs if r.done]
+    if len(done) != ENGINE_REQUESTS or bad or first["decode_steps"] != ENGINE_DECODE_STEPS:
+        raise AssertionError(f"engine: done={len(done)} bad requests={bad} decode_steps={first['decode_steps']} "
+                             f"(want {ENGINE_REQUESTS}, none, {ENGINE_DECODE_STEPS})")
+    slots = min(ENGINE["slots"], ENGINE_REQUESTS)
+    want = {"decode": (1, ENGINE_DECODE_STEPS - 1), "prefill": (0, 0), "scatter": (slots, ENGINE_REQUESTS - slots)}
+    got = {k: (stats[k]["compiles"], stats[k]["graph_replays"]) for k in want}
+    if got != want or stats["prefill"]["eager_calls"] != ENGINE_REQUESTS:
+        raise AssertionError(f"engine {cfg.name}: (compiles, graph_replays) {got}, want {want}; prefill eager "
+                             f"calls {stats['prefill']['eager_calls']}, want {ENGINE_REQUESTS}")
+    ttft = [(r.t_first - r.t_submit) * 1e3 for r in reqs]
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    decode_ms = first["decode_ms"]
+    out = dict(tokens_per_s=n_tok / first["wall_s"], decode_ms=float(np.mean(decode_ms)), ttft_ms=ttft,
+               wall_s=first["wall_s"], prefill_ms=[ms for _, ms in rec["prefill_ms"]], stats=stats)
+    print(f"engine {cfg.name} slots={ENGINE['slots']} max_seq={ENGINE['max_seq']} greedy, decode and scatter "
+          f"captured, prefill eager: {len(done)} requests, prompts {sorted(lengths)}, {ENGINE_NEW} new tokens each, "
+          f"decode_steps={first['decode_steps']}, flash launches={fa_launches} (the cache path attends through "
+          f"_sdpa_auto); {engine_counts(stats)} (want (compiles, graph_replays) {want}); wall_s={first['wall_s']:.3f} "
+          f"tokens_per_s={out['tokens_per_s']:.1f}; TTFT ms wave 1 {', '.join(f'{t:.1f}' for t in ttft[:4])}, wave 2 "
+          f"{', '.join(f'{t:.1f}' for t in ttft[4:])}; prefill ms "
+          f"{', '.join(f'S={S} {ms:.1f}' for S, ms in rec['prefill_ms'])}; decode-only step ms "
+          f"mean={np.mean(decode_ms):.3f} median={np.median(decode_ms):.3f} min={np.min(decode_ms):.3f} "
+          f"max={np.max(decode_ms):.3f} first (the graph's first replay)={decode_ms[0]:.3f} over {len(decode_ms)} "
+          f"steps; steps with admissions ms={', '.join(f'{t:.1f}' for t in first['admit_ms'])}; reserved now "
+          f"{torch.cuda.memory_reserved()}")
+
+    # the eager reference run, instrumented: request 0's calls (the first
+    # prefill, then the first two decode steps, slot 0); for each, every
+    # layer's input and last-position output, and the logits
+    ref = engine_eager(torch)(cfg, model, EngineConfig(**ENGINE))
+    ref_rec = engine_recorded(torch, ref)
+    inst = {"prefill": 0, "decode": 0, "on": False}
     captured, logits = [], []
     prefill, decode_step, layer_apply = model.prefill, model.decode_step, tr._layer_apply
 
     def record_layer(*args, **kw):
         y = layer_apply(*args, **kw)
-        if rec["on"]:
+        if inst["on"]:
             x = args[3]
             captured[-1].append((x[:1].clone(), y[:1, -1:].clone()))
         return y
 
-    def record(fn, kind: str, first: int):
+    def record(fn, kind: str, first_calls: int):
         def call(*args):
-            rec["on"] = rec[kind] < first
-            rec[kind] += 1
-            if rec["on"]:
+            inst["on"] = inst[kind] < first_calls
+            inst[kind] += 1
+            if inst["on"]:
                 captured.append([])
-            out, cache = fn(*args)
-            if rec["on"]:
-                logits.append(out[0].clone())
-            rec["on"] = False
-            return out, cache
+            lg, cache = fn(*args)
+            if inst["on"]:
+                logits.append(lg[0].clone())
+            inst["on"] = False
+            return lg, cache
 
         return call
 
-    fa.reset_launches()
     model.prefill, model.decode_step = record(prefill, "prefill", 1), record(decode_step, "decode", 2)
     tr._layer_apply = record_layer
     try:
-        t_start = time.perf_counter()
-        for r in reqs:
-            eng.submit(r)
-        decode_ms, admit_ms = [], []
-        while eng.queue or any(r is not None for r in eng.slot_req):
-            queued = len(eng.queue)
-            t0 = time.perf_counter()
-            eng.step()
-            (admit_ms if len(eng.queue) < queued else decode_ms).append((time.perf_counter() - t0) * 1e3)
-        wall_s = time.perf_counter() - t_start
+        eager = engine_pass(torch, ref, prompts, max_steps=eager_steps or 10_000)
     finally:
         del model.prefill, model.decode_step
         tr._layer_apply = layer_apply
-    fa_launches = fa.LAUNCHES["flash_attention"]
-    done = [r for r in reqs if r.done]
-    bad = [r.rid for r in reqs if len(r.out_tokens) != ENGINE_NEW or not all(0 <= t < cfg.vocab for t in r.out_tokens)]
-    if len(done) != ENGINE_REQUESTS or bad or eng.decode_steps != ENGINE_DECODE_STEPS:
-        raise AssertionError(f"engine: done={len(done)} bad requests={bad} decode_steps={eng.decode_steps} "
-                             f"(want {ENGINE_REQUESTS}, none, {ENGINE_DECODE_STEPS})")
-    ttft = [(r.t_first - r.t_submit) * 1e3 for r in reqs]
-    n_tok = sum(len(r.out_tokens) for r in reqs)
-    out = dict(tokens_per_s=n_tok / wall_s, decode_ms=float(np.mean(decode_ms)), ttft_ms=ttft, wall_s=wall_s)
-    print(f"engine {cfg.name} slots={ENGINE['slots']} max_seq={ENGINE['max_seq']} greedy: {len(done)} requests, "
-          f"prompts {sorted(int(n) for n in lengths)}, {ENGINE_NEW} new tokens each, decode_steps={eng.decode_steps}, "
-          f"flash launches={fa_launches} (the cache path attends through _sdpa_auto); wall_s={wall_s:.3f} "
-          f"tokens_per_s={n_tok / wall_s:.1f}; TTFT ms wave 1 {', '.join(f'{t:.1f}' for t in ttft[:4])}, wave 2 "
-          f"{', '.join(f'{t:.1f}' for t in ttft[4:])}; decode-only step ms mean={np.mean(decode_ms):.3f} "
-          f"min={np.min(decode_ms):.3f} max={np.max(decode_ms):.3f} over {len(decode_ms)} steps; steps with "
-          f"admissions ms={', '.join(f'{t:.1f}' for t in admit_ms)}")
-    if not check:
-        return out
+    n_dec, n_pre = len(ref_rec["decode"]), len(ref_rec["prefill"])
+    same = (all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                for a, b in zip(rec["decode"][:n_dec], ref_rec["decode"]))
+            and all(torch.equal(a, b) for a, b in zip(rec["prefill"][:n_pre], ref_rec["prefill"]))
+            and all(e.out_tokens == c.out_tokens[:len(e.out_tokens)] for e, c in zip(eager["reqs"], reqs)))
+    eager_ms = float(np.mean(eager["decode_ms"])) if eager["decode_ms"] else float("nan")
+    out["eager_decode_ms"] = eager_ms
+    print(f"engine {cfg.name} eager reference run (the plain programs) of {n_dec} decode steps and {n_pre} "
+          f"prefills: tokens, every decode step's next tokens and logits and every prefill's logits equal to the "
+          f"captured engine's bit for bit: {same}; eager decode-only step ms mean={eager_ms:.3f} over "
+          f"{len(eager['decode_ms'])} steps (captured {out['decode_ms']:.3f}); eager prefill ms "
+          f"{', '.join(f'{ms:.1f}' for _, ms in ref_rec['prefill_ms'])}")
+    if not same or n_dec == 0:
+        diffs = [(a[1] - b[1]).abs().max().item() for a, b in zip(rec["decode"], ref_rec["decode"])]
+        raise AssertionError(f"engine {cfg.name}: the captured programs differ from the eager ones: decode logits "
+                             f"max diffs {diffs[:8]}")
+    del ref, ref_rec
+    if check:
+        pre, d1, d2 = captured
+        n = ENGINE_PROBE + 2
+        pos = torch.arange(n, device=model.device)[None]
+        errs = []
+        for i, (desc, p) in enumerate(model_layers(model)):
+            x = torch.cat([pre[i][0], d1[i][0], d2[i][0]], dim=1)  # (1, n, D): the inputs the engine's layer saw
+            y = layer_apply(cfg, desc, p, x, pos, None, None)
+            got_y = torch.cat([pre[i][1], d1[i][1], d2[i][1]], dim=1)
+            errs.append(max(rel_l2(g, w) for g, w in zip(got_y[0], y[0, -3:])))
+        want_lg = model.lm_logits(norm_apply(cfg, model.params["final_norm"], y[0, -3:]))
+        lg_errs = [rel_l2(g, w) for g, w in zip(logits, want_lg)]
+        top1 = [bool(g.argmax() == w.argmax()) for g, w in zip(logits, want_lg)]
+        r0 = reqs[0]
+        if eng.stub:
+            emb = eng.stub_table[torch.tensor(r0.out_tokens[:2], device=model.device)]
+            seq = {"embeds": torch.cat([torch.from_numpy(r0.prompt).cuda(), emb])[None].to(cfg.compute_dtype)}
+        else:
+            seq = {"tokens": torch.from_numpy(np.concatenate([r0.prompt, r0.out_tokens[:2]])[None]).cuda()}
+        h, _ = model(seq)
+        free = model.lm_logits(h[0, -3:])
+        print(f"engine request 0 (prompt {ENGINE_PROBE}): prefill and decode steps 1-2 of the eager reference run "
+              f"vs a no-cache forward of {n} tokens at positions {n - 3}..{n - 1}, teacher-forced: max layer "
+              f"rel_l2={max(errs):.3e} (layer {errs.index(max(errs))}), logits rel_l2="
+              f"{', '.join(f'{e:.3e}' for e in lg_errs)} top1_agree={top1} (tol {LM_TOL}); free-running (not a "
+              f"check) logits rel_l2={', '.join(f'{rel_l2(g, w):.3e}' for g, w in zip(logits, free))} top1_agree="
+              f"{[bool(g.argmax() == w.argmax()) for g, w in zip(logits, free)]}")
+        if max(errs + lg_errs) > LM_TOL:
+            raise AssertionError(f"engine disagrees with the no-cache forward: layers {errs} logits {lg_errs}")
+        out["check_layer_max"], out["check_logits_max"] = max(errs), max(lg_errs)
+    del captured, logits
+    engine_unrecorded(eng, rec)
+    if profile:
+        toks = torch.zeros(ENGINE["slots"], dtype=torch.long, device=model.device)
+        pos = torch.full((ENGINE["slots"],), ENGINE_PROBE, device=model.device)
+        replays = eng._decode.graph_replays
 
-    pre, d1, d2 = captured
-    n = ENGINE_PROBE + 2
-    pos = torch.arange(n, device=model.device)[None]
-    errs = []
-    for i, (desc, p) in enumerate(model_layers(model)):
-        x = torch.cat([pre[i][0], d1[i][0], d2[i][0]], dim=1)  # (1, n, D): the inputs the engine's layer saw
-        y = layer_apply(cfg, desc, p, x, pos, None, None)
-        got = torch.cat([pre[i][1], d1[i][1], d2[i][1]], dim=1)
-        errs.append(max(rel_l2(g, w) for g, w in zip(got[0], y[0, -3:])))
-    want = model.lm_logits(norm_apply(cfg, model.params["final_norm"], y[0, -3:]))
-    lg_errs = [rel_l2(g, w) for g, w in zip(logits, want)]
-    top1 = [bool(g.argmax() == w.argmax()) for g, w in zip(logits, want)]
-    r0 = reqs[0]
-    if stub:
-        emb = eng.stub_table[torch.tensor(r0.out_tokens[:2], device=model.device)]
-        seq = {"embeds": torch.cat([torch.from_numpy(r0.prompt).cuda(), emb])[None].to(cfg.compute_dtype)}
-    else:
-        seq = {"tokens": torch.from_numpy(np.concatenate([r0.prompt, r0.out_tokens[:2]])[None]).cuda()}
-    h, _ = model(seq)
-    free = model.lm_logits(h[0, -3:])
-    print(f"engine request 0 (prompt {ENGINE_PROBE}): prefill and decode steps 1-2 vs a no-cache forward of {n} "
-          f"tokens at positions {n - 3}..{n - 1}, teacher-forced: max layer rel_l2={max(errs):.3e} (layer "
-          f"{errs.index(max(errs))}), logits rel_l2={', '.join(f'{e:.3e}' for e in lg_errs)} top1_agree={top1} "
-          f"(tol {LM_TOL}); free-running (not a check) logits rel_l2="
-          f"{', '.join(f'{rel_l2(g, w):.3e}' for g, w in zip(logits, free))} top1_agree="
-          f"{[bool(g.argmax() == w.argmax()) for g, w in zip(logits, free)]}")
-    if max(errs + lg_errs) > LM_TOL:
-        raise AssertionError(f"engine disagrees with the no-cache forward: layers {errs} logits {lg_errs}")
-    out["check_layer_max"], out["check_logits_max"] = max(errs), max(lg_errs)
-    if not profile:
-        return out
-    toks = torch.zeros(ENGINE["slots"], dtype=torch.long, device=model.device)
-    pos = torch.full((ENGINE["slots"],), ENGINE_PROBE, device=model.device)
+        def decode():
+            eng._decode(eng.cache, toks, pos)[0].cpu()  # as a step: the sampled tokens come back to the host
+            return f"slots={ENGINE['slots']} graph_replays={eng._decode.graph_replays - replays}"
 
-    def decode():
-        eng._decode_fn(toks, pos).cpu()  # as a step: the sampled tokens come back to the host
-        return f"slots={ENGINE['slots']}"
-
-    profiled(torch, f"engine {cfg.name} decode step", decode, classify=lm_kernel)
+        profiled(torch, f"engine {cfg.name} decode step (a graph replay)", decode, classify=lm_kernel)
+    eng.release()
+    del eng, rec
+    if sampled:
+        out["sampled"] = engine_sampled(torch, model, prompts)
     return out
+
+
+def engine_sampled(torch, model, prompts) -> dict:
+    """6d's sampled run: ``ServeEngine`` at ENGINE's shape with
+    ENGINE_SAMPLED's temperature and top-k, captured, on the first wave's
+    prompts: every decoded token of every slot lies in its step's top-k set
+    of the logits the decode program returned; then two replays of the
+    decode graph from the same inputs: equal logits, the generator's offset
+    advanced by each, and other draws."""
+    import numpy as np
+
+    from repro_torch.serving import EngineConfig, ServeEngine
+
+    cfg = model.cfg
+    k = ENGINE_SAMPLED["top_k"]
+    eng = ServeEngine(cfg, model, EngineConfig(**ENGINE, **ENGINE_SAMPLED))
+    rec = engine_recorded(torch, eng)
+    run = engine_pass(torch, eng, prompts[:ENGINE["slots"]])
+    outside = 0
+    for nxt, lg in rec["decode"]:
+        outside += int((torch.topk(lg, k, dim=-1).indices != nxt[:, None]).all(-1).sum())
+    engine_unrecorded(eng, rec)
+    toks = torch.as_tensor(eng.slot_tok, device=model.device)
+    pos = torch.full((ENGINE["slots"],), ENGINE_PROBE, device=model.device)
+    offsets = [eng._gen.get_offset()]
+    a = eng._decode(eng.cache, toks, pos)
+    offsets.append(eng._gen.get_offset())
+    b = eng._decode(eng.cache, toks, pos)
+    offsets.append(eng._gen.get_offset())
+    stats = eng.stats
+    lg = a[1].float() / ENGINE_SAMPLED["temperature"]
+    top = torch.topk(lg, k, dim=-1).values
+    p = torch.softmax(top, dim=-1)
+    agree = float(torch.prod((p * p).sum(-1)))  # both replays draw the same tokens in every slot
+    print(f"engine {cfg.name} sampled, captured (temperature={ENGINE_SAMPLED['temperature']} top_k={k}): "
+          f"{len(run['reqs'])} requests, {run['decode_steps']} decode steps, tokens outside their step's top-k: "
+          f"{outside} of {len(rec['decode']) * ENGINE['slots']}; {engine_counts(stats)}; two replays from the same "
+          f"inputs: logits equal {torch.equal(a[1], b[1])}, tokens {a[0].tolist()} and {b[0].tolist()}, generator "
+          f"offsets {offsets} (the chance that both draw alike in every slot: {agree:.3e}); decode-only step ms "
+          f"mean={np.mean(run['decode_ms']):.3f}")
+    if (outside or not torch.equal(a[1], b[1]) or torch.equal(a[0], b[0]) or not offsets[0] < offsets[1] < offsets[2]
+            or stats["decode"]["compiles"] != 1 or stats["decode"]["graph_replays"] != run["decode_steps"] + 1):
+        raise AssertionError(f"engine sampled: outside top-k {outside}, replays {a[0].tolist()} {b[0].tolist()}, "
+                             f"offsets {offsets}, {stats}")
+    eng.release()
+    return {"outside_top_k": outside, "decode_ms": float(np.mean(run["decode_ms"]))}
 
 
 def matmul_path(torch, tl, rng) -> dict:
@@ -3019,7 +3201,7 @@ def lm_path(torch, tl, rng) -> list:
     simple = flash_timing(torch, fa, rng, f"{LM} float32", 1, 36, 4, LM_F32["S"], 128, 0, dt=torch.float32)
     mm = matmul_timing(torch, tl, rng)
     model, flash_launches = lm_forward(torch, fa)
-    LM_NUMBERS["engine"] = lm_engine(torch, model)
+    LM_NUMBERS["engine"] = lm_engine(torch, model, sampled=True)
     del model
     simple_launches = lm_forward_f32(torch, fa)
     mm_launches = matmul_path(torch, tl, rng)
@@ -3291,12 +3473,12 @@ def nondense_path(torch) -> dict:
             paths[name] = launches
         if spec["engine"]:
             cfg = model.cfg
-            lm_engine(torch, model, check=not cfg.is_moe)
+            lm_engine(torch, model, check=not cfg.is_moe, eager_steps=ENGINE_EAGER_STEPS)
             if cfg.is_moe:
                 model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
                 print(f"engine {name}: again at capacity_factor={model.cfg.capacity_factor} (no drops) for the "
                       f"teacher-forced check")
-                lm_engine(torch, model, check=True, profile=False)
+                lm_engine(torch, model, check=True, profile=False, eager_steps=ENGINE_EAGER_STEPS)
                 model.cfg = cfg
         del model
         torch.cuda.empty_cache()

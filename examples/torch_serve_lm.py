@@ -3,7 +3,12 @@ pool (the counterpart of ``examples/serve_lm.py``).
 
 The architecture's reduced configuration, weights drawn from a seeded
 ``torch.Generator``; a stub-frontend architecture (``musicgen-large``,
-``pixtral-12b``) takes integer-valued frame embeddings as prompts.
+``pixtral-12b``) takes integer-valued frame embeddings as prompts.  The
+last line gives the engine's programs' compiles and graph replays: on the
+card the decode and each slot's scatter are captured into a CUDA graph on
+their first call and replayed after, and the prefill runs eagerly, once a
+request; on the CPU every call runs eagerly, with the same compiles and no
+replays.
 
     PYTHONPATH=src python examples/torch_serve_lm.py --arch starcoder2-7b --requests 8           # on the card
     PYTHONPATH=src python examples/torch_serve_lm.py --requests 4 --new-tokens 4 --device cpu
@@ -60,9 +65,14 @@ def main(argv=None) -> dict:
     ttft = np.mean([r.t_first - r.t_submit for r in done])
     lines.append(f"{len(done)} requests, {n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s, {args.slots} slots, "
                  f"{eng.decode_steps} batched decode steps, mean TTFT {ttft * 1e3:.0f}ms, {dev.type})")
+    stats = eng.stats
+    lines.append("programs: " + ", ".join(f"{k} compiles={v['compiles']} graph_replays={v['graph_replays']}"
+                                          for k, v in stats.items())
+                 + f", prefill eager_calls={stats['prefill']['eager_calls']}")
     for line in lines:
         print(line)
-    return {"lines": lines, "tokens": {r.rid: list(r.out_tokens) for r in done}, "decode_steps": eng.decode_steps}
+    return {"lines": lines, "tokens": {r.rid: list(r.out_tokens) for r in done}, "decode_steps": eng.decode_steps,
+            "stats": stats}
 
 
 if __name__ == "__main__":

@@ -386,8 +386,9 @@ def _padded(flags: Tuple[bool, ...], n: int) -> Tuple[bool, ...]:
 class CapturedCall:
     """A function of trees of tensors captured once into a CUDA graph over
     static buffers: the counterpart of ``jax.jit`` for the training step
-    (``launch/steps.py`` ``StepPlan.jitted``) and the fused task-tree
-    executor (``train/step_ops.py``).
+    (``launch/steps.py`` ``StepPlan.jitted``), the fused task-tree
+    executor (``train/step_ops.py``) and the serving engine's decode and
+    scatter programs (``serving/engine.py``).
 
     The first call on the card adopts each argument marked in ``donate`` as
     its static buffer (the function updates it in place: the counterpart of
@@ -403,7 +404,15 @@ class CapturedCall:
     changes a result the caller holds.  A capture that fails raises
     ``CaptureError`` naming ``name``; nothing falls back to eager on the
     card.  On the CPU every call runs the function eagerly on the
-    arguments, counting one compile.
+    arguments, counting one compile.  ``pool_bytes`` is the device memory
+    that the capture reserved (its private pool).
+
+    ``generators``: the ``torch.Generator``s the function draws from (the
+    engine decode's sampler).  Each is registered with the graph before its
+    capture (``register_generator_state``), so that every replay takes the
+    generator's current offset and advances it by the draws of one call, as
+    an eager call does: two replays on the same inputs draw anew (the
+    warm-up draws as an eager call).
 
     Over a mesh (``group``: the process group over its ranks) the arguments
     are DTensors, or this rank's blocks of them: the static buffers are
@@ -429,12 +438,15 @@ class CapturedCall:
     buffers would broadcast, cast or land in the wrong buffer).
     """
 
-    def __init__(self, fn, name: str, donate: Sequence[bool] = (), group=None, resident: Sequence[bool] = ()):
+    def __init__(self, fn, name: str, donate: Sequence[bool] = (), group=None, resident: Sequence[bool] = (),
+                 generators: Sequence[torch.Generator] = ()):
         self.fn = fn
         self.name = name
         self.donate = tuple(donate)
         self.resident = tuple(resident)
         self.group = group
+        self.generators = tuple(generators)
+        self.pool_bytes = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static = None
         self.outputs = None
@@ -503,6 +515,10 @@ class CapturedCall:
         gc.collect()
         torch.cuda.empty_cache()  # the graph's private pool takes what the warm-up freed
         graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            if g.device.type == "cuda":
+                graph.register_generator_state(g)
+        reserved = torch.cuda.memory_reserved(device)
         with torch.cuda.stream(stream), _collector_off():
             pool = _begin_capture(graph, collective)
             try:
@@ -514,6 +530,7 @@ class CapturedCall:
                 raise CaptureError(f"capturing {self.name} failed: {type(e).__name__}: {e}") from e
             graph.capture_end()
         torch.cuda.current_stream(device).wait_stream(stream)
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.graph = graph
         self.compiles += 1
         return out

@@ -13,11 +13,41 @@ and prefill programs.  Requests queue up; each engine step
   3. samples (greedy / temperature / top-k), appends, retires finished
      slots and immediately refills them from the queue.
 
-The JAX engine jit-compiles the prefill once per prompt length and the
-decode once; the port runs them eagerly.  Greedy sampling is an argmax.
-Temperature and top-k sampling draw from the engine's own
-``torch.Generator`` seeded from ``EngineConfig.seed``: the same schedule,
-but not ``jax.random``'s draws.
+The JAX engine jit-compiles three programs (``jax.jit`` of ``_decode``,
+``_prefill`` with a static ``pad_len`` and ``_scatter`` with a static
+``slot``).  The port captures two of their counterparts, each a
+``CapturedCall`` (``core/executors/captured.py``), into CUDA graphs on the
+card, with the reference's compile counts: one decode graph, one scatter
+graph per slot used; every later call replays its graph
+(``ServeEngine.stats``).  The decode program takes the slot-pooled cache
+as a donated argument, always the same tensors, and writes it in place;
+each scatter program copies the one-row prefill cache, also always the
+same tensors, into its slot's cache lane.  The engine thus holds 1 +
+``slots`` graphs, whatever its traffic.  The weights are read through the
+model, by address: replacing a parameter's storage after the first call
+is not supported.  A capture that fails raises ``CaptureError`` naming the
+program; the decode and the scatters never run eagerly on the card.  On
+the CPU every program runs eagerly, counting the same compiles.
+
+The prefill runs eagerly on either device, one call an admission: it is
+the one program whose shape follows the traffic (the prompt's length), and
+a graph per length pays only where that length comes back.  A capture
+costs a warm-up run, the recording and a pool of its own: on an H100 at
+starcoder2-7b's widths a length's first call took 485-858 ms against an
+eager prefill's 65-107 ms, a length had to come back 10-74 times to pay
+that back, and 30 lengths held 17.7 GB of pools
+(``scripts/engine_traffic.py``).  The prefill zeroes the one-row cache
+before it fills it: the reference builds a fresh zeroed cache, and a
+recurrent state must not carry one prompt into the next.
+
+Greedy sampling is an argmax.  Temperature and top-k sampling is a
+Gumbel-max draw (``sample``): argmax(logits / T + Gumbel noise), the
+noise from the engine's own ``torch.Generator`` seeded from
+``EngineConfig.seed`` and registered with the decode graph, so that every
+replay draws anew, as an eager call does.  It samples from the same
+distribution as the JAX engine's ``jax.random.categorical``, but not its
+draws.  The first token of a request is sampled on the host side from the
+prefill's logits, outside the programs, as in the reference.
 
 Stub-frontend families (``[audio]``/``[vlm]``) take a prompt of (S, D)
 frame/patch embeddings and decode each sampled token id through a fixed
@@ -29,15 +59,17 @@ such embeddings; the port keeps their values (``DESIGN.md``).
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
 from ..core.data import resolve_device
+from ..core.executors.captured import CapturedCall
 from ..models.frontend import stub_token_table, uses_stub_frontend
 from ..models.model import Model
 from ..models.transformer import cache_leaves
@@ -65,6 +97,22 @@ class Request:
     t_done: Optional[float] = None
 
 
+def sample(logits: torch.Tensor, temperature: float, top_k: int, generator: torch.Generator) -> torch.Tensor:
+    """(B, V) logits -> (B,) token ids: the argmax when ``temperature`` is
+    0, else a Gumbel-max draw from softmax(logits / temperature) over the
+    ``top_k`` largest (all when 0), with uniforms from ``generator``.  It
+    reads nothing back to the host, so a CUDA graph can hold it."""
+    if temperature <= 0.0:
+        return logits.argmax(-1)
+    l = logits.float() / temperature
+    if top_k > 0:
+        kth = torch.topk(l, top_k, dim=-1).values[:, -1:]
+        l = torch.where(l < kth, float("-inf"), l)
+    u = torch.rand(l.shape, generator=generator, device=l.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    return (l + gumbel).argmax(-1)
+
+
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, model: Model, ecfg: Optional[EngineConfig] = None, *,
                  device=None, stub_table=None):
@@ -80,6 +128,7 @@ class ServeEngine:
         self.model = model
         B, S = self.ecfg.slots, self.ecfg.max_seq
         self.cache = self.model.init_cache(B, S)
+        self._one = self.model.init_cache(1, S)  # the prefills' one-row cache, scattered into a slot
         self.slot_req: List[Optional[Request]] = [None] * B
         self.slot_pos = np.zeros(B, dtype=np.int64)  # next write index
         self.slot_tok = np.zeros(B, dtype=np.int64)  # last sampled token
@@ -89,34 +138,69 @@ class ServeEngine:
         self.stub = uses_stub_frontend(cfg)
         self.stub_table = stub_token_table(cfg, self.device, stub_table) if self.stub else None
         self.decode_steps = 0
+        self.prefills = 0  # eager prefill calls
+        self._decode = self._compiled(self._decode_fn, "ServeEngine decode", donate=(True,),
+                                      generators=(self._gen,))
+        self._scatter: Dict[int, CapturedCall] = {}  # slot -> its program
+
+    def _compiled(self, fn, name: str, donate, generators=()) -> CapturedCall:
+        """A program of the engine: captured on its first call on the card
+        and replayed after; eager on the CPU.  ``generators``: those it
+        draws from (the decode's sampler)."""
+        return CapturedCall(fn, name, donate=donate, generators=generators)
 
     # -- programs ------------------------------------------------------------
-    def _prefill_fn(self, prompt: torch.Tensor):
-        """prompt (1, S) tokens or (1, S, D) embeds -> (last-token logits
-        (1, V), a fresh one-row cache holding the prompt)."""
-        cache = self.model.init_cache(1, self.ecfg.max_seq)
-        return self.model.prefill({"embeds" if self.stub else "tokens": prompt}, cache)
+    def _prefill_fn(self, one, prompt: torch.Tensor) -> torch.Tensor:
+        """``one``: the one-row cache, zeroed and then filled in place from
+        the prompt (1, S) tokens or (1, S, D) embeds -> the last token's
+        logits (1, V)."""
+        for leaf in cache_leaves(one):
+            leaf.zero_()
+        logits, _ = self.model.prefill({"embeds" if self.stub else "tokens": prompt}, one)
+        return logits
 
-    def _scatter_fn(self, one, slot: int) -> None:
+    @staticmethod
+    def _scatter_fn(pool, one, slot: int) -> None:
         # every cache leaf has layout (G, B, ...): the batch lane is axis 1
-        for pool, new in zip(cache_leaves(self.cache), cache_leaves(one)):
-            pool[:, slot] = new[:, 0]
+        for p, new in zip(cache_leaves(pool), cache_leaves(one)):
+            p[:, slot] = new[:, 0]
 
-    def _decode_fn(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        """tokens (B,), pos (B,) -> next tokens (B,); the cache in place."""
+    def _decode_fn(self, cache, tokens: torch.Tensor, pos: torch.Tensor):
+        """tokens (B,), pos (B,) -> (next tokens (B,), logits (B, V)); the
+        cache written in place."""
         if self.stub:  # a sampled id enters through its fixed embedding
             batch = {"embeds": self.stub_table[tokens][:, None].to(self.cfg.compute_dtype)}
         else:
             batch = {"tokens": tokens[:, None]}
-        logits, self.cache = self.model.decode_step(self.cache, batch, pos)
-        e = self.ecfg
-        if e.temperature <= 0.0:
-            return logits.argmax(-1)
-        l = logits / e.temperature
-        if e.top_k > 0:
-            kth = torch.topk(l, e.top_k, dim=-1).values[:, -1:]
-            l = torch.where(l < kth, float("-inf"), l)
-        return torch.multinomial(torch.softmax(l, dim=-1), 1, generator=self._gen)[:, 0]
+        logits, _ = self.model.decode_step(cache, batch, pos)
+        return sample(logits, self.ecfg.temperature, self.ecfg.top_k, self._gen), logits
+
+    def _scatter_call(self, slot: int):
+        if slot not in self._scatter:
+            fn = functools.partial(self._scatter_fn, slot=slot)
+            self._scatter[slot] = self._compiled(fn, f"ServeEngine scatter slot={slot}", donate=(True, True))
+        return self._scatter[slot]
+
+    @property
+    def stats(self) -> Dict[str, Dict]:
+        """Per program (decode, prefill, scatter): its compiles (captures on
+        the card, first calls on the CPU), graph replays and pool bytes (the
+        device memory its captures reserved; 0 on the CPU), summed over its
+        call sites; the prefill, never compiled, also gives its eager
+        calls."""
+        def tally(calls):
+            return {"compiles": sum(c.compiles for c in calls), "graph_replays": sum(c.graph_replays for c in calls),
+                    "pool_bytes": sum(c.pool_bytes for c in calls)}
+
+        return {"decode": tally([self._decode]),
+                "prefill": {**tally([]), "eager_calls": self.prefills},
+                "scatter": tally(list(self._scatter.values()))}
+
+    def release(self) -> None:
+        """Drop every program's graph and private pool (the next call on the
+        card captures again)."""
+        for call in [self._decode, *self._scatter.values()]:
+            call.release()
 
     # -- API -------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -124,11 +208,7 @@ class ServeEngine:
         self.queue.append(req)
 
     def _sample_host(self, logits: torch.Tensor) -> int:
-        e = self.ecfg
-        if e.temperature <= 0.0:
-            return int(logits.argmax(-1)[0])
-        probs = torch.softmax(logits / e.temperature, dim=-1)
-        return int(torch.multinomial(probs, 1, generator=self._gen)[0, 0])
+        return int(sample(logits, self.ecfg.temperature, 0, self._gen)[0])
 
     def _admit(self) -> None:
         for slot in range(self.ecfg.slots):
@@ -139,12 +219,11 @@ class ServeEngine:
             if S + req.max_new_tokens > self.ecfg.max_seq:
                 raise ValueError(f"request {req.rid}: prompt {S} + {req.max_new_tokens} new tokens "
                                  f"exceed max_seq {self.ecfg.max_seq}")
-            if self.stub:
-                prompt = torch.as_tensor(np.asarray(req.prompt, dtype=np.float32)[None], device=self.device)
-            else:
-                prompt = torch.as_tensor(np.asarray(req.prompt, dtype=np.int64)[None], device=self.device)
-            logits, one_cache = self._prefill_fn(prompt)
-            self._scatter_fn(one_cache, slot)
+            dtype = np.float32 if self.stub else np.int64
+            prompt = torch.as_tensor(np.asarray(req.prompt, dtype=dtype)[None], device=self.device)
+            logits = self._prefill_fn(self._one, prompt)
+            self.prefills += 1
+            self._scatter_call(slot)(self.cache, self._one)
             tok = self._sample_host(logits)
             self.slot_req[slot] = req
             self.slot_pos[slot] = S
@@ -158,7 +237,8 @@ class ServeEngine:
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             return 0
-        nxt = self._decode_fn(
+        nxt, _ = self._decode(
+            self.cache,
             torch.as_tensor(self.slot_tok, device=self.device),
             torch.as_tensor(self.slot_pos, device=self.device),
         )

@@ -486,6 +486,10 @@ def test_example_serve_lm_matches_jax():
     done = eng.run_until_drained()
     assert out["tokens"] == {r.rid: [int(t) for t in r.out_tokens] for r in done}
     assert out["decode_steps"] == eng.decode_steps
+    # the decode and the scatters compile as the JAX engine jits them; the prefill runs eagerly, once a request
+    assert {k: v["compiles"] for k, v in out["stats"].items()} == {
+        "decode": eng._decode._cache_size(), "prefill": 0, "scatter": eng._scatter._cache_size()}
+    assert out["stats"]["prefill"]["eager_calls"] == len(done)
 
 
 def test_example_train_lm_matches_jax(tmp_path):
